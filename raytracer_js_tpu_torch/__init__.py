@@ -1,0 +1,45 @@
+"""raytracer_js_tpu_torch — the raytracer in PyTorch, with CUDA kernels.
+
+The port of ``raytracer_js_tpu`` (JAX/XLA/Pallas) to PyTorch and hand-written
+CUDA for NVIDIA Hopper. Modules sit at the paths of their counterparts and
+keep their public names and layouts ([N, 3] rays, [h, w, 3] images). It
+imports ``torch`` and ``numpy``, never ``jax``.
+
+The headline path is ``render_hdr`` with ``HitBackend.FUSED`` on a
+fused-class scene: one CUDA kernel renders the whole frame
+(``kernels/trace_fused``, ``csrc/trace_fused.cu``). On CPU tensors every
+kernel runs its plain PyTorch version instead.
+"""
+from .config import (
+    HitBackend,
+    OctreeConfig,
+    RenderConfig,
+    ResponseType,
+    RayStatus,
+    TextureKind,
+    ToneMapConfig,
+    ToneMapperKind,
+)
+from .models.camera import Camera, make_camera, pixel_rays
+from .models.scene import Scene, SceneBuilder
+from .render import render, render_hdr
+
+__all__ = [
+    "Camera",
+    "HitBackend",
+    "OctreeConfig",
+    "RenderConfig",
+    "ResponseType",
+    "RayStatus",
+    "Scene",
+    "SceneBuilder",
+    "TextureKind",
+    "ToneMapConfig",
+    "ToneMapperKind",
+    "make_camera",
+    "pixel_rays",
+    "render",
+    "render_hdr",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,119 @@
+"""Typed configuration records for the PyTorch/CUDA raytracer.
+
+Same enums, constants and records as ``raytracer_js_tpu.config`` (the
+reference package), with the same values, so that a configuration means the
+same thing in both. The reference's ``RT_*`` tunable registry is not carried
+over: its knobs tune TPU kernels that this package does not have.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class ResponseType(enum.IntEnum):
+    """Material response taxonomy (reference material.ts:22-26)."""
+
+    REFLECTION = 0
+    TRANSMISSION = 1
+    BOTH = 2
+
+
+class RayStatus(enum.IntEnum):
+    """Terminal state of a wavefront ray (raytracer.ts:166-277).
+
+    ``ALIVE`` still bouncing; ``LIGHT`` hit an emitter (inverse-square
+    attenuation applied); ``KEEP`` terminated keeping its color; ``MISS``
+    left the scene (color times sky); ``EXHAUST`` bounce budget spent
+    (black).
+    """
+
+    ALIVE = 0
+    LIGHT = 1
+    KEEP = 2
+    MISS = 3
+    EXHAUST = 4
+
+
+class TextureKind(enum.IntEnum):
+    SOLID = 0
+    IMAGE = 1
+    IMAGE_BILINEAR = 2
+
+
+class ToneMapperKind(enum.IntEnum):
+    """Tone mapping strategies (reference tone_mapping.ts:21-79)."""
+
+    IDENTITY = 0
+    STDDEV_AROUND_MEAN = 1
+    ABSDEV_AROUND_MEAN = 2
+    DR_LIMITED = 3
+
+
+class HitBackend(enum.Enum):
+    """Nearest-hit search backend.
+
+    * ``BRUTE`` — dense [rays, prims] intersection + argmin in PyTorch.
+    * ``FUSED`` — whole-trace CUDA kernel (``kernels/trace_fused``) for the
+      fused scene class (solid textures and sky, no BOTH); other scenes
+      route to BRUTE.
+    * ``OCTREE``, ``PALLAS``, ``TILED`` — not ported yet; selecting one
+      raises ``NotImplementedError`` (ROADMAP A11, A7, A12).
+    """
+
+    BRUTE = "brute"
+    OCTREE = "octree"
+    PALLAS = "pallas"
+    FUSED = "fused"
+    TILED = "tiled"
+
+
+# Epsilon a respawned ray is advanced by to escape the previous collision
+# point (raytracer.ts:158-164).
+EPS_ADVANCE = 1e-3
+# JS Number.EPSILON, used in the inverse-square-law denominator
+# (raytracer.ts:274).
+JS_EPSILON = 2.0 ** -52
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render parameters (reference RaytracerConfig, raytracer.ts:33-43)."""
+
+    refmax: int = 4
+    distance_attenuation_factor: float = 1.0
+    #: samples per pixel per call, averaged
+    spp: int = 1
+    backend: HitBackend = HitBackend.BRUTE
+    #: genuine ``ResponseType.BOTH``: a stochastic Fresnel split drawn from
+    #: the (seed, ray id, bounce) counter RNG. False reproduces the
+    #: reference's terminal default (raytracer.ts:250-251).
+    fresnel_both: bool = False
+    #: kept for field parity with the reference package; a PyTorch loop
+    #: has nothing to unroll
+    unroll: bool = False
+    #: kept for field parity with the reference package; this package is
+    #: forward-only so far
+    remat: bool = False
+    #: nearest forward hit (argmin t), the documented divergence from
+    #: first-entity-in-set-order (raytracer.ts:186-195)
+    nearest_hit: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class OctreeConfig:
+    """Octree build parameters (the OCTREE backend is not ported yet)."""
+
+    max_depth: int = 4
+    max_entities_per_node: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ToneMapConfig:
+    """Dynamic-range windowing (reference tone_mapping.ts:35-79)."""
+
+    kind: ToneMapperKind = ToneMapperKind.IDENTITY
+    #: log2 of the dynamic range span
+    dynamic_range: int = 8
+    min_dynamic: float = 1e-4
+    max_dynamic: float = 1e4

@@ -1,0 +1,300 @@
+"""Structure-of-arrays scene model (port of ``raytracer_js_tpu.models.scene``).
+
+Flat parameter tensors — ``sphere_center [S,3]``, ``sphere_radius [S]``,
+``box_center/box_half [B,3]``, triangle vertices ``[T,3]`` — plus
+per-primitive id columns into the material / texture / substance tables.
+Global primitive ids are ordered [spheres | boxes | triangles]; every
+nearest-hit path returns ids in this space.
+
+A :class:`Scene` is a plain dataclass of tensors that all live on one
+device (:attr:`Scene.device`); :meth:`Scene.to` moves it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ResponseType, TextureKind
+from .materials import MaterialTable, make_material_table
+from .textures import _A8, TextureTable
+
+Tensor = torch.Tensor
+
+#: substance id meaning "undefined": transmission through such an entity does
+#: not refract and does not change the ray's substance (raytracer.ts:243-248)
+SUBSTANCE_UNDEFINED = -1
+
+# Reference canned substances (substance.ts:1-11).
+REFR_AIR = 1.0
+REFR_WATER = 1.333
+REFR_GLASS = 1.5
+
+_GEOMETRY = ("sphere_center", "sphere_radius", "box_center", "box_half",
+             "tri_v0", "tri_v1", "tri_v2", "prim_material", "prim_texture",
+             "prim_substance", "sub_refr", "default_refr")
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    sphere_center: Tensor   # [S, 3]
+    sphere_radius: Tensor   # [S]
+    box_center: Tensor      # [B, 3]
+    box_half: Tensor        # [B, 3]
+    tri_v0: Tensor          # [T, 3]
+    tri_v1: Tensor          # [T, 3]
+    tri_v2: Tensor          # [T, 3]
+    prim_material: Tensor   # [P] i32
+    prim_texture: Tensor    # [P] i32
+    prim_substance: Tensor  # [P] i32 (SUBSTANCE_UNDEFINED allowed)
+    materials: MaterialTable
+    textures: TextureTable
+    sub_refr: Tensor        # [K] f32 refractive indices
+    default_refr: Tensor    # [] f32: empty-space substance
+    sky_tex: int = 0
+    #: cube-map sky; always None until ROADMAP A8
+    sky_box: Optional[tuple] = None
+    has_transmission: bool = True
+    has_rough: bool = True
+    #: any material declares ResponseType.BOTH (implies has_transmission)
+    has_both: bool = False
+
+    def __post_init__(self):
+        if self.has_both and not self.has_transmission:
+            raise ValueError("has_both requires has_transmission: BOTH rides "
+                             "the transmission machinery")
+
+    @property
+    def n_spheres(self) -> int:
+        return self.sphere_center.shape[0]
+
+    @property
+    def n_boxes(self) -> int:
+        return self.box_center.shape[0]
+
+    @property
+    def n_tris(self) -> int:
+        return self.tri_v0.shape[0]
+
+    @property
+    def n_prims(self) -> int:
+        return self.n_spheres + self.n_boxes + self.n_tris
+
+    @property
+    def device(self) -> torch.device:
+        return self.sphere_center.device
+
+    def to(self, device) -> "Scene":
+        moved = {k: getattr(self, k).to(device) for k in _GEOMETRY}
+        return dataclasses.replace(self, **moved,
+                                   materials=self.materials.to(device),
+                                   textures=self.textures.to(device))
+
+
+def prim_aabbs(scene: Scene) -> Tuple[Tensor, Tensor]:
+    """Per-primitive AABBs -> (lo [P,3], hi [P,3]) in global prim order."""
+    r = scene.sphere_radius[:, None]
+    lo = torch.cat([scene.sphere_center - r,
+                    scene.box_center - scene.box_half,
+                    torch.minimum(torch.minimum(scene.tri_v0, scene.tri_v1),
+                                  scene.tri_v2)], dim=0)
+    hi = torch.cat([scene.sphere_center + r,
+                    scene.box_center + scene.box_half,
+                    torch.maximum(torch.maximum(scene.tri_v0, scene.tri_v1),
+                                  scene.tri_v2)], dim=0)
+    return lo, hi
+
+
+def sphere_volumes(radius: Tensor) -> Tensor:
+    return (4.0 / 3.0) * math.pi * (radius * radius * radius)
+
+
+def box_volumes(half: Tensor) -> Tensor:
+    e = 2.0 * half
+    return e[:, 0] * e[:, 1] * e[:, 2]
+
+
+def prim_volumes(scene: Scene) -> Tensor:
+    """Enclosed volume per primitive (triangles: 0 — no interior); the
+    innermost-containing-entity rule of the substance query uses it."""
+    t_vol = torch.zeros((scene.n_tris,), dtype=torch.float32,
+                        device=scene.device)
+    return torch.cat([sphere_volumes(scene.sphere_radius),
+                      box_volumes(scene.box_half), t_vol], dim=0)
+
+
+def scene_from_numpy(arrays: dict, *, sky_tex: int, has_transmission: bool,
+                     has_rough: bool, has_both: bool,
+                     device=None) -> Scene:
+    """Build a :class:`Scene` from numpy arrays named like the reference
+    package's ``Scene`` fields.
+
+    ``arrays`` holds the primitive arrays and id columns under their field
+    names (``sphere_center`` ... ``prim_substance``), the tables as
+    ``materials.response``, ``materials.light``, ``materials.mirror``,
+    ``materials.roughness``, ``textures.kind``, ``textures.ref``,
+    ``textures.solid_rgb``, and ``sub_refr`` and ``default_refr``.
+    """
+    def t(name, dtype):
+        return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
+                               device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    kind = t("textures.kind", i32)
+    if bool((kind != int(TextureKind.SOLID)).any()):
+        raise NotImplementedError(_A8)
+    geom = {k: t(k, f32) for k in ("sphere_center", "sphere_radius",
+                                   "box_center", "box_half", "tri_v0",
+                                   "tri_v1", "tri_v2", "sub_refr",
+                                   "default_refr")}
+    for k in ("sphere_center", "box_center", "box_half", "tri_v0", "tri_v1",
+              "tri_v2"):
+        geom[k] = geom[k].reshape(-1, 3)
+    return Scene(
+        **geom,
+        prim_material=t("prim_material", i32),
+        prim_texture=t("prim_texture", i32),
+        prim_substance=t("prim_substance", i32),
+        materials=MaterialTable(
+            response=t("materials.response", i32),
+            light=t("materials.light", torch.bool),
+            mirror=t("materials.mirror", torch.bool),
+            roughness=t("materials.roughness", f32)),
+        textures=TextureTable(kind=kind, ref=t("textures.ref", i32),
+                              solid_rgb=t("textures.solid_rgb", f32)),
+        sky_tex=int(sky_tex), has_transmission=bool(has_transmission),
+        has_rough=bool(has_rough), has_both=bool(has_both))
+
+
+class SceneBuilder:
+    """Host-side scene assembly (reference main.ts:341-433 scene setup).
+
+    All adders return integer ids; :meth:`build` freezes everything into a
+    :class:`Scene` on the requested device.
+    """
+
+    def __init__(self):
+        self._materials: List[tuple] = []
+        self._tex_solid: List[np.ndarray] = []
+        self._substances: List[float] = []
+        self._spheres: List[tuple] = []   # (center, radius, mat, tex, sub)
+        self._boxes: List[tuple] = []     # (center, half, mat, tex, sub)
+        self._tris: List[tuple] = []      # (v0, v1, v2, mat, tex, sub)
+        self._sky_tex: Optional[int] = None
+        self._default_refr: float = REFR_AIR
+
+    # -- tables ------------------------------------------------------------
+    def add_material(self, response: ResponseType = ResponseType.REFLECTION,
+                     light: bool = False, mirror: bool = False,
+                     roughness: float = 0.0) -> int:
+        self._materials.append((response, light, mirror, roughness))
+        return len(self._materials) - 1
+
+    def add_solid_texture(self, rgb) -> int:
+        """SolidTexture (texture_solid.ts:21-44)."""
+        self._tex_solid.append(np.asarray(rgb, np.float32).reshape(3))
+        return len(self._tex_solid) - 1
+
+    def add_image_texture(self, image, fallback=(0.0, 0.0, 0.0),
+                          bilinear: bool = False) -> int:
+        raise NotImplementedError(_A8)
+
+    def add_substance(self, refractive_index: float) -> int:
+        self._substances.append(float(refractive_index))
+        return len(self._substances) - 1
+
+    def set_sky(self, tex_id: int) -> None:
+        self._sky_tex = tex_id
+
+    def set_sky_box(self, face_tex_ids) -> None:
+        raise NotImplementedError("cube-map skies are not ported yet "
+                                  "(ROADMAP A8)")
+
+    def set_default_refr(self, refr: float) -> None:
+        self._default_refr = float(refr)
+
+    # -- primitives ----------------------------------------------------------
+    def add_sphere(self, center, radius: float, material: int, texture: int,
+                   substance: int = SUBSTANCE_UNDEFINED) -> int:
+        self._spheres.append((np.asarray(center, np.float32), float(radius),
+                              material, texture, substance))
+        return len(self._spheres) - 1
+
+    def add_box(self, center, size, material: int, texture: int,
+                substance: int = SUBSTANCE_UNDEFINED) -> int:
+        """``size`` is the full edge length (scalar) or a per-axis 3-vector."""
+        size = np.broadcast_to(np.asarray(size, np.float32), (3,))
+        self._boxes.append((np.asarray(center, np.float32), size / 2.0,
+                            material, texture, substance))
+        return len(self._boxes) - 1
+
+    def add_triangle(self, v0, v1, v2, material: int, texture: int,
+                     substance: int = SUBSTANCE_UNDEFINED) -> int:
+        self._tris.append((np.asarray(v0, np.float32),
+                           np.asarray(v1, np.float32),
+                           np.asarray(v2, np.float32),
+                           material, texture, substance))
+        return len(self._tris) - 1
+
+    def add_mesh(self, vertices, faces, material: int, texture: int,
+                 substance: int = SUBSTANCE_UNDEFINED) -> None:
+        vertices = np.asarray(vertices, np.float32)
+        for f in np.asarray(faces, np.int64):
+            self.add_triangle(vertices[f[0]], vertices[f[1]], vertices[f[2]],
+                              material, texture, substance)
+
+    # -- build ---------------------------------------------------------------
+    def build(self, device=None) -> Scene:
+        if not self._tex_solid:
+            self.add_solid_texture((0.0, 0.0, 0.0))
+        if self._sky_tex is None:
+            # reference default sky color is black (raytracer.ts:47-50)
+            self._sky_tex = self.add_solid_texture((0.0, 0.0, 0.0))
+        if not self._substances:
+            self.add_substance(REFR_AIR)
+
+        def stack(rows, shape):
+            a = (np.stack(rows).astype(np.float32) if rows
+                 else np.zeros(shape, np.float32))
+            return a
+
+        ids = ([s[2:] for s in self._spheres]
+               + [b[2:] for b in self._boxes]
+               + [t[3:] for t in self._tris])
+        responses = [int(self._materials[i[0]][0]) for i in ids]
+        mats = make_material_table(self._materials)
+        arrays = {
+            "sphere_center": stack([s[0] for s in self._spheres], (0, 3)),
+            "sphere_radius": stack([s[1] for s in self._spheres], (0,)),
+            "box_center": stack([b[0] for b in self._boxes], (0, 3)),
+            "box_half": stack([b[1] for b in self._boxes], (0, 3)),
+            "tri_v0": stack([t[0] for t in self._tris], (0, 3)),
+            "tri_v1": stack([t[1] for t in self._tris], (0, 3)),
+            "tri_v2": stack([t[2] for t in self._tris], (0, 3)),
+            "prim_material": np.array([i[0] for i in ids], np.int32),
+            "prim_texture": np.array([i[1] for i in ids], np.int32),
+            "prim_substance": np.array([i[2] for i in ids], np.int32),
+            "materials.response": mats.response.numpy(),
+            "materials.light": mats.light.numpy(),
+            "materials.mirror": mats.mirror.numpy(),
+            "materials.roughness": mats.roughness.numpy(),
+            "textures.kind": np.full(len(self._tex_solid),
+                                     int(TextureKind.SOLID), np.int32),
+            "textures.ref": np.zeros(len(self._tex_solid), np.int32),
+            "textures.solid_rgb": np.stack(self._tex_solid),
+            "sub_refr": np.array(self._substances, np.float32),
+            "default_refr": np.float32(self._default_refr),
+        }
+        return scene_from_numpy(
+            arrays, sky_tex=int(self._sky_tex),
+            # BOTH rides the transmission machinery (substance query +
+            # Snell/TIR), so it implies has_transmission
+            has_transmission=any(r in (int(ResponseType.TRANSMISSION),
+                                       int(ResponseType.BOTH))
+                                 for r in responses),
+            has_rough=any(float(self._materials[i[0]][3]) > 0.0 for i in ids),
+            has_both=any(r == int(ResponseType.BOTH) for r in responses),
+            device=device)

@@ -1,0 +1,356 @@
+"""Fixed-depth iterative wavefront trace loop — the BRUTE backend.
+
+Port of ``raytracer_js_tpu.ops.trace`` for solid-texture scenes: ``refmax``
+masked passes over structure-of-arrays ray state — traverse, intersect,
+shade, respawn — with an explicit per-ray status word (raytracer.ts:166-277).
+It is also the semantic reference for the fused kernel's plain versions
+(``kernels/trace_fused``).
+
+Behavioral contract (reference source in parentheses):
+
+* a hit modulates the ray color by the texture color (material_solid.ts:30-36)
+  and adds the hit distance to the path (raytracer.ts:210);
+* emissive hit -> LIGHT; at the end the color is scaled by
+  ``1/(eps + (path * A)^2)`` (raytracer.ts:215-218, 273-275);
+* mirror REFLECTION -> reflect, roughness scatter, eps-advance along the NEW
+  direction (raytracer.ts:231-236); non-mirror REFLECTION -> KEEP;
+* TRANSMISSION -> eps-advance along the OLD direction, refract into the
+  innermost containing entity's substance, TIR reflects; an undefined
+  substance means no refraction (raytracer.ts:239-248);
+* BOTH -> KEEP, or with ``RenderConfig.fresnel_both`` a Schlick split drawn
+  from the counter RNG;
+* miss -> color times sky, MISS; alive after ``refmax`` bounces -> black.
+
+The hit search is discrete and runs under ``torch.no_grad()``. Path replay
+(``pid_seq``) and ``record_paths`` come with the gradient work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
+                      RenderConfig, ResponseType)
+from ..models import textures as tex_mod
+from ..models.scene import Scene, prim_volumes
+from . import intersect, sampling
+from .vecmath import reflect, refract, uv_map_sphere
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class RayState:
+    """Structure-of-arrays wavefront state (raytracer.ts:55-99)."""
+
+    org: Tensor      # [N, 3] current origin
+    dir: Tensor      # [N, 3] direction
+    color: Tensor    # [N, 3] accumulated modulation (starts white)
+    path: Tensor     # [N] path distance for the inverse-square law
+    refr: Tensor     # [N] current substance refractive index
+    status: Tensor   # [N] i32 RayStatus
+
+
+# ---------------------------------------------------------------------------
+# Nearest hit
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def nearest_hit_brute(scene: Scene, org: Tensor,
+                      dir: Tensor) -> Tuple[Tensor, Tensor]:
+    """Dense nearest forward hit: [N] rays x all prims -> (t [N], pid [N]).
+
+    ``pid`` indexes the global [spheres|boxes|tris] order, -1 on a miss; on
+    a tie in t the lowest pid wins (``min`` returns the first index).
+    """
+    n = org.shape[0]
+    if scene.n_prims == 0:
+        return (torch.full((n,), float("inf"), device=org.device),
+                torch.full((n,), -1, dtype=torch.int32, device=org.device))
+    t_all = torch.cat([
+        intersect.sphere_hit_t(org, dir, scene.sphere_center,
+                               scene.sphere_radius),
+        intersect.box_hit_t(org, dir, scene.box_center, scene.box_half),
+        intersect.tri_hit_t(org, dir, scene.tri_v0, scene.tri_v1,
+                            scene.tri_v2)], dim=1)                 # [N, P]
+    t, pid = t_all.min(dim=1)
+    pid = torch.where(torch.isfinite(t), pid, -1).to(torch.int32)
+    return t, pid
+
+
+def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
+                dir: Tensor) -> Tuple[Tensor, Tensor]:
+    """Backend dispatch for the nearest-hit search."""
+    if cfg.backend == HitBackend.PALLAS:
+        raise NotImplementedError("the PALLAS backend is not ported yet "
+                                  "(ROADMAP A7, kernels B3/B4)")
+    if cfg.backend == HitBackend.OCTREE:
+        raise NotImplementedError("the OCTREE backend is not ported yet "
+                                  "(ROADMAP A11)")
+    if cfg.backend not in (HitBackend.BRUTE, HitBackend.FUSED):
+        raise ValueError(f"unknown backend {cfg.backend}")
+    # FUSED reaches this loop only for off-class scenes (BOTH)
+    return nearest_hit_brute(scene, org, dir)
+
+
+# ---------------------------------------------------------------------------
+# Per-primitive attributes and the surface recompute
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PrimRows:
+    """Shading attributes per primitive, in global prim order."""
+
+    rgb: Tensor        # [P, 3] solid texture color
+    light: Tensor      # [P] bool
+    mirror: Tensor     # [P] bool
+    response: Tensor   # [P] i32 ResponseType
+    roughness: Tensor  # [P] f32
+
+
+def prim_rows(scene: Scene) -> Optional[PrimRows]:
+    """Join the material and texture tables onto the primitives (None for
+    an empty scene)."""
+    if scene.n_prims == 0:
+        return None
+    mat_id = scene.prim_material.long()
+    m = scene.materials
+    return PrimRows(
+        rgb=tex_mod.sample(scene.textures, scene.prim_texture, None, None),
+        light=m.light.index_select(0, mat_id),
+        mirror=m.mirror.index_select(0, mat_id),
+        response=m.response.index_select(0, mat_id),
+        roughness=m.roughness.index_select(0, mat_id))
+
+
+def surface_at(scene: Scene, org: Tensor, dir: Tensor, pid: Tensor):
+    """(point, normal, u, v, t) of primitive ``pid`` per ray.
+
+    Every present class recomputes on every ray from its class row of the
+    clamped pid; the winner is picked by the pid range masks. Miss lanes
+    (pid < 0) carry values that callers mask.
+    """
+    pid_c = torch.clamp(pid.long(), 0, max(scene.n_prims - 1, 0))
+    s_end = scene.n_spheres
+    b_end = s_end + scene.n_boxes
+    point = torch.zeros_like(org)
+    normal = torch.zeros_like(org)
+    uu = torch.zeros_like(org[:, 0])
+    vv = torch.zeros_like(uu)
+    tt = torch.zeros_like(uu)
+
+    def put(m, res):
+        nonlocal point, normal, uu, vv, tt
+        t, p, nrm, (u, v) = res
+        point = torch.where(m[:, None], p, point)
+        normal = torch.where(m[:, None], nrm, normal)
+        uu = torch.where(m, u, uu)
+        vv = torch.where(m, v, vv)
+        tt = torch.where(m, t, tt)
+
+    if scene.n_spheres:
+        idx = torch.clamp(pid_c, 0, s_end - 1)
+        put(pid_c < s_end, intersect.sphere_surface(
+            org, dir, scene.sphere_center.index_select(0, idx),
+            scene.sphere_radius.index_select(0, idx)))
+    if scene.n_boxes:
+        idx = torch.clamp(pid_c - s_end, 0, scene.n_boxes - 1)
+        put((pid_c >= s_end) & (pid_c < b_end), intersect.box_surface(
+            org, dir, scene.box_center.index_select(0, idx),
+            scene.box_half.index_select(0, idx)))
+    if scene.n_tris:
+        idx = torch.clamp(pid_c - b_end, 0, scene.n_tris - 1)
+        put(pid_c >= b_end, intersect.tri_surface(
+            org, dir, scene.tri_v0.index_select(0, idx),
+            scene.tri_v1.index_select(0, idx),
+            scene.tri_v2.index_select(0, idx)))
+    return point, normal, uu, vv, tt
+
+
+# ---------------------------------------------------------------------------
+# Substance point query (TRANSMISSION refraction target)
+# ---------------------------------------------------------------------------
+
+def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor):
+    """Refraction target at ``point`` (octree_entity.ts:191-202 used at
+    raytracer.ts:240-248) -> ``(target_refr [N], do_refract [N])``:
+
+    * innermost containing entity (smallest volume, first on a tie) with a
+      defined substance -> its index, refract;
+    * innermost containing entity with an undefined substance -> keep the
+      current index, no refraction;
+    * no containing entity -> the scene default, refract.
+    """
+    n = point.shape[0]
+    default = scene.default_refr.expand(n)
+    if scene.n_prims == 0:
+        return default, torch.ones((n,), dtype=torch.bool,
+                                   device=point.device)
+    diff = point[:, None, :] - scene.sphere_center[None, :, :]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+        + diff[..., 2] * diff[..., 2]
+    r2 = scene.sphere_radius * scene.sphere_radius
+    rel = (point[:, None, :] - scene.box_center[None, :, :]).abs()
+    inside = torch.cat([
+        d2 <= r2[None, :],
+        (rel <= scene.box_half[None, :, :]).all(dim=-1),
+        torch.zeros((n, scene.n_tris), dtype=torch.bool,
+                    device=point.device)], dim=1)                  # [N, P]
+    score = torch.where(inside, prim_volumes(scene)[None, :], float("inf"))
+    ent = score.argmin(dim=1)                                      # innermost
+    any_inside = inside.any(dim=1)
+    sub_id = scene.prim_substance.index_select(0, ent)
+    defined = sub_id >= 0
+    sub_refr = scene.sub_refr.index_select(
+        0, torch.clamp(sub_id.long(), 0, scene.sub_refr.shape[0] - 1))
+    target = torch.where(any_inside, torch.where(defined, sub_refr, cur_refr),
+                         default)
+    do_refract = torch.where(any_inside, defined, True)
+    return target, do_refract
+
+
+def sky_color(scene: Scene, dir: Tensor) -> Tensor:
+    """Environment color for a direction (sky/sky_sphere.ts:22-27); a solid
+    sky is one color."""
+    u, v = uv_map_sphere(dir)
+    tex_id = torch.full(u.shape, scene.sky_tex, dtype=torch.int32,
+                        device=dir.device)
+    return tex_mod.sample(scene.textures, tex_id, u, v)
+
+
+# ---------------------------------------------------------------------------
+# The bounce loop
+# ---------------------------------------------------------------------------
+
+def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
+            bounce: int, prows: Optional[PrimRows]) -> RayState:
+    """One wavefront pass: traverse -> intersect -> shade -> respawn."""
+    alive = state.status == int(RayStatus.ALIVE)
+    _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir)
+    hit = alive & (pid >= 0)
+
+    if scene.n_prims == 0:
+        sky = sky_color(scene, state.dir)
+        color = torch.where(alive[:, None], state.color * sky, state.color)
+        status = torch.where(alive, int(RayStatus.MISS), state.status)
+        return dataclasses.replace(state, color=color, status=status)
+
+    pid_cc = torch.clamp(pid.long(), 0, scene.n_prims - 1)
+    point, normal, _u, _v, t_surf = surface_at(scene, state.org, state.dir,
+                                               pid_cc)
+    tex_rgb = prows.rgb.index_select(0, pid_cc)
+    color = torch.where(hit[:, None], state.color * tex_rgb, state.color)
+    path = torch.where(hit, state.path + t_surf, state.path)
+
+    is_light = prows.light.index_select(0, pid_cc) & hit
+    is_mirror = prows.mirror.index_select(0, pid_cc)
+    response = prows.response.index_select(0, pid_cc)
+    roughness = prows.roughness.index_select(0, pid_cc)
+    is_refl = response == int(ResponseType.REFLECTION)
+    is_trans = response == int(ResponseType.TRANSMISSION)
+
+    # --- REFLECTION (mirror) ----------------------------------------------
+    refl_dir = reflect(state.dir, normal)
+    if scene.has_rough:
+        seed, rid = rng
+        refl_dir = sampling.scatter_direction(seed, rid, bounce, refl_dir,
+                                              normal, roughness)
+    # --- TRANSMISSION -------------------------------------------------------
+    adv_point = point + EPS_ADVANCE * state.dir        # eps-advance, OLD dir
+    if scene.has_transmission:
+        target_refr, do_refract = substance_refr_at(scene, adv_point,
+                                                    state.refr)
+        eta = state.refr / torch.clamp(target_refr, min=1e-6)
+        refr_dir, tir = refract(state.dir, normal, eta)
+        trans_dir = torch.where(do_refract[:, None], refr_dir, state.dir)
+        new_refr = torch.where(do_refract, target_refr, state.refr)
+    else:
+        trans_dir, new_refr = state.dir, state.refr
+
+    # --- select continuation -------------------------------------------------
+    cont_mirror = hit & ~is_light & is_refl & is_mirror
+    cont_trans = hit & ~is_light & is_trans & scene.has_transmission
+    if scene.has_both and cfg.fresnel_both:
+        # Schlick split: continue reflected with probability
+        # R = r0 + (1-r0)(1-cos)^5 drawn from the counter RNG; TIR reflects
+        seed_b, rid_b = rng
+        is_both = response == int(ResponseType.BOTH)
+        cos_i = torch.clamp(
+            (state.dir * normal).sum(dim=-1).abs(), 0.0, 1.0)
+        n2 = torch.clamp(target_refr, min=1e-6)
+        r0 = (state.refr - n2) / (state.refr + n2)
+        r0 = r0 * r0
+        k = 1.0 - cos_i
+        k2 = k * k
+        fres = r0 + (1.0 - r0) * (k * (k2 * k2))     # (1 - cos)^5
+        fres = torch.where(do_refract, torch.where(tir, 1.0, fres), 0.0)
+        u_f = sampling.ray_uniform(seed_b, rid_b, bounce,
+                                   sampling.SALT_FRESNEL)
+        cont_both = hit & ~is_light & is_both
+        cont_mirror = cont_mirror | (cont_both & (u_f < fres))
+        cont_trans = cont_trans | (cont_both & ~(u_f < fres))
+    cont = cont_mirror | cont_trans
+
+    new_dir = torch.where(cont_trans[:, None], trans_dir,
+                          torch.where(cont_mirror[:, None], refl_dir,
+                                      state.dir))
+    new_org = torch.where(
+        cont_trans[:, None], adv_point,
+        torch.where(cont_mirror[:, None], point + EPS_ADVANCE * refl_dir,
+                    state.org))
+    refr_out = torch.where(cont_trans, new_refr, state.refr)
+
+    # --- terminations ---------------------------------------------------------
+    miss = alive & (pid < 0)
+    color = torch.where(miss[:, None], color * sky_color(scene, state.dir),
+                        color)
+    keep = hit & ~is_light & ~cont
+    status = state.status
+    status = torch.where(is_light, int(RayStatus.LIGHT), status)
+    status = torch.where(keep, int(RayStatus.KEEP), status)
+    status = torch.where(miss, int(RayStatus.MISS), status)
+    return RayState(org=new_org, dir=new_dir, color=color, path=path,
+                    refr=refr_out, status=status)
+
+
+def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
+               seed: int = sampling.DEFAULT_SEED,
+               ray_id: Optional[Tensor] = None,
+               start_refr: Optional[Tensor] = None) -> RayState:
+    """Trace a wavefront of N rays to termination.
+
+    ``ray_id`` is the global ray id the counter RNG is keyed by (default
+    ``arange(N)``); ``start_refr`` is the substance at the camera (default
+    the scene default). Returns the final RayState: LIGHT rays carry the
+    inverse-square attenuation, EXHAUST rays are black.
+    """
+    n = org.shape[0]
+    if ray_id is None:
+        ray_id = torch.arange(n, dtype=torch.int32, device=org.device)
+    zeros = torch.zeros_like(org[:, 0])
+    if start_refr is None:
+        start_refr = scene.default_refr
+    state = RayState(org=org, dir=dir, color=torch.ones_like(org),
+                     path=zeros, refr=start_refr + zeros,
+                     status=torch.zeros((n,), dtype=torch.int32,
+                                        device=org.device))
+    rng = ((seed, ray_id)
+           if scene.has_rough or (scene.has_both and cfg.fresnel_both)
+           else None)
+    prows = prim_rows(scene)
+    for b in range(cfg.refmax):
+        state = _bounce(scene, cfg, state, rng, b, prows)
+
+    # alive after refmax bounces -> black (raytracer.ts:256-263)
+    exhausted = state.status == int(RayStatus.ALIVE)
+    color = torch.where(exhausted[:, None], 0.0, state.color)
+    status = torch.where(exhausted, int(RayStatus.EXHAUST), state.status)
+    # inverse-square law for light hits (raytracer.ts:273-275)
+    pa = state.path * cfg.distance_attenuation_factor
+    isl = 1.0 / (JS_EPSILON + pa * pa)
+    lit = status == int(RayStatus.LIGHT)
+    color = torch.where(lit[:, None], color * isl[:, None], color)
+    return dataclasses.replace(state, color=color,
+                               status=status.to(torch.int32))

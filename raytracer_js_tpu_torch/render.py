@@ -1,0 +1,124 @@
+"""Render frontend — ``render_hdr(scene, camera, cfg) -> image``.
+
+Port of ``raytracer_js_tpu.render``: one wavefront of ``h*w`` rays per frame
+(raytracer.ts:281-339), the camera substance looked up once per frame
+(raytracer.ts:312-313), and ``spp`` samples averaged per call. The FUSED
+backend runs the headline frame through the frame kernel; arbitrary
+wavefronts go through the wavefront kernel; scenes outside the fused class
+(BOTH materials) take the BRUTE loop, exactly as the reference dispatches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .config import HitBackend, RenderConfig
+from .models.camera import Camera, pixel_rays
+from .models.scene import Scene
+from .ops import sampling
+from .ops import trace as trace_mod
+
+Tensor = torch.Tensor
+
+_NOT_PORTED = {
+    HitBackend.PALLAS: "ROADMAP A7, kernels B3/B4",
+    HitBackend.OCTREE: "ROADMAP A11",
+    HitBackend.TILED: "ROADMAP A12, kernels B6/B7",
+}
+
+
+def _stochastic(scene: Scene, cfg: RenderConfig) -> bool:
+    """spp averaging only helps when some draw varies per sample: rough
+    scatter, or the Fresnel-BOTH split."""
+    return scene.has_rough or (scene.has_both and cfg.fresnel_both)
+
+
+def start_substance(scene: Scene, pos: Tensor) -> Tensor:
+    """Substance index at the camera position (raytracer.ts:312-313):
+    innermost containing entity's substance, or the scene default."""
+    refr, _ = trace_mod.substance_refr_at(scene, pos[None, :],
+                                          scene.default_refr[None])
+    return refr[0]
+
+
+def _average(one, spp: int, stochastic: bool) -> Tensor:
+    if spp == 1 or not stochastic:
+        return one(0)
+    acc = one(0)
+    for s in range(1, spp):
+        acc = acc + one(s)
+    return acc / spp
+
+
+def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
+                seed: int = sampling.DEFAULT_SEED,
+                ray_id: Optional[Tensor] = None) -> Tensor:
+    """Trace a flat wavefront, averaging ``cfg.spp`` samples -> [N, 3] HDR.
+
+    Sample s of ray i draws from the stream (seed, ray_id[i]*spp + s).
+    """
+    from .kernels import trace_fused
+
+    if ray_id is None:
+        ray_id = torch.arange(org.shape[0], dtype=torch.int32,
+                              device=org.device)
+    if cfg.backend == HitBackend.TILED:
+        # the tiled path is frame-shaped; arbitrary wavefronts use the
+        # dense search, as in the reference
+        cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
+    if cfg.backend == HitBackend.FUSED:
+        if trace_fused.supports(scene):
+            refr0 = (start_substance(scene, org[0])
+                     if scene.has_transmission else None)
+
+            def one_fused(s):
+                color, _status = trace_fused.trace_rays_fused(
+                    scene, cfg, org, dir, seed=seed,
+                    ray_id=ray_id * cfg.spp + s, start_refr=refr0)
+                return color
+
+            return _average(one_fused, cfg.spp, _stochastic(scene, cfg))
+        cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
+
+    refr0 = start_substance(scene, org[0]).expand(org.shape[0])
+
+    def one_sample(s):
+        return trace_mod.trace_rays(scene, cfg, org, dir, seed,
+                                    ray_id * cfg.spp + s,
+                                    start_refr=refr0).color
+
+    return _average(one_sample, cfg.spp, True)
+
+
+def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
+               seed: Optional[int] = None) -> Tensor:
+    """Full-frame HDR render -> [h, w, 3] float32 (linear, pre-tone-map),
+    on the scene's device."""
+    from .kernels import trace_fused
+
+    if cfg.backend in _NOT_PORTED:
+        raise NotImplementedError(
+            f"the {cfg.backend.name} backend is not ported yet "
+            f"({_NOT_PORTED[cfg.backend]})")
+    if seed is None:
+        seed = sampling.DEFAULT_SEED
+    if cfg.backend == HitBackend.FUSED and trace_fused.supports_frame(scene):
+        # headline path: rays are generated inside the kernel
+        refr0 = (start_substance(scene, camera.pos)
+                 if scene.has_transmission else None)
+
+        def one_frame(s):
+            return trace_fused.trace_frame_fused(scene, cfg, camera,
+                                                 seed=seed, sample=s,
+                                                 start_refr=refr0)
+
+        return _average(one_frame, cfg.spp, _stochastic(scene, cfg))
+    org, dir = pixel_rays(camera)
+    colors = render_rays(scene, cfg, org, dir, seed)
+    return colors.reshape(camera.h, camera.w, 3)
+
+
+# Convenience alias matching the package-level API.
+render = render_hdr
