@@ -18,13 +18,26 @@ Phases, one JSON line each:
   3. B2       — the wavefront kernel against its plain version on (b), (c)
                 and (d), and ``render_rays`` with FUSED; (f) a ray on a
                 mirror box's edge (the x > y > z face tie).
-  4. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
+  4. B3       — the scalar nearest-hit kernel against its plain version:
+                (a) the headline scene's 1920x1088 bounce-0 rays; (b) config
+                1 with glass and a triangle, camera and random rays; (c) a
+                384-sphere near-miss field at 512x512.
+  5. B4       — the dense nearest-hit kernel against its plain version:
+                (a) BASELINE config 3's 512x512 bounce-0 rays (5124 prims);
+                (b) the 600-sphere near-miss field; (c) config 3 with
+                n_live < N; (d) the empty scene; (e) a ray on a box edge.
+  6. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
                 STDDEV tone map -> PNG, plus ``render_rays`` FUSED over the
                 same camera's rays, with the launch counters reset first.
-  5. times    — CUDA-event medians of each kernel and its plain version at
-                the headline shape.
-Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel,
-except proven winner flips (``utils/parity``), at most 0.1% of pixels.
+  7. main-PALLAS — ``render_hdr`` PALLAS on config 3 (B4 at every bounce)
+                -> exposure -> STDDEV tone map -> PNG, held against the same
+                path with the plain versions on the CPU at a small size;
+                then ``render_rays`` PALLAS over the headline camera's rays
+                (B3), held against the FUSED frame. Counters reset first.
+  8. times    — CUDA-event medians of each kernel and its plain version at
+                the main paths' shapes, and ``render_hdr`` end to end.
+Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
+pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
 Any failure raises, so the script exits non-zero and never prints the last
 line, ``{"ok": true, "device": {...}}``.
 """
@@ -46,16 +59,20 @@ from raytracer_js_tpu_torch import (HitBackend, RenderConfig, ResponseType,
                                     SceneBuilder, ToneMapConfig,
                                     ToneMapperKind, make_camera)
 from raytracer_js_tpu_torch.kernels import _build
+from raytracer_js_tpu_torch.kernels import nearest_hit as nh
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
 from raytracer_js_tpu_torch.models.camera import pixel_rays
 from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED
 from raytracer_js_tpu_torch.render import render_rays, start_substance
 from raytracer_js_tpu_torch.utils import parity
+from raytracer_js_tpu_torch.utils.mesh import icosphere
 from raytracer_js_tpu_torch.view import exposure, screen, view
 
 HEADLINE_W, HEADLINE_H = 1920, 1088
+C3_W, C3_H = 512, 512
 WARMUP, TIMED = 3, 20
 KERNEL_SOURCE = "raytracer_js_tpu_torch/csrc/trace_fused.cu"
+NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +106,39 @@ def headline_scene(n_spheres: int = 50, seed: int = 42, device=None):
 def headline_camera(device=None):
     return make_camera((0.0, 0.0, 0.5), HEADLINE_W, HEADLINE_H, np.pi / 2,
                        np.pi / 2 * HEADLINE_H / HEADLINE_W, device=device)
+
+
+def config3_scene(subdiv: int = 4, device=None):
+    """BASELINE config 3 (``bench.build_config3_scene``): a ground box, a
+    mirror icosphere of 20 * 4^subdiv triangles (5120 at 4), a mirror
+    sphere, a checker-textured sphere, an emitter, and a 64x64 gradient
+    image sky, all on a 64x64 atlas."""
+    b = SceneBuilder(atlas_hw=(64, 64))
+    yy = np.linspace(0.0, 1.0, 64)[:, None] * np.ones((1, 64))
+    sky_img = np.stack([0.35 + 0.25 * yy, 0.45 + 0.25 * yy,
+                        0.65 + 0.2 * yy], -1).astype(np.float32)
+    b.set_sky(b.add_image_texture(sky_img))
+    check = (np.indices((64, 64)).sum(0) % 2).astype(np.float32)[..., None]
+    checker = (check * [0.55, 0.1, 0.1] + [0.25, 0.3, 0.35]).astype(np.float32)
+    tex_check = b.add_image_texture(checker)
+    grey = b.add_solid_texture((0.55, 0.55, 0.6))
+    white = b.add_solid_texture((1.0, 1.0, 1.0))
+    gold = b.add_solid_texture((0.9, 0.75, 0.3))
+    diffuse = b.add_material(ResponseType.REFLECTION)
+    mirror = b.add_material(ResponseType.REFLECTION, mirror=True)
+    light = b.add_material(ResponseType.REFLECTION, light=True)
+    b.add_box((0.0, 0.0, -51.0), 100.0, diffuse, grey)
+    v, f = icosphere(subdiv, radius=1.2, center=(6.0, 0.0, 1.0))
+    b.add_mesh(v, f, mirror, gold)
+    b.add_sphere((4.0, -2.0, 0.6), 0.8, mirror, white)
+    b.add_sphere((4.0, 2.2, 0.7), 0.9, diffuse, tex_check)
+    b.add_sphere((6.0, 1.0, 5.0), 1.2, light, white)
+    return b.build(device)
+
+
+def config3_camera(device=None):
+    return make_camera((0.0, 0.0, 0.5), C3_W, C3_H, np.pi / 2, np.pi / 2,
+                       device=device)
 
 
 def config1_scene(with_glass: bool = False, with_tri: bool = False,
@@ -246,6 +296,36 @@ def compare_rays(name, scene, cam, cfg, seed=DEFAULT_SEED):
     return reps
 
 
+def compare_hits(phase, name, scene, org, dir, kernel, plain, **kw):
+    """A nearest-hit kernel (B3 or B4) against its plain version on one set
+    of rays, both on the card."""
+    k_t, k_pid = kernel(scene, org, dir, **kw)
+    p_t, p_pid = plain(scene, org, dir, **kw)
+    torch.cuda.synchronize()
+    rep = parity.compare_hits(scene, org, dir, k_t, k_pid, p_t, p_pid)
+    emit(phase=phase, case=name, prims=scene.n_prims, **rep)
+    check(rep["ok"], f"{phase} {name}: {rep}")
+    return rep, (k_t, k_pid)
+
+
+def random_rays(n, seed, device):
+    rng = np.random.default_rng(seed)
+    org = rng.uniform([-1, -2, 0], [2, 2, 1.5], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return (torch.as_tensor(org, device=device),
+            torch.as_tensor(d, device=device))
+
+
+def reset_launches() -> None:
+    for counts in (tf.LAUNCHES, nh.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launches_now() -> dict:
+    return {**tf.LAUNCHES, **nh.LAUNCHES}
+
+
 def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
     """Median over ``timed`` runs of one call, each bracketed by CUDA
     events, after ``warmup`` calls."""
@@ -334,9 +414,46 @@ def main() -> int:
           f"B2 box-edge tie: {k_st.tolist()} {rep}")
     b2.append(rep)
 
-    # ---- 4. the main path -----------------------------------------------------
-    for k in tf.LAUNCHES:
-        tf.LAUNCHES[k] = 0
+    # ---- 4. B3 against its plain version -----------------------------------
+    org, dir = pixel_rays(head_cam)
+    scalar = (nh.nearest_hit_pallas_scalar, nh.nearest_hit_pallas_scalar_plain)
+    b3 = [compare_hits("B3", "a_headline_bounce0", head, org, dir,
+                       *scalar)[0]]
+    o256, d256 = pixel_rays(cam256)
+    o_r, d_r = random_rays(3001, seed=5, device=dev)
+    b3.append(compare_hits("B3", "b_config1_glass_tri", glass,
+                           torch.cat([o256, o_r]), torch.cat([d256, d_r]),
+                           *scalar)[0])
+    o512, d512 = pixel_rays(cam512)
+    b3.append(compare_hits("B3", "c_near_miss_384", near_miss_field(384,
+                                                                    device=dev),
+                           o512, d512, *scalar)[0])
+
+    # ---- 5. B4 against its plain version -----------------------------------
+    dense = (nh.nearest_hit_pallas, nh.nearest_hit_pallas_plain)
+    c3 = config3_scene(device=dev)
+    c3_cam = config3_camera(dev)
+    org3, dir3 = pixel_rays(c3_cam)
+    b4 = [compare_hits("B4", "a_config3_bounce0", c3, org3, dir3, *dense)[0]]
+    b4.append(compare_hits("B4", "b_near_miss_600", field, o512, d512,
+                           *dense)[0])
+    n_live = org3.shape[0] // 2 + 77
+    rep, (k_t, k_pid) = compare_hits("B4", "c_config3_n_live", c3, org3, dir3,
+                                     *dense, n_live=n_live)
+    check(bool(torch.isinf(k_t[n_live:]).all())
+          and bool((k_pid[n_live:] == -1).all()),
+          "B4 rows past n_live are not misses")
+    b4.append(rep)
+    empty = SceneBuilder().build(dev)
+    before = dict(nh.LAUNCHES)
+    b4.append(compare_hits("B4", "d_empty_scene", empty, o_r, d_r,
+                           *dense)[0])
+    check(nh.LAUNCHES == before, "B4 launched on an empty scene")
+    b4.append(compare_hits("B4", "e_box_edge", edge, e_org, e_dir,
+                           *dense)[0])
+
+    # ---- 6. the main path -----------------------------------------------------
+    reset_launches()
     t0 = time.perf_counter()
     hdr = rt.render_hdr(head, head_cam, cfg_head)
     buf = exposure.accumulate(
@@ -345,11 +462,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         png = screen.write_png(pathlib.Path(tmp) / "headline.png", ldr)
         png_bytes = png.stat().st_size if png.exists() else 0
-    org, dir = pixel_rays(head_cam)
     wave = render_rays(head, cfg_head, org, dir).reshape(hdr.shape)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = dict(tf.LAUNCHES)
+    launches = launches_now()
     frame_vs_wave = ~torch.isclose(wave, hdr, rtol=1e-4, atol=1e-5).all(-1)
     emit(phase="main", seconds=main_s, launches=launches,
          shape=list(hdr.shape), device=str(hdr.device),
@@ -370,7 +486,66 @@ def main() -> int:
     check(int(frame_vs_wave.sum()) <= parity.MAX_FLIP_FRAC * hdr[..., 0].numel(),
           "frame and wavefront kernels disagree beyond ULP noise")
 
-    # ---- 5. times at the headline shape ------------------------------------
+    # ---- 7. main-PALLAS: config 3 through B4, the headline through B3 -------
+    cfg_c3 = RenderConfig(refmax=3, backend=HitBackend.PALLAS)
+    reset_launches()
+    t0 = time.perf_counter()
+    hdr3 = rt.render_hdr(c3, c3_cam, cfg_c3)
+    buf3 = exposure.accumulate(
+        exposure.new_exposure_buffer(C3_H, C3_W, device=dev), hdr3)
+    ldr3 = view.draw(buf3, ToneMapConfig(kind=ToneMapperKind.STDDEV_AROUND_MEAN))
+    with tempfile.TemporaryDirectory() as tmp:
+        png = screen.write_png(pathlib.Path(tmp) / "config3.png", ldr3)
+        png3_bytes = png.stat().st_size if png.exists() else 0
+    torch.cuda.synchronize()
+    c3_s = time.perf_counter() - t0
+    c3_launches = launches_now()
+    cfg_head_p = RenderConfig(refmax=cfg_head.refmax,
+                              backend=HitBackend.PALLAS)
+    reset_launches()
+    wave_p = render_rays(head, cfg_head_p, org, dir).reshape(hdr.shape)
+    torch.cuda.synchronize()
+    head_launches = launches_now()
+    # the same path with the plain versions on the CPU, at a small size and
+    # an off-grid camera (no equirect texel boundary on a pixel center)
+    small = (0.0, 0.0, 0.5), 40, 32, 1.5, 1.4
+    small_dev = rt.render_hdr(c3, make_camera(*small, device=dev), cfg_c3)
+    c3_cpu, small_cam = c3.to("cpu"), make_camera(*small)
+    small_cpu = rt.render_hdr(c3_cpu, small_cam, cfg_c3)
+    zeros = torch.zeros(small_cpu.shape[:2], dtype=torch.int32)
+    small_rep = parity.compare(
+        small_dev.cpu(), zeros, small_cpu, zeros,
+        prove_rounding=parity.grazing_prover(c3_cpu, *pixel_rays(small_cam)))
+    pallas_vs_fused = ~torch.isclose(wave_p, hdr, rtol=1e-4, atol=1e-5).all(-1)
+    emit(phase="main-PALLAS", seconds=c3_s, launches=c3_launches,
+         shape=list(hdr3.shape), device=str(hdr3.device),
+         finite=bool(torch.isfinite(hdr3).all()), png_bytes=png3_bytes,
+         ldr_min=float(ldr3.min()), ldr_max=float(ldr3.max()),
+         refmax=cfg_c3.refmax, prims=c3.n_prims,
+         small_vs_cpu_plain=small_rep,
+         headline_render_rays_launches=head_launches,
+         headline_pallas_vs_fused_pixels_off=int(pallas_vs_fused.sum()))
+    check(c3_launches["dense"] == cfg_c3.refmax
+          and c3_launches["scalar"] == 0,
+          f"config 3 PALLAS did not search with B4 once a bounce: "
+          f"{c3_launches}")
+    check(head_launches["scalar"] == cfg_head_p.refmax
+          and head_launches["dense"] == 0,
+          f"headline render_rays PALLAS did not search with B3 once a "
+          f"bounce: {head_launches}")
+    check(hdr3.device.type == "cuda", "the config-3 image is not on the GPU")
+    check(tuple(hdr3.shape) == (C3_H, C3_W, 3), "bad config-3 image shape")
+    check(bool(torch.isfinite(hdr3).all()), "non-finite config-3 HDR values")
+    check(png3_bytes > 0, "no config-3 PNG written")
+    check(float(ldr3.min()) >= 0.0 and float(ldr3.max()) <= 1.0,
+          "config-3 tone-mapped image outside [0, 1]")
+    check(small_rep["ok"], f"config-3 PALLAS on the card differs from the "
+          f"plain versions on the CPU: {small_rep}")
+    check(int(pallas_vs_fused.sum())
+          <= parity.MAX_FLIP_FRAC * hdr[..., 0].numel(),
+          "headline PALLAS and FUSED renders disagree beyond ULP noise")
+
+    # ---- 8. times at the main paths' shapes --------------------------------
     tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
     refr = tf._refr_pair(head, None)
     cam_arr = tf._cam_array(head_cam, refr)
@@ -401,6 +576,34 @@ def main() -> int:
              h=HEADLINE_H, refmax=cfg_head.refmax, prims=head.n_prims,
              frames=TIMED, card=name, nvidia_smi=smi)
 
+    # B3 on the headline wavefront, B4 on config 3's; render_hdr PALLAS
+    head_tabs, c3_tabs = nh.pack_tables(head), nh.pack_tables(c3)
+    b3_ms = cuda_median_ms(lambda: nh.launch_scalar(head_tabs, org, dir))
+    b3_plain_ms = cuda_median_ms(
+        lambda: nh.nearest_hit_pallas_scalar_plain(head, org, dir))
+    b4_ms = cuda_median_ms(lambda: nh.launch_dense(c3_tabs, org3, dir3))
+    b4_plain_ms = cuda_median_ms(
+        lambda: nh.nearest_hit_pallas_plain(c3, org3, dir3), warmup=1,
+        timed=5)
+    c3_render_ms = cuda_median_ms(lambda: rt.render_hdr(c3, c3_cam, cfg_c3),
+                                  warmup=2, timed=10)
+    head_pallas_ms = cuda_median_ms(
+        lambda: rt.render_hdr(head, head_cam, cfg_head_p), warmup=2,
+        timed=10)
+    for what, ms, scene, cam, refmax, frames in (
+            ("B3 kernel (one search)", b3_ms, head, head_cam, 1, TIMED),
+            ("B3 plain (one search)", b3_plain_ms, head, head_cam, 1, TIMED),
+            ("render_hdr PALLAS headline", head_pallas_ms, head, head_cam,
+             cfg_head_p.refmax, 10),
+            ("B4 kernel (one search)", b4_ms, c3, c3_cam, 1, TIMED),
+            ("B4 plain (one search)", b4_plain_ms, c3, c3_cam, 1, 5),
+            ("render_hdr PALLAS config 3", c3_render_ms, c3, c3_cam,
+             cfg_c3.refmax, 10)):
+        emit(phase="times", what=what, ms_per_frame=ms,
+             primary_rays_per_s=cam.w * cam.h / (ms * 1e-3), w=cam.w,
+             h=cam.h, refmax=refmax, prims=scene.n_prims, frames=frames,
+             card=name, nvidia_smi=smi)
+
     # ---- kernels summary and the last line ------------------------------------
     def worst(reps):
         return max(r["max_abs_err"] for r in reps)
@@ -416,6 +619,14 @@ def main() -> int:
          "replaces": "raytracer_js_tpu/kernels/trace_fused.py:636",
          "launches": launches["rays"], "max_abs_err": worst(b2),
          "ms": b2_ms, "plain_ms": b2_plain_ms},
+        {"name": "nh_scalar_kernel", "route": "cuda", "source": NH_SOURCE,
+         "replaces": "raytracer_js_tpu/kernels/nearest_hit.py:702",
+         "launches": head_launches["scalar"], "max_abs_err": worst(b3),
+         "ms": b3_ms, "plain_ms": b3_plain_ms},
+        {"name": "nh_dense_kernel", "route": "cuda", "source": NH_SOURCE,
+         "replaces": "raytracer_js_tpu/kernels/nearest_hit.py:91",
+         "launches": c3_launches["dense"], "max_abs_err": worst(b4),
+         "ms": b4_ms, "plain_ms": b4_plain_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,7 +7,10 @@ imports ``torch`` and ``numpy``, never ``jax``.
 
 The headline path is ``render_hdr`` with ``HitBackend.FUSED`` on a
 fused-class scene: one CUDA kernel renders the whole frame
-(``kernels/trace_fused``, ``csrc/trace_fused.cu``). On CPU tensors every
+(``kernels/trace_fused``, ``csrc/trace_fused.cu``). ``HitBackend.PALLAS``
+runs the wavefront loop with the nearest-hit kernels
+(``kernels/nearest_hit``, ``csrc/nearest_hit.cu``) and carries every scene
+class, image textures and cube-map skies included. On CPU tensors every
 kernel runs its plain PyTorch version instead.
 """
 from .config import (

@@ -57,8 +57,13 @@ class HitBackend(enum.Enum):
     * ``FUSED`` — whole-trace CUDA kernel (``kernels/trace_fused``) for the
       fused scene class (solid textures and sky, no BOTH); other scenes
       route to BRUTE.
-    * ``OCTREE``, ``PALLAS``, ``TILED`` — not ported yet; selecting one
-      raises ``NotImplementedError`` (ROADMAP A11, A7, A12).
+    * ``PALLAS`` — the wavefront loop with the nearest-hit CUDA kernels
+      (``kernels/nearest_hit``): B3 up to 384 prims, B4 above.
+    * ``TILED`` — ``render_hdr`` sends scenes of at most 2048 prims, and
+      BOTH scenes, to PALLAS; larger scenes raise ``NotImplementedError``
+      (ROADMAP A12), and ``render_rays`` takes BRUTE, as in the reference.
+    * ``OCTREE`` — not ported yet; raises ``NotImplementedError`` (ROADMAP
+      A11).
     """
 
     BRUTE = "brute"

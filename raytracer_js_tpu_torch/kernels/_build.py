@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. They are compiled by
-``nvcc`` into a shared library under ``build/torch_kernels/`` at the root of
-the checkout, at first use, and loaded with ``ctypes``. The library's file
-name carries a hash of the sources and the flags, so a stale library is
-never loaded. Without ``nvcc`` the build raises: there is no fallback.
+The sources under ``csrc/`` have a plain C interface. Each ``csrc/*.cu`` is
+compiled by its own ``nvcc`` process (all started together) into an object
+file, and the objects are linked into one shared library under
+``build/torch_kernels/`` at the root of the checkout, at first use, and
+loaded with ``ctypes``. The library's file name carries a hash of every
+source and of the flags, so a stale library is never loaded. Without
+``nvcc`` the build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,16 +19,20 @@ import pathlib
 import shutil
 import subprocess
 import time
+from typing import Optional
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "trace_fused.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: sm_90a (Hopper); no fast math, and --fmad=false so the kernels round
 #: operation for operation like their plain PyTorch versions
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,26 +55,49 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+def _digest() -> str:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build() -> Build:
-    """Compile ``csrc/trace_fused.cu`` unless a library for these exact
-    sources and flags exists already."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libtrace_fused_{digest[:16]}.so"
+    """Compile every ``csrc/*.cu`` and link them into one library, unless a
+    library for these exact sources and flags exists already."""
+    digest = _digest()
+    lib = BUILD_DIR / f"librt_kernels_{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return Build(lib, 0.0, log.read_text() if log.exists() else "")
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in SOURCES]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    outs = [(src.name, p.communicate()[0], p.returncode)
+            for src, p in zip(SOURCES, procs)]
+    out = "".join(f"== {name}\n{text}" for name, text, _ in outs)
+    failed = [name for name, _, rc in outs if rc != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True, check=False)
+        out += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{out}")
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{out}")
     log.write_text(out)
     os.replace(tmp, lib)
     return Build(lib, seconds, out)
@@ -78,19 +107,32 @@ _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_longlong)
 
 
+_FUSED_TABLES = [_P, _I, _P, _I, _P, _I, _P]  # sph, box, tri (+ counts), sky
+_HIT_TABLES = [_P, _I, _I] * 3                 # sph, box, tri (+ count, stride)
+
+#: every C entry of the library -> (argtypes, restype); pointers and the
+#: stream are c_void_p, so ctypes never cuts them to 32 bits
+SIGNATURES = {
+    "rt_trace_frame": (_FUSED_TABLES + [
+        _P, _I, _I, _I, _F, _I, _I, _U, _I, _I, _P, _P, _P, _I, _P], _I),
+    "rt_trace_rays": (_FUSED_TABLES + [
+        _P, _P, _P, _P, _LL, _I, _F, _I, _I, _U, _P, _P, _P, _I, _P], _I),
+    "rt_nearest_hit_scalar": (_HIT_TABLES + [
+        _P, _P, _LL, _P, _P, _I, _P], _I),
+    "rt_nearest_hit_dense": (_HIT_TABLES + [
+        _P, _P, _LL, _P, _P, _P, _I, _P], _I),
+    "rt_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     lib = ctypes.CDLL(str(build().path))
-    tables = [_P, _I, _P, _I, _P, _I, _P]   # sph, box, tri (with counts), sky
-    lib.rt_trace_frame.argtypes = tables + [
-        _P, _I, _I, _I, _F, _I, _I, _U, _I, _I, _P, _P, _P, _I, _P]
-    lib.rt_trace_frame.restype = _I
-    lib.rt_trace_rays.argtypes = tables + [
-        _P, _P, _P, _P, _LL, _I, _F, _I, _I, _U, _P, _P, _P, _I, _P]
-    lib.rt_trace_rays.restype = _I
-    lib.rt_error_string.argtypes = [_I]
-    lib.rt_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 
@@ -99,3 +141,39 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.rt_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# Helpers shared by the launch wrappers
+# ---------------------------------------------------------------------------
+
+def on_cpu(device: torch.device) -> bool:
+    """True for CPU tensors (take the plain version), False for CUDA
+    tensors (launch the kernel); anything else raises."""
+    if device.type == "cpu":
+        return True
+    if device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {device}")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
+    """Check what a kernel takes: device, dtype, shape and contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t
+
+
+def stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream

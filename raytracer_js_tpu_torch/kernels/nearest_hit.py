@@ -1,0 +1,348 @@
+"""Nearest-hit kernels B3 (scalar) and B4 (dense) and their plain versions.
+
+Port of ``raytracer_js_tpu.kernels.nearest_hit``: the search behind
+``HitBackend.PALLAS``. Both return, per ray, the nearest forward hit
+``(t [N] f32, pid [N] i32)`` over the global [spheres | boxes | triangles]
+order, with ``pid = -1`` and ``t = +inf`` on a miss and a tie in t going
+to the lowest pid — the contract of ``ops/trace.nearest_hit_brute``.
+
+- :func:`nearest_hit_pallas_scalar` (B3, ``nh_scalar_kernel``) — the
+  reference's prim-at-a-time kernel for scenes of at most 384 prims.
+- :func:`nearest_hit_pallas` (B4, ``nh_dense_kernel``) — the dense tiled
+  kernel, with the sphere test in its factored form and ``n_live``: rows at
+  or past ``n_live`` report a miss.
+
+Both kernels live in ``csrc/nearest_hit.cu``. Each has a plain PyTorch
+version (``*_plain``) with the kernel's expressions in the kernel's order,
+written out elementwise (never a matmul: TF32 or another summation order
+would move near-miss discriminants, the phantom-hit class). The plain
+versions chunk over rays so their ``[rays, prims]`` temporaries stay
+bounded; a ray's result depends only on that ray, so chunking changes no
+bit. A wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises. ``LAUNCHES`` counts launches.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+
+from ..models.scene import Scene
+from . import _build
+
+Tensor = torch.Tensor
+
+#: kernel launches per kernel since the last reset (the plain versions and
+#: the empty cases answered on the host do not count)
+LAUNCHES = {"scalar": 0, "dense": 0}
+
+#: the reference sends scenes of 1..SCALAR_MAX_PRIMS prims to B3
+SCALAR_MAX_PRIMS = 384
+#: elements of one [rays, prims] temporary in a plain version
+PLAIN_CHUNK_ELEMS = 1 << 25
+
+_INF = math.inf
+_SLAB_EPS = 1e-12
+_MT_EPS = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class HitTables:
+    """Structure-of-arrays prim tables, row-major ``[rows, max(count, 1)]``
+    f32 on the scene's device (at least one column, so a kernel never gets
+    a null pointer): spheres cx cy cz ccmr (``c.c - r^2``), boxes
+    cx cy cz hx hy hz, triangles v0 v1 v2 (xyz each)."""
+
+    sph: Tensor     # [4, S]
+    box: Tensor     # [6, B]
+    tri: Tensor     # [9, T]
+    n_sph: int
+    n_box: int
+    n_tri: int
+
+    @property
+    def n_prims(self) -> int:
+        return self.n_sph + self.n_box + self.n_tri
+
+
+def pack_tables(scene: Scene) -> HitTables:
+    c, r = scene.sphere_center, scene.sphere_radius
+    cx, cy, cz = c[:, 0], c[:, 1], c[:, 2]
+    bc, bh = scene.box_center, scene.box_half
+    v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
+
+    def table(rows, n):
+        if n == 0:
+            return torch.zeros((len(rows), 1), dtype=torch.float32,
+                               device=scene.device)
+        return torch.stack([x.to(torch.float32) for x in rows]).contiguous()
+
+    return HitTables(
+        sph=table([cx, cy, cz, (cx * cx + cy * cy + cz * cz) - r * r],
+                  scene.n_spheres),
+        box=table([bc[:, 0], bc[:, 1], bc[:, 2], bh[:, 0], bh[:, 1],
+                   bh[:, 2]], scene.n_boxes),
+        tri=table([v[:, k] for v in (v0, v1, v2) for k in range(3)],
+                  scene.n_tris),
+        n_sph=scene.n_spheres, n_box=scene.n_boxes, n_tri=scene.n_tris)
+
+
+# ---------------------------------------------------------------------------
+# The plain versions
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Rays:
+    """Per-ray terms as [c, 1] columns (one chunk of rays)."""
+
+    ox: Tensor
+    oy: Tensor
+    oz: Tensor
+    dx: Tensor
+    dy: Tensor
+    dz: Tensor
+    a: Tensor
+    inv_a: Tensor
+    ix: Tensor
+    iy: Tensor
+    iz: Tensor
+    o_dot_o: Tensor
+    o_dot_d: Tensor
+
+
+def _safe_inv(d: Tensor) -> Tensor:
+    tiny = d.abs() < _SLAB_EPS
+    return 1.0 / torch.where(tiny, torch.where(d < 0, -_SLAB_EPS, _SLAB_EPS),
+                             d)
+
+
+def _rays(org: Tensor, dir: Tensor) -> _Rays:
+    ox, oy, oz = (org[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (dir[:, k:k + 1] for k in range(3))
+    a = dx * dx + dy * dy + dz * dz
+    return _Rays(ox, oy, oz, dx, dy, dz, a, 1.0 / a, _safe_inv(dx),
+                 _safe_inv(dy), _safe_inv(dz), ox * ox + oy * oy + oz * oz,
+                 ox * dx + oy * dy + oz * dz)
+
+
+def _sphere_scalar(r: _Rays, s: Tensor) -> Tensor:
+    """B3's sphere test: clamped discriminant and a disc >= 0 mask."""
+    cx, cy, cz, ccmr = s[0], s[1], s[2], s[3]
+    b_half = r.o_dot_d - (r.dx * cx + r.dy * cy + r.dz * cz)
+    c = r.o_dot_o - 2.0 * (r.ox * cx + r.oy * cy + r.oz * cz) + ccmr
+    disc = b_half * b_half - r.a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t_near = (-b_half - sq) * r.inv_a
+    t_far = (-b_half + sq) * r.inv_a
+    t = torch.where(t_near >= 0.0, t_near,
+                    torch.where(t_far >= 0.0, t_far, _INF))
+    return torch.where(disc >= 0.0, t, _INF)
+
+
+def _sphere_dense(r: _Rays, s: Tensor) -> Tensor:
+    """B4's sphere test: the factored form; a negative discriminant makes
+    ``sq`` NaN, every compare on it false, and t = +inf."""
+    cx, cy, cz, ccmr = s[0], s[1], s[2], s[3]
+    d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz
+    o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz
+    b_half = r.o_dot_d - d_dot_c
+    c = r.o_dot_o - 2.0 * o_dot_c + ccmr
+    disc = b_half * b_half - r.a * c
+    sq = torch.sqrt(disc)
+    u = (d_dot_c - r.o_dot_d) * r.inv_a
+    s_ = sq * r.inv_a
+    t_sel = torch.where(u - s_ >= 0.0, u - s_, u + s_)
+    return torch.where(u + s_ >= 0.0, t_sel, _INF)
+
+
+def _box(r: _Rays, b: Tensor) -> Tensor:
+    cx, cy, cz, hx, hy, hz = (b[k] for k in range(6))
+    tax = (cx - hx - r.ox) * r.ix
+    tbx = (cx + hx - r.ox) * r.ix
+    tay = (cy - hy - r.oy) * r.iy
+    tby = (cy + hy - r.oy) * r.iy
+    taz = (cz - hz - r.oz) * r.iz
+    tbz = (cz + hz - r.oz) * r.iz
+    t_enter = torch.maximum(torch.maximum(torch.minimum(tax, tbx),
+                                          torch.minimum(tay, tby)),
+                            torch.minimum(taz, tbz))
+    t_exit = torch.minimum(torch.minimum(torch.maximum(tax, tbx),
+                                         torch.maximum(tay, tby)),
+                           torch.maximum(taz, tbz))
+    t = torch.where(t_enter >= 0.0, t_enter,
+                    torch.where(t_exit >= 0.0, t_exit, _INF))
+    return torch.where(t_enter <= t_exit, t, _INF)
+
+
+def _tri(r: _Rays, tr: Tensor) -> Tensor:
+    """Moeller-Trumbore with the 1e-9 determinant floor."""
+    v0x, v0y, v0z = tr[0], tr[1], tr[2]
+    e1x, e1y, e1z = tr[3] - v0x, tr[4] - v0y, tr[5] - v0z
+    e2x, e2y, e2z = tr[6] - v0x, tr[7] - v0y, tr[8] - v0z
+    px = r.dy * e2z - r.dz * e2y
+    py = r.dz * e2x - r.dx * e2z
+    pz = r.dx * e2y - r.dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / torch.where(det.abs() < _MT_EPS, _MT_EPS, det)
+    sx, sy, sz = r.ox - v0x, r.oy - v0y, r.oz - v0z
+    u = (sx * px + sy * py + sz * pz) * inv_det
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((det.abs() >= _MT_EPS) & (u >= 0.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= 0.0))
+    return torch.where(ok, t, _INF)
+
+
+def _search_plain(tabs: HitTables, org: Tensor, dir: Tensor,
+                  sphere: Callable) -> Tuple[Tensor, Tensor]:
+    """Nearest forward hit, class by class in pid order, folding each
+    class's first minimum with a strict ``<`` (the kernels' running min),
+    in chunks of rays."""
+    n = org.shape[0]
+    t_out = torch.full((n,), _INF, dtype=torch.float32, device=org.device)
+    pid_out = torch.full((n,), -1, dtype=torch.int32, device=org.device)
+    classes = [(tabs.n_sph, tabs.sph, sphere, 0),
+               (tabs.n_box, tabs.box, _box, tabs.n_sph),
+               (tabs.n_tri, tabs.tri, _tri, tabs.n_sph + tabs.n_box)]
+    step = max(1, PLAIN_CHUNK_ELEMS // max(tabs.n_prims, 1))
+    for lo in range(0, n if tabs.n_prims else 0, step):
+        r = _rays(org[lo:lo + step], dir[lo:lo + step])
+        t_best = torch.full_like(r.ox[:, 0], _INF)
+        pid = torch.full(t_best.shape, -1, dtype=torch.int64,
+                         device=org.device)
+        for count, tab, test, base in classes:
+            if count == 0:
+                continue
+            t, idx = test(r, tab[:, :count]).min(dim=1)
+            upd = t < t_best
+            t_best = torch.where(upd, t, t_best)
+            pid = torch.where(upd, idx + base, pid)
+        t_out[lo:lo + step] = t_best
+        pid_out[lo:lo + step] = torch.where(t_best < _INF, pid, -1).to(
+            torch.int32)
+    return t_out, pid_out
+
+
+def nearest_hit_pallas_scalar_plain(scene: Scene, org: Tensor,
+                                    dir: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain version of B3 -> (t [N], pid [N])."""
+    return _search_plain(pack_tables(scene), org, dir, _sphere_scalar)
+
+
+def nearest_hit_pallas_plain(scene: Scene, org: Tensor, dir: Tensor,
+                             n_live=None) -> Tuple[Tensor, Tensor]:
+    """Plain version of B4 -> (t [N], pid [N]); rows at or past ``n_live``
+    report (+inf, -1)."""
+    t, pid = _search_plain(pack_tables(scene), org, dir, _sphere_dense)
+    if n_live is None:
+        return t, pid
+    live = (torch.arange(org.shape[0], device=org.device)
+            < torch.as_tensor(n_live, device=org.device))
+    return torch.where(live, t, _INF), torch.where(live, pid, -1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches and the dispatching wrappers
+# ---------------------------------------------------------------------------
+
+def _launch_args(tabs: HitTables, org: Tensor, dir: Tensor):
+    dev = org.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
+                         f"{dev}")
+    n = org.shape[0]
+    f32 = torch.float32
+    args = []
+    for name, tab, rows, count in (("sphere table", tabs.sph, 4, tabs.n_sph),
+                                   ("box table", tabs.box, 6, tabs.n_box),
+                                   ("triangle table", tabs.tri, 9,
+                                    tabs.n_tri)):
+        _build.need(tab, name, f32, (rows, max(count, 1)), dev)
+        args += [_build.ptr(tab), count, tab.shape[1]]
+    _build.need(org, "org", f32, (n, 3), dev)
+    _build.need(dir, "dir", f32, (n, 3), dev)
+    t = torch.full((n,), _INF, dtype=f32, device=dev)
+    pid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    return args + [_build.ptr(org), _build.ptr(dir), n], t, pid
+
+
+def launch_scalar(tabs: HitTables, org: Tensor,
+                  dir: Tensor) -> Tuple[Tensor, Tensor]:
+    """Launch B3 on the current stream -> (t [N], pid [N]). No rays or no
+    prims is answered here without a launch. Does not synchronize."""
+    args, t, pid = _launch_args(tabs, org, dir)
+    if org.shape[0] == 0 or tabs.n_prims == 0:
+        return t, pid
+    lib = _build.load()
+    dev = org.device
+    err = lib.rt_nearest_hit_scalar(*args, _build.ptr(t), _build.ptr(pid),
+                                    dev.index, _build.stream(dev))
+    _build.check(lib, err, "nh_scalar_kernel")
+    LAUNCHES["scalar"] += 1
+    return t, pid
+
+
+def launch_dense(tabs: HitTables, org: Tensor, dir: Tensor,
+                 n_live: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Launch B4 on the current stream -> (t [N], pid [N]); ``n_live`` is a
+    [1] int32 device tensor (None: every row), so the count never syncs to
+    the host. Does not synchronize."""
+    args, t, pid = _launch_args(tabs, org, dir)
+    n = org.shape[0]
+    if n == 0 or tabs.n_prims == 0:
+        return t, pid
+    dev = org.device
+    if n_live is None:
+        n_live = torch.full((1,), n, dtype=torch.int32, device=dev)
+    _build.need(n_live, "n_live", torch.int32, (1,), dev)
+    lib = _build.load()
+    err = lib.rt_nearest_hit_dense(*args, _build.ptr(n_live), _build.ptr(t),
+                                   _build.ptr(pid), dev.index,
+                                   _build.stream(dev))
+    _build.check(lib, err, "nh_dense_kernel")
+    LAUNCHES["dense"] += 1
+    return t, pid
+
+
+def nearest_hit_pallas_scalar(scene: Scene, org: Tensor,
+                              dir: Tensor) -> Tuple[Tensor, Tensor]:
+    """B3: prim-at-a-time nearest hit -> (t [N], pid [N]). CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
+    if _build.on_cpu(org.device):
+        return nearest_hit_pallas_scalar_plain(scene, org, dir)
+    return launch_scalar(pack_tables(scene), org, dir)
+
+
+def nearest_hit_pallas(scene: Scene, org: Tensor, dir: Tensor,
+                       n_live: Union[int, Tensor, None] = None,
+                       tile_bounds: Optional[Tensor] = None,
+                       tile_ids=None, tri_tile_ids=None, sph_fan: int = 1,
+                       tri_fan: int = 1) -> Tuple[Tensor, Tensor]:
+    """B4: dense nearest hit -> (t [N], pid [N]), the drop-in for
+    ``ops/trace.nearest_hit_brute``. ``n_live`` (an int or a scalar tensor)
+    declares that only the first ``n_live`` rays matter: rows at or past it
+    report (+inf, -1). CUDA tensors launch the kernel; CPU tensors run the
+    plain version.
+
+    The cone-culled (``tile_bounds``) and listed (``tile_ids``,
+    ``tri_tile_ids``, fans) variants are not ported yet.
+    """
+    if tile_bounds is not None:
+        raise NotImplementedError("the cone-culled nearest-hit kernel is not "
+                                  "ported yet (ROADMAP B8)")
+    if (tile_ids is not None or tri_tile_ids is not None or sph_fan != 1
+            or tri_fan != 1):
+        raise NotImplementedError("the listed nearest-hit kernel is not "
+                                  "ported yet (ROADMAP B6)")
+    if _build.on_cpu(org.device):
+        return nearest_hit_pallas_plain(scene, org, dir, n_live=n_live)
+    nl = None
+    if n_live is not None:
+        nl = torch.as_tensor(n_live, device=org.device).reshape(1).to(
+            torch.int32)
+    return launch_dense(pack_tables(scene), org, dir, n_live=nl)

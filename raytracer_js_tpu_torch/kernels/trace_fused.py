@@ -35,6 +35,8 @@ from ..models.scene import Scene, box_volumes, sphere_volumes
 from ..ops import sampling
 from ..ops.vecmath import cross, length
 from . import _build
+from ._build import need as _need, on_cpu as _on_cpu, ptr as _ptr
+from ._build import stream as _stream
 
 Tensor = torch.Tensor
 
@@ -525,23 +527,6 @@ def trace_rays_fused_plain(scene: Scene, cfg: RenderConfig, org: Tensor,
         refr0=refr[0], refr_def=refr[1], record=record)
 
 
-def _ptr(t: Optional[Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _need(t: Tensor, name: str, dtype, shape, device) -> Tensor:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t
-
-
 def _table_args(tabs: Tables, dev) -> list:
     f32 = torch.float32
     _need(tabs.sph, "sphere table", f32, (13, tabs.n_sph), dev)
@@ -550,10 +535,6 @@ def _table_args(tabs: Tables, dev) -> list:
     _need(tabs.sky, "sky", f32, (3,), dev)
     return [_ptr(tabs.sph), tabs.n_sph, _ptr(tabs.box), tabs.n_box,
             _ptr(tabs.tri), tabs.n_tri, _ptr(tabs.sky)]
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def launch_frame(tabs: Tables, cam_arr: Tensor, w: int, h: int, *,
@@ -639,16 +620,6 @@ def trace_rays_fused_cuda(scene: Scene, cfg: RenderConfig, org: Tensor,
         ray_id.to(torch.int32), refmax=int(cfg.refmax),
         atten=float(cfg.distance_attenuation_factor),
         seed=sampling.DEFAULT_SEED if seed is None else seed, record=record)
-
-
-def _on_cpu(device: torch.device) -> bool:
-    """True for CPU tensors (take the plain version), False for CUDA
-    tensors (launch the kernel); anything else raises."""
-    if device.type == "cpu":
-        return True
-    if device.type == "cuda":
-        return False
-    raise ValueError(f"no fused trace for device {device}")
 
 
 def trace_frame_fused(scene: Scene, cfg: RenderConfig, cam: Camera,

@@ -20,7 +20,7 @@ import torch
 
 from ..config import ResponseType, TextureKind
 from .materials import MaterialTable, make_material_table
-from .textures import _A8, TextureTable
+from .textures import TextureTable
 
 Tensor = torch.Tensor
 
@@ -55,7 +55,8 @@ class Scene:
     sub_refr: Tensor        # [K] f32 refractive indices
     default_refr: Tensor    # [] f32: empty-space substance
     sky_tex: int = 0
-    #: cube-map sky; always None until ROADMAP A8
+    #: cube-map sky: 6 texture ids (+x, -x, +y, -y, +z, -z faces) or None
+    #: (see ops/trace.sky_color for the face convention)
     sky_box: Optional[tuple] = None
     has_transmission: bool = True
     has_rough: bool = True
@@ -127,7 +128,8 @@ def prim_volumes(scene: Scene) -> Tensor:
 
 
 def scene_from_numpy(arrays: dict, *, sky_tex: int, has_transmission: bool,
-                     has_rough: bool, has_both: bool,
+                     has_rough: bool, has_both: bool, has_images: bool,
+                     has_bilinear: bool, sky_box: Optional[tuple] = None,
                      device=None) -> Scene:
     """Build a :class:`Scene` from numpy arrays named like the reference
     package's ``Scene`` fields.
@@ -136,16 +138,14 @@ def scene_from_numpy(arrays: dict, *, sky_tex: int, has_transmission: bool,
     names (``sphere_center`` ... ``prim_substance``), the tables as
     ``materials.response``, ``materials.light``, ``materials.mirror``,
     ``materials.roughness``, ``textures.kind``, ``textures.ref``,
-    ``textures.solid_rgb``, and ``sub_refr`` and ``default_refr``.
+    ``textures.solid_rgb``, ``textures.atlas``, ``textures.img_h``,
+    ``textures.img_w``, and ``sub_refr`` and ``default_refr``.
     """
     def t(name, dtype):
         return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
                                device=device)
 
     f32, i32 = torch.float32, torch.int32
-    kind = t("textures.kind", i32)
-    if bool((kind != int(TextureKind.SOLID)).any()):
-        raise NotImplementedError(_A8)
     geom = {k: t(k, f32) for k in ("sphere_center", "sphere_radius",
                                    "box_center", "box_half", "tri_v0",
                                    "tri_v1", "tri_v2", "sub_refr",
@@ -163,9 +163,17 @@ def scene_from_numpy(arrays: dict, *, sky_tex: int, has_transmission: bool,
             light=t("materials.light", torch.bool),
             mirror=t("materials.mirror", torch.bool),
             roughness=t("materials.roughness", f32)),
-        textures=TextureTable(kind=kind, ref=t("textures.ref", i32),
-                              solid_rgb=t("textures.solid_rgb", f32)),
-        sky_tex=int(sky_tex), has_transmission=bool(has_transmission),
+        textures=TextureTable(kind=t("textures.kind", i32),
+                              ref=t("textures.ref", i32),
+                              solid_rgb=t("textures.solid_rgb", f32),
+                              atlas=t("textures.atlas", f32),
+                              img_h=t("textures.img_h", i32),
+                              img_w=t("textures.img_w", i32),
+                              has_images=bool(has_images),
+                              has_bilinear=bool(has_bilinear)),
+        sky_tex=int(sky_tex),
+        sky_box=None if sky_box is None else tuple(int(i) for i in sky_box),
+        has_transmission=bool(has_transmission),
         has_rough=bool(has_rough), has_both=bool(has_both))
 
 
@@ -176,14 +184,22 @@ class SceneBuilder:
     :class:`Scene` on the requested device.
     """
 
-    def __init__(self):
+    def __init__(self, atlas_hw: Optional[Tuple[int, int]] = None):
+        #: fixed atlas resolution images are nearest-resized to, or None
+        #: (the default): every image keeps its native resolution and the
+        #: atlas pads to the largest (texture_image.ts:40-63)
+        self.atlas_hw = atlas_hw
         self._materials: List[tuple] = []
+        self._tex_kind: List[int] = []
+        self._tex_ref: List[int] = []
         self._tex_solid: List[np.ndarray] = []
+        self._images: List[np.ndarray] = []
         self._substances: List[float] = []
         self._spheres: List[tuple] = []   # (center, radius, mat, tex, sub)
         self._boxes: List[tuple] = []     # (center, half, mat, tex, sub)
         self._tris: List[tuple] = []      # (v0, v1, v2, mat, tex, sub)
         self._sky_tex: Optional[int] = None
+        self._sky_box: Optional[tuple] = None
         self._default_refr: float = REFR_AIR
 
     # -- tables ------------------------------------------------------------
@@ -195,23 +211,52 @@ class SceneBuilder:
 
     def add_solid_texture(self, rgb) -> int:
         """SolidTexture (texture_solid.ts:21-44)."""
+        self._tex_kind.append(int(TextureKind.SOLID))
+        self._tex_ref.append(0)
         self._tex_solid.append(np.asarray(rgb, np.float32).reshape(3))
-        return len(self._tex_solid) - 1
+        return len(self._tex_kind) - 1
 
     def add_image_texture(self, image, fallback=(0.0, 0.0, 0.0),
                           bilinear: bool = False) -> int:
-        raise NotImplementedError(_A8)
+        """ImageTexture (texture_image.ts:20-137): ``image`` is [H, W, 3]
+        float in [0, 1], nearest-resized to ``atlas_hw`` when the builder
+        has one. ``fallback`` is the reference's until-loaded color;
+        ``bilinear=True`` opts into 4-tap filtered sampling."""
+        img = np.asarray(image, np.float32)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"an image texture is [H, W, 3], got "
+                             f"{img.shape}")
+        if self.atlas_hw is not None:
+            ah, aw = self.atlas_hw
+            if img.shape[:2] != (ah, aw):
+                yi = np.arange(ah) * img.shape[0] // ah
+                xi = np.arange(aw) * img.shape[1] // aw
+                img = img[yi][:, xi]
+        self._images.append(img)
+        self._tex_kind.append(int(TextureKind.IMAGE_BILINEAR if bilinear
+                                  else TextureKind.IMAGE))
+        self._tex_ref.append(len(self._images) - 1)
+        self._tex_solid.append(np.asarray(fallback, np.float32).reshape(3))
+        return len(self._tex_kind) - 1
 
     def add_substance(self, refractive_index: float) -> int:
         self._substances.append(float(refractive_index))
         return len(self._substances) - 1
 
     def set_sky(self, tex_id: int) -> None:
+        """Equirect sky texture (sky/sky_sphere.ts:22-27); clears a sky
+        box."""
         self._sky_tex = tex_id
+        self._sky_box = None
 
     def set_sky_box(self, face_tex_ids) -> None:
-        raise NotImplementedError("cube-map skies are not ported yet "
-                                  "(ROADMAP A8)")
+        """Cube-map sky from 6 texture ids, face order
+        (+x, -x, +y, -y, +z, -z); completes the reference's SkyBox stub
+        (sky/sky_box.ts:17)."""
+        ids = tuple(int(i) for i in face_tex_ids)
+        if len(ids) != 6:
+            raise ValueError(f"a sky box has 6 faces, got {len(ids)}")
+        self._sky_box = ids
 
     def set_default_refr(self, refr: float) -> None:
         self._default_refr = float(refr)
@@ -248,7 +293,7 @@ class SceneBuilder:
 
     # -- build ---------------------------------------------------------------
     def build(self, device=None) -> Scene:
-        if not self._tex_solid:
+        if not self._tex_kind:
             self.add_solid_texture((0.0, 0.0, 0.0))
         if self._sky_tex is None:
             # reference default sky color is black (raytracer.ts:47-50)
@@ -266,6 +311,20 @@ class SceneBuilder:
                + [t[3:] for t in self._tris])
         responses = [int(self._materials[i[0]][0]) for i in ids]
         mats = make_material_table(self._materials)
+        # pad every image into a max-size atlas, keeping each native (h, w)
+        if self._images:
+            ah = max(im.shape[0] for im in self._images)
+            aw = max(im.shape[1] for im in self._images)
+            atlas = np.zeros((len(self._images), ah, aw, 3), np.float32)
+            for k, im in enumerate(self._images):
+                atlas[k, : im.shape[0], : im.shape[1]] = im
+            img_h = np.array([im.shape[0] for im in self._images], np.int32)
+            img_w = np.array([im.shape[1] for im in self._images], np.int32)
+        else:
+            ah, aw = self.atlas_hw or (1, 1)
+            atlas = np.zeros((1, ah, aw, 3), np.float32)
+            img_h = np.full(1, ah, np.int32)
+            img_w = np.full(1, aw, np.int32)
         arrays = {
             "sphere_center": stack([s[0] for s in self._spheres], (0, 3)),
             "sphere_radius": stack([s[1] for s in self._spheres], (0,)),
@@ -281,15 +340,19 @@ class SceneBuilder:
             "materials.light": mats.light.numpy(),
             "materials.mirror": mats.mirror.numpy(),
             "materials.roughness": mats.roughness.numpy(),
-            "textures.kind": np.full(len(self._tex_solid),
-                                     int(TextureKind.SOLID), np.int32),
-            "textures.ref": np.zeros(len(self._tex_solid), np.int32),
+            "textures.kind": np.array(self._tex_kind, np.int32),
+            "textures.ref": np.array(self._tex_ref, np.int32),
             "textures.solid_rgb": np.stack(self._tex_solid),
+            "textures.atlas": atlas,
+            "textures.img_h": img_h,
+            "textures.img_w": img_w,
             "sub_refr": np.array(self._substances, np.float32),
             "default_refr": np.float32(self._default_refr),
         }
         return scene_from_numpy(
-            arrays, sky_tex=int(self._sky_tex),
+            arrays, sky_tex=int(self._sky_tex), sky_box=self._sky_box,
+            has_images=bool(self._images),
+            has_bilinear=int(TextureKind.IMAGE_BILINEAR) in self._tex_kind,
             # BOTH rides the transmission machinery (substance query +
             # Snell/TIR), so it implies has_transmission
             has_transmission=any(r in (int(ResponseType.TRANSMISSION),

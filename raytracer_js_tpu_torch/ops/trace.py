@@ -1,15 +1,17 @@
-"""Fixed-depth iterative wavefront trace loop — the BRUTE backend.
+"""Fixed-depth iterative wavefront trace loop — the BRUTE and PALLAS backends.
 
-Port of ``raytracer_js_tpu.ops.trace`` for solid-texture scenes: ``refmax``
-masked passes over structure-of-arrays ray state — traverse, intersect,
-shade, respawn — with an explicit per-ray status word (raytracer.ts:166-277).
-It is also the semantic reference for the fused kernel's plain versions
-(``kernels/trace_fused``).
+Port of ``raytracer_js_tpu.ops.trace``: ``refmax`` masked passes over
+structure-of-arrays ray state — traverse, intersect, shade, respawn — with
+an explicit per-ray status word (raytracer.ts:166-277). The nearest-hit
+search is dense PyTorch (BRUTE) or kernels B3/B4 (PALLAS,
+``kernels/nearest_hit``). It is also the semantic reference for the fused
+kernel's plain versions (``kernels/trace_fused``).
 
 Behavioral contract (reference source in parentheses):
 
-* a hit modulates the ray color by the texture color (material_solid.ts:30-36)
-  and adds the hit distance to the path (raytracer.ts:210);
+* a hit modulates the ray color by the texture color at the hit's uv
+  (material_solid.ts:30-36) and adds the hit distance to the path
+  (raytracer.ts:210);
 * emissive hit -> LIGHT; at the end the color is scaled by
   ``1/(eps + (path * A)^2)`` (raytracer.ts:215-218, 273-275);
 * mirror REFLECTION -> reflect, roughness scatter, eps-advance along the NEW
@@ -19,7 +21,8 @@ Behavioral contract (reference source in parentheses):
   substance means no refraction (raytracer.ts:239-248);
 * BOTH -> KEEP, or with ``RenderConfig.fresnel_both`` a Schlick split drawn
   from the counter RNG;
-* miss -> color times sky, MISS; alive after ``refmax`` bounces -> black.
+* miss -> color times sky (equirect or cube map), MISS; alive after
+  ``refmax`` bounces -> black.
 
 The hit search is discrete and runs under ``torch.no_grad()``. Path replay
 (``pid_seq``) and ``record_paths`` come with the gradient work.
@@ -33,6 +36,7 @@ import torch
 
 from ..config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
                       RenderConfig, ResponseType)
+from ..kernels import nearest_hit as nh
 from ..models import textures as tex_mod
 from ..models.scene import Scene, prim_volumes
 from . import intersect, sampling
@@ -84,8 +88,14 @@ def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
                 dir: Tensor) -> Tuple[Tensor, Tensor]:
     """Backend dispatch for the nearest-hit search."""
     if cfg.backend == HitBackend.PALLAS:
-        raise NotImplementedError("the PALLAS backend is not ported yet "
-                                  "(ROADMAP A7, kernels B3/B4)")
+        # the search is discrete: detached inputs, no graph. Kernel B3
+        # streams prims one at a time (1..384 prims); B4 tiles them
+        # (larger scenes, and the empty one)
+        org, dir = org.detach(), dir.detach()
+        with torch.no_grad():
+            if 0 < scene.n_prims <= nh.SCALAR_MAX_PRIMS:
+                return nh.nearest_hit_pallas_scalar(scene, org, dir)
+            return nh.nearest_hit_pallas(scene, org, dir)
     if cfg.backend == HitBackend.OCTREE:
         raise NotImplementedError("the OCTREE backend is not ported yet "
                                   "(ROADMAP A11)")
@@ -103,7 +113,9 @@ def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
 class PrimRows:
     """Shading attributes per primitive, in global prim order."""
 
-    rgb: Tensor        # [P, 3] solid texture color
+    #: [P, 3] solid texture color, pre-joined only when the scene has no
+    #: image textures (image scenes sample per hit at the hit's uv)
+    rgb: Optional[Tensor]
     light: Tensor      # [P] bool
     mirror: Tensor     # [P] bool
     response: Tensor   # [P] i32 ResponseType
@@ -118,7 +130,8 @@ def prim_rows(scene: Scene) -> Optional[PrimRows]:
     mat_id = scene.prim_material.long()
     m = scene.materials
     return PrimRows(
-        rgb=tex_mod.sample(scene.textures, scene.prim_texture, None, None),
+        rgb=(None if scene.textures.has_images else
+             scene.textures.solid_rgb[scene.prim_texture.long()]),
         light=m.light.index_select(0, mat_id),
         mirror=m.mirror.index_select(0, mat_id),
         response=m.response.index_select(0, mat_id),
@@ -212,12 +225,46 @@ def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor):
 
 
 def sky_color(scene: Scene, dir: Tensor) -> Tensor:
-    """Environment color for a direction (sky/sky_sphere.ts:22-27); a solid
-    sky is one color."""
-    u, v = uv_map_sphere(dir)
-    tex_id = torch.full(u.shape, scene.sky_tex, dtype=torch.int32,
-                        device=dir.device)
-    return tex_mod.sample(scene.textures, tex_id, u, v)
+    """Environment color for a direction.
+
+    Sky sphere: equirect lookup (sky/sky_sphere.ts:22-27). With
+    ``scene.sky_box`` set: cube-map lookup in the GL face convention mapped
+    to this scene's axes (the reference's SkyBox is a stub,
+    sky/sky_box.ts:17): faces (+x, -x, +y, -y, +z, -z) by the dominant
+    |component| of ``dir``, with
+
+        +x: (u,v) <- (-z/ax, -y/ax)   -x: (+z/ax, -y/ax)
+        +y: (u,v) <- (+x/ay, +z/ay)   -y: (+x/ay, -z/ay)
+        +z: (u,v) <- (+x/az, -y/az)   -z: (-x/az, -y/az)
+
+    remapped from [-1, 1] to [0, 1).
+    """
+    if scene.sky_box is None:
+        u, v = uv_map_sphere(dir)
+        tex_id = torch.full(u.shape, scene.sky_tex, dtype=torch.int32,
+                            device=dir.device)
+        return tex_mod.sample(scene.textures, tex_id, u, v)
+    x, y, z = dir[..., 0], dir[..., 1], dir[..., 2]
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    inv = 1.0 / torch.maximum(torch.maximum(ax, ay),
+                              torch.clamp(az, min=1e-20))
+    x_major = (ax >= ay) & (ax >= az)
+    y_major = ~x_major & (ay >= az)
+
+    def pick(px, nx, py, ny, pz, nz):
+        return torch.where(x_major, torch.where(x >= 0, px, nx),
+                           torch.where(y_major, torch.where(y >= 0, py, ny),
+                                       torch.where(z >= 0, pz, nz)))
+
+    face = pick(0, 1, 2, 3, 4, 5)
+    sc = pick(-z, z, x, x, x, -x)
+    tc = pick(-y, -y, z, -z, -y, -y)
+    top = 1.0 - 2.0 ** -23
+    u = torch.clamp(0.5 * (sc * inv + 1.0), 0.0, top)
+    v = torch.clamp(0.5 * (tc * inv + 1.0), 0.0, top)
+    face_tex = torch.tensor(scene.sky_box, dtype=torch.int32,
+                            device=dir.device)
+    return tex_mod.sample(scene.textures, face_tex[face], u, v)
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +285,15 @@ def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
         return dataclasses.replace(state, color=color, status=status)
 
     pid_cc = torch.clamp(pid.long(), 0, scene.n_prims - 1)
-    point, normal, _u, _v, t_surf = surface_at(scene, state.org, state.dir,
-                                               pid_cc)
-    tex_rgb = prows.rgb.index_select(0, pid_cc)
+    point, normal, u, v, t_surf = surface_at(scene, state.org, state.dir,
+                                             pid_cc)
+    # alter_ray: color *= texture(uv) (material_solid.ts:30-36)
+    if prows.rgb is None:
+        tex_rgb = tex_mod.sample(scene.textures,
+                                 scene.prim_texture.index_select(0, pid_cc),
+                                 u, v)
+    else:
+        tex_rgb = prows.rgb.index_select(0, pid_cc)
     color = torch.where(hit[:, None], state.color * tex_rgb, state.color)
     path = torch.where(hit, state.path + t_surf, state.path)
 

@@ -5,7 +5,10 @@ Port of ``raytracer_js_tpu.render``: one wavefront of ``h*w`` rays per frame
 (raytracer.ts:312-313), and ``spp`` samples averaged per call. The FUSED
 backend runs the headline frame through the frame kernel; arbitrary
 wavefronts go through the wavefront kernel; scenes outside the fused class
-(BOTH materials) take the BRUTE loop, exactly as the reference dispatches.
+(BOTH materials, image textures, a cube-map sky) take the BRUTE loop. The
+PALLAS backend runs the wavefront loop with kernels B3/B4 as its search;
+TILED requests on scenes of at most ``TILED_MIN_PRIMS`` prims, and on BOTH
+scenes, go to PALLAS. This is the reference's dispatch.
 """
 from __future__ import annotations
 
@@ -22,8 +25,11 @@ from .ops import trace as trace_mod
 
 Tensor = torch.Tensor
 
+#: TILED requests on scenes of at most this many prims (and on BOTH
+#: scenes) render on the PALLAS wavefront path, as in the reference
+TILED_MIN_PRIMS = 2048
+
 _NOT_PORTED = {
-    HitBackend.PALLAS: "ROADMAP A7, kernels B3/B4",
     HitBackend.OCTREE: "ROADMAP A11",
     HitBackend.TILED: "ROADMAP A12, kernels B6/B7",
 }
@@ -98,6 +104,11 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
     on the scene's device."""
     from .kernels import trace_fused
 
+    if cfg.backend == HitBackend.TILED and (
+            scene.n_prims <= TILED_MIN_PRIMS or scene.has_both):
+        # small scenes render faster on the whole-table wavefront path, and
+        # the tiled kernels have no BOTH branch
+        cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
     if cfg.backend in _NOT_PORTED:
         raise NotImplementedError(
             f"the {cfg.backend.name} backend is not ported yet "

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..kernels.nearest_hit import nearest_hit_pallas_plain
 from ..models.scene import Scene
 from ..ops import intersect
 
@@ -61,15 +62,131 @@ def flip_prover(scene: Scene, rec: dict, other_pid: Tensor) -> Callable:
     return prove
 
 
+#: rounding steps charged to each term of the sphere error bound
+_ROUNDINGS = 2.0
+_EPS32 = 2.0 ** -24
+
+
+def sphere_t_bound(scene: Scene, pid: Tensor, org: Tensor,
+                   dir: Tensor) -> Tensor:
+    """Bound, in float64, on the float32 rounding error of the factored
+    sphere quadratic's t for sphere ``pid[k]`` along ray k (0 for other
+    prims and misses).
+
+    ``c = o.o - 2 o.c + (c.c - r^2)`` cancels terms of size |o|^2 and |c|^2
+    into a small number, and a grazing ray divides the discriminant's
+    error by ``2 sqrt(disc)``: one rounding step more or less (a fused
+    multiply-add, say) moves t of a grazing hit by far more than 1e-5.
+    """
+    is_sph = (pid >= 0) & (pid < scene.n_spheres)
+    out = torch.zeros(pid.shape, dtype=torch.float64, device=pid.device)
+    if not bool(is_sph.any()):
+        return out
+    f64 = torch.float64
+    k = torch.clamp(pid.long(), 0, max(scene.n_spheres - 1, 0))
+    c = scene.sphere_center.to(f64)[k]
+    r = scene.sphere_radius.to(f64)[k]
+    o, d = org.to(f64), dir.to(f64)
+    a = (d * d).sum(-1)
+    b = (o * d).sum(-1) - (d * c).sum(-1)
+    cc = (o * o).sum(-1) - 2.0 * (o * c).sum(-1) + (c * c).sum(-1) - r * r
+    sq = torch.sqrt(torch.clamp(b * b - a * cc, min=0.0))
+    t_near = (-b - sq) / a
+    t = torch.where(t_near >= 0.0, t_near, (-b + sq) / a)
+    e = _ROUNDINGS * _EPS32
+    db = e * ((o * d).abs().sum(-1) + (d * c).abs().sum(-1))
+    dc = e * ((o * o).sum(-1) + 2.0 * (o * c).abs().sum(-1)
+              + (c * c).sum(-1) + r * r)
+    da = e * a
+    d_disc = (2.0 * b.abs() * db + cc.abs() * da + a * dc
+              + e * (b * b + (a * cc).abs()))
+    dt = (db + d_disc / (2.0 * torch.clamp(sq, min=1e-30))) / a \
+        + t.abs() * (da / a + e)
+    return torch.where(is_sph, dt, 0.0)
+
+
+def compare_hits(scene: Scene, org: Tensor, dir: Tensor, t_a: Tensor,
+                 pid_a: Tensor, t_b: Tensor, pid_b: Tensor,
+                 rtol: float = RTOL, atol: float = ATOL,
+                 rounding_slack: bool = False) -> dict:
+    """Compare two nearest-hit results ray by ray -> report dict with ``ok``.
+
+    A ray agrees when both sides name the same pid and, on a hit, t agrees
+    to ``allclose(rtol, atol)`` (a miss is +inf on both sides). A ray whose
+    pids differ is a proven flip when both prims are hit on that ray at
+    parameters equal to ``FLIP_RTOL``; flips may be at most
+    ``MAX_FLIP_FRAC`` of the rays.
+
+    ``rounding_slack`` is for two implementations that round differently
+    (another summation order, fused multiply-adds): a sphere hit whose t
+    differs beyond the tolerance still agrees when the difference is within
+    twice :func:`sphere_t_bound`; such rays are counted as ``rounding``.
+    Kernel against plain version leaves it off: they round alike.
+    """
+    pa, pb = pid_a.long(), pid_b.to(pid_a.device).long()
+    ta, tb = t_a.float(), t_b.to(t_a.device).float()
+    miss = (pa < 0) & (pb < 0)
+    err = torch.where(miss, 0.0, (ta - tb).abs())
+    tol = atol + rtol * tb.abs()
+    close = (pa == pb) & torch.where(
+        miss, torch.isinf(ta) & torch.isinf(tb), err <= tol)
+    rounding = torch.zeros_like(close)
+    if rounding_slack:
+        slack = 2.0 * sphere_t_bound(scene, pa, org, dir)
+        rounding = (~close & (pa == pb) & ~miss
+                    & (err.double() <= tol.double() + slack))
+        close = close | rounding
+    bad = torch.nonzero(~close).flatten()
+    flips = torch.zeros(bad.shape[0], dtype=torch.bool, device=ta.device)
+    if bad.numel():
+        o, d = org[bad], dir[bad]
+        ha = prim_hit_t(scene, pa[bad], o, d)
+        hb = prim_hit_t(scene, pb[bad], o, d)
+        flips = ((pa[bad] != pb[bad]) & torch.isfinite(ha)
+                 & torch.isfinite(hb)
+                 & ((ha - hb).abs()
+                    <= FLIP_RTOL * torch.maximum(ha.abs(), hb.abs())))
+    n = ta.shape[0]
+    n_flips = int(flips.sum())
+    unproven = int(bad.numel()) - n_flips
+    return {
+        "ok": unproven == 0 and n_flips <= MAX_FLIP_FRAC * n,
+        "rays": n,
+        "hits": int((pa >= 0).sum()),
+        "flips": n_flips,
+        "rounding": int(rounding.sum()),
+        "unproven": unproven,
+        "max_abs_err": float(err[close].max()) if close.any() else 0.0,
+    }
+
+
+def grazing_prover(scene: Scene, org: Tensor, dir: Tensor,
+                   rtol: float = RTOL) -> Callable:
+    """Prover for :func:`compare`'s ``prove_rounding``, for two
+    implementations that round differently: pixel k's ray (``org[k]``,
+    ``dir[k]``) first hits a sphere at a t that float32 arithmetic does not
+    determine to ``rtol`` (:func:`sphere_t_bound`), so its hit point, uv
+    and shading are not determined to ``rtol`` either."""
+    def prove(idx: Tensor) -> Tensor:
+        o, d = org[idx], dir[idx]
+        t, pid = nearest_hit_pallas_plain(scene, o, d)
+        bound = sphere_t_bound(scene, pid, o, d)
+        return (pid >= 0) & (bound > rtol * t.abs().double())
+    return prove
+
+
 def compare(color_a: Tensor, status_a: Tensor, color_b: Tensor,
             status_b: Tensor, prove: Optional[Callable] = None,
-            rtol: float = RTOL, atol: float = ATOL) -> dict:
+            rtol: float = RTOL, atol: float = ATOL,
+            prove_rounding: Optional[Callable] = None) -> dict:
     """Compare two traces pixel by pixel -> report dict with ``ok``.
 
     ``color_*`` are [..., 3] and ``status_*`` [...] of one shape; a pixel
     outside ``allclose(rtol, atol)`` or with another status fails unless
     ``prove`` (given the flat indices of the failing pixels) shows it is a
-    winner flip.
+    winner flip, or ``prove_rounding`` (e.g. :func:`grazing_prover`) shows
+    that float32 rounding leaves it undetermined at this tolerance; such
+    pixels are counted as ``rounding``.
     """
     a = color_a.reshape(-1, 3).float()
     b = color_b.reshape(-1, 3).to(a.device).float()
@@ -79,19 +196,23 @@ def compare(color_a: Tensor, status_a: Tensor, color_b: Tensor,
     close = (err <= atol + rtol * b.abs()).all(dim=1) & (sa == sb)
     bad = torch.nonzero(~close).flatten()
     flips = torch.zeros(bad.shape[0], dtype=torch.bool, device=a.device)
+    rounding = torch.zeros_like(flips)
     if bad.numel() and prove is not None:
         flips = prove(bad).to(a.device)
+    if bad.numel() and prove_rounding is not None:
+        rounding = prove_rounding(bad).to(a.device) & ~flips
     n = a.shape[0]
     n_flips = int(flips.sum())
-    unproven = int(bad.numel()) - n_flips
+    unproven = int(bad.numel()) - n_flips - int(rounding.sum())
     keep = torch.ones(n, dtype=torch.bool, device=a.device)
-    keep[bad[flips]] = False
+    keep[bad[flips | rounding]] = False
     finite = torch.isfinite(a).all() and torch.isfinite(b).all()
     return {
         "ok": bool(finite) and unproven == 0
         and n_flips <= MAX_FLIP_FRAC * n,
         "pixels": n,
         "flips": n_flips,
+        "rounding": int(rounding.sum()),
         "unproven": unproven,
         "max_abs_err": float(err[keep].max()) if keep.any() else 0.0,
         "max_abs_err_all": float(err.max()) if n else 0.0,

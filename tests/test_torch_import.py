@@ -32,8 +32,18 @@ hdr = rt.render_hdr(scene, cam, rt.RenderConfig(
 ldr = view.draw(exposure.accumulate(exposure.new_exposure_buffer(8, 8), hdr),
                 rt.ToneMapConfig())
 assert tuple(hdr.shape) == (8, 8, 3) and bool(torch.isfinite(hdr).all())
+from raytracer_js_tpu_torch.kernels import nearest_hit
+b = rt.SceneBuilder(atlas_hw=(8, 8))
+b.set_sky_box([b.add_image_texture(np.full((8, 8, 3), k / 6, np.float32))
+               for k in range(6)])
+b.add_sphere((4, 0, 0), 1.0, b.add_material(rt.ResponseType.REFLECTION,
+                                            mirror=True), b.add_image_texture(
+    np.random.default_rng(0).uniform(0, 1, (8, 8, 3)), bilinear=True))
+img = rt.render_hdr(b.build(), cam, rt.RenderConfig(
+    refmax=2, backend=rt.HitBackend.PALLAS))
+assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
-print("rendered", float(hdr.sum()), trace_fused.LAUNCHES)
+print("rendered", float(hdr.sum()), trace_fused.LAUNCHES, nearest_hit.LAUNCHES)
 """
 
 
@@ -43,7 +53,7 @@ def test_imports_and_renders_with_jax_and_flax_blocked():
     assert out.returncode == 0, out.stderr
     assert "rendered" in out.stdout
     # CPU tensors take the plain versions: no kernel was launched
-    assert "{'frame': 0, 'rays': 0}" in out.stdout
+    assert "{'frame': 0, 'rays': 0} {'scalar': 0, 'dense': 0}" in out.stdout
 
 
 def test_no_module_imports_jax_or_flax():

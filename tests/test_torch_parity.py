@@ -37,7 +37,7 @@ def jax_scene_arrays(scene) -> dict:
     arrays = {k: np.asarray(getattr(scene, k)) for k in _SCENE_FIELDS}
     for k in ("response", "light", "mirror", "roughness"):
         arrays[f"materials.{k}"] = np.asarray(getattr(scene.materials, k))
-    for k in ("kind", "ref", "solid_rgb"):
+    for k in ("kind", "ref", "solid_rgb", "atlas", "img_h", "img_w"):
         arrays[f"textures.{k}"] = np.asarray(getattr(scene.textures, k))
     return arrays
 
@@ -49,9 +49,12 @@ def to_torch(x):
 
 def to_port_scene(scene):
     return scene_from_numpy(jax_scene_arrays(scene), sky_tex=scene.sky_tex,
+                            sky_box=scene.sky_box,
                             has_transmission=scene.has_transmission,
                             has_rough=scene.has_rough,
-                            has_both=scene.has_both)
+                            has_both=scene.has_both,
+                            has_images=scene.textures.has_images,
+                            has_bilinear=scene.textures.has_bilinear)
 
 
 def to_port_camera(cam):
@@ -82,11 +85,12 @@ def jax_pid_seq(scene, cfg, org, dir, key=None, ray_id=None):
         record_paths(scene, cfg, org, dir, key, jnp.asarray(ray_id))).T.copy())
 
 
-def assert_parity(color, status, ref_color, ref_status, prove=None):
+def assert_parity(color, status, ref_color, ref_status, prove=None,
+                  prove_rounding=None):
     """The port's parity rule; returns the report."""
     rep = parity.compare(to_torch(color), to_torch(status),
                          to_torch(ref_color), to_torch(ref_status),
-                         prove=prove)
+                         prove=prove, prove_rounding=prove_rounding)
     assert rep["ok"], rep
     return rep
 

@@ -23,6 +23,8 @@ from raytracer_js_tpu_torch.render import render_rays as p_render_rays
 from raytracer_js_tpu_torch.config import ToneMapConfig as PTC
 from raytracer_js_tpu_torch.config import ToneMapperKind as PTK
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
+from raytracer_js_tpu_torch.models.camera import pixel_rays as p_pixel_rays
+from raytracer_js_tpu_torch.utils import parity
 from raytracer_js_tpu_torch.view import exposure as pex
 from raytracer_js_tpu_torch.view import screen as pscreen
 from raytracer_js_tpu_torch.view import view as pview
@@ -34,14 +36,20 @@ from test_torch_parity import (ROOT, assert_parity, load_by_path,
 from test_torch_trace import both_scene, ext_scene
 
 
-def _render_both(js, jc, cfg, key=None):
+def _render_both(js, jc, cfg, key=None, grazing=False):
+    """Both packages' render_hdr -> the port's image. ``grazing`` admits
+    pixels whose primary ray grazes a sphere too closely for float32 to
+    fix t to the tolerance (``utils/parity.grazing_prover``): XLA on the
+    CPU fuses multiply-adds, the port rounds every operation."""
     key = jax.random.key(0) if key is None else key
     ref = np.asarray(j_render_hdr(js, jc, cfg, key=key))
-    out = rt.render_hdr(to_port_scene(js), to_port_camera(jc),
-                        to_port_cfg(cfg), seed=int(jsamp.seed_from_key(key)))
+    ps, pc = to_port_scene(js), to_port_camera(jc)
+    out = rt.render_hdr(ps, pc, to_port_cfg(cfg),
+                        seed=int(jsamp.seed_from_key(key)))
     assert out.shape == ref.shape and out.dtype == torch.float32
     zeros = np.zeros(ref.shape[:2], np.int32)
-    assert_parity(out, zeros, ref, zeros)
+    prover = parity.grazing_prover(ps, *p_pixel_rays(pc)) if grazing else None
+    assert_parity(out, zeros, ref, zeros, prove_rounding=prover)
     return out
 
 
@@ -88,13 +96,87 @@ def test_render_rays_fused():
     assert tf.LAUNCHES == {"frame": 0, "rays": 0}
 
 
+def _many_spheres(n):
+    b = rt.SceneBuilder()
+    m = b.add_material(rt.ResponseType.REFLECTION)
+    tex = b.add_solid_texture((0.5, 0.5, 0.5))
+    rng = np.random.default_rng(0)
+    for c in rng.uniform(-5.0, 5.0, (n, 3)):
+        b.add_sphere(c + [10.0, 0.0, 0.0], 0.1, m, tex)
+    return b.build()
+
+
 @pytest.mark.parametrize("backend", ["PALLAS", "OCTREE", "TILED"])
 def test_unported_backends_raise(backend):
+    """What each backend does not port yet raises, naming its ROADMAP item:
+    PALLAS's culled and listed kernel variants, OCTREE, and TILED on scenes
+    above ``TILED_MIN_PRIMS`` (smaller ones render on PALLAS)."""
+    from raytracer_js_tpu_torch.kernels import nearest_hit as nh
+    from raytracer_js_tpu_torch.render import TILED_MIN_PRIMS
+
     ps = to_port_scene(config1_scene())
     pc = to_port_camera(make_camera((0, 0, 0.5), 8, 8, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        rt.render_hdr(ps, pc, rt.RenderConfig(
-            refmax=2, backend=rt.HitBackend[backend]))
+    cfg = rt.RenderConfig(refmax=2, backend=rt.HitBackend[backend])
+    if backend == "PALLAS":
+        org, d = torch.zeros((2, 3)), torch.ones((2, 3))
+        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+            nh.nearest_hit_pallas(ps, org, d, tile_bounds=torch.zeros(1, 4))
+        with pytest.raises(NotImplementedError, match="ROADMAP B6"):
+            nh.nearest_hit_pallas(ps, org, d, tile_ids=(org, org))
+    elif backend == "OCTREE":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            rt.render_hdr(ps, pc, cfg)
+    else:
+        big = _many_spheres(TILED_MIN_PRIMS + 1)
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            rt.render_hdr(big, pc, cfg)
+
+
+def test_render_hdr_pallas_config1():
+    """PALLAS on config 1 (7 prims: kernel B3's plain version) against the
+    reference's PALLAS render."""
+    from raytracer_js_tpu import RenderConfig
+
+    js = config1_scene(with_glass=True, with_tri=True)
+    jc = make_camera((0.0, 0.0, 0.5), 32, 32, np.pi / 2, np.pi / 2)
+    _render_both(js, jc, RenderConfig(refmax=3, backend=JB.PALLAS))
+
+
+@pytest.mark.parametrize("both", [False, True])
+def test_render_hdr_tiled_routes_to_pallas(both):
+    """TILED at or below TILED_MIN_PRIMS prims, and on BOTH scenes,
+    renders exactly as PALLAS."""
+    from raytracer_js_tpu import RenderConfig
+
+    js = both_scene() if both else config1_scene(True, True)
+    jc = make_camera((0.0, 0.0, 0.5), 16, 12, np.pi / 2, np.pi / 3)
+    cfg = RenderConfig(refmax=3, backend=JB.TILED, fresnel_both=both)
+    out = _render_both(js, jc, cfg, key=jax.random.key(3))
+    pallas = rt.render_hdr(to_port_scene(js), to_port_camera(jc),
+                           rt.RenderConfig(refmax=3,
+                                           backend=rt.HitBackend.PALLAS,
+                                           fresnel_both=both),
+                           seed=int(jsamp.seed_from_key(jax.random.key(3))))
+    assert torch.equal(out, pallas)
+
+
+def test_render_rays_pallas_headline_camera_class():
+    """render_rays with PALLAS against the reference's, on rays that are
+    not a camera grid (random origins and lengths)."""
+    from raytracer_js_tpu import RenderConfig
+
+    js = config1_scene(with_glass=True, with_tri=True)
+    cfg = RenderConfig(refmax=3, backend=JB.PALLAS)
+    rng = np.random.default_rng(2)
+    org = rng.uniform([-1, -2, 0], [2, 2, 1.5], (200, 3)).astype(np.float32)
+    d = rng.normal(size=(200, 3)).astype(np.float32)
+    rid = jnp.arange(200, dtype=jnp.int32)
+    ref = np.asarray(j_render_rays(js, cfg, jnp.asarray(org), jnp.asarray(d),
+                                   jax.random.key(0), rid))
+    out = p_render_rays(to_port_scene(js), to_port_cfg(cfg), to_torch(org),
+                        to_torch(d))
+    zeros = np.zeros(ref.shape[0], np.int32)
+    assert_parity(out, zeros, ref, zeros)
 
 
 def _hdr(seed=0, h=16, w=20):

@@ -25,7 +25,7 @@ def _port_arrays(scene) -> dict:
         "prim_substance", "sub_refr", "default_refr")}
     for k in ("response", "light", "mirror", "roughness"):
         out[f"materials.{k}"] = getattr(scene.materials, k).numpy()
-    for k in ("kind", "ref", "solid_rgb"):
+    for k in ("kind", "ref", "solid_rgb", "atlas", "img_h", "img_w"):
         out[f"textures.{k}"] = getattr(scene.textures, k).numpy()
     return out
 
@@ -40,6 +40,8 @@ def assert_same_scene(port, ref):
     for k in ("sky_tex", "sky_box", "has_transmission", "has_rough",
               "has_both", "n_spheres", "n_boxes", "n_tris"):
         assert getattr(port, k) == getattr(ref, k), k
+    for k in ("has_images", "has_bilinear"):
+        assert getattr(port.textures, k) == getattr(ref.textures, k), k
 
 
 @pytest.mark.parametrize("with_glass,with_tri",
@@ -77,13 +79,20 @@ def test_prim_aabbs_and_volumes():
 
 
 def test_unported_textures_raise():
+    """Image textures and cube-map skies are ported; what the builder does
+    not take (an image that is not [H, W, 3], a sky box of other than six
+    faces) raises."""
     from raytracer_js_tpu_torch import SceneBuilder
 
     b = SceneBuilder()
-    with pytest.raises(NotImplementedError, match="A8"):
-        b.add_image_texture(np.zeros((4, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="A8"):
-        b.set_sky_box([0] * 6)
+    with pytest.raises(ValueError, match=r"\[H, W, 3\]"):
+        b.add_image_texture(np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError, match="6 faces"):
+        b.set_sky_box([0] * 5)
+    img = b.add_image_texture(np.zeros((4, 4, 3), np.float32))
+    b.set_sky_box([img] * 6)
+    scene = b.build()
+    assert scene.sky_box == (img,) * 6 and scene.textures.has_images
 
 
 _CAMS = [((0.0, 0.0, 0.5), 32, 32, np.pi / 2, np.pi / 2, 0.0, 0.0),
