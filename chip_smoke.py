@@ -26,23 +26,43 @@ Phases, one JSON line each:
                 (a) BASELINE config 3's 512x512 bounce-0 rays (5124 prims);
                 (b) the 600-sphere near-miss field; (c) config 3 with
                 n_live < N; (d) the empty scene; (e) a ray on a box edge.
-  6. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
+  6. B5       — the replay forward and backward kernels against their plain
+                versions: (a) a headline 1920x1088 view, winners recorded
+                by B3, a random target; (b) the 9-sphere replay scene at
+                refmax 3 and 4; (c) a 600-sphere listed-class field at
+                512x512, recorded by B4; (d) all-miss rays and rays
+                exhausted at refmax. Then B5's gradients against autograd
+                through the search path on view (a).
+  7. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
                 STDDEV tone map -> PNG, plus ``render_rays`` FUSED over the
                 same camera's rays, with the launch counters reset first.
-  7. main-PALLAS — ``render_hdr`` PALLAS on config 3 (B4 at every bounce)
+  8. main-PALLAS — ``render_hdr`` PALLAS on config 3 (B4 at every bounce)
                 -> exposure -> STDDEV tone map -> PNG, held against the same
                 path with the plain versions on the CPU at a small size;
                 then ``render_rays`` PALLAS over the headline camera's rays
                 (B3), held against the FUSED frame. Counters reset first.
-  8. times    — CUDA-event medians of each kernel and its plain version at
-                the main paths' shapes, and ``render_hdr`` end to end.
+  9. main-fit — ``optim.fit`` over config 5's 8-view batch of the headline
+                scene at 1920x1088 (refmax 2, PALLAS, 4 Adam steps, a
+                recording every 2: B3 records, B5 differentiates), from
+                perturbed sphere colors and centers; counters reset after
+                the targets are rendered. Then one ``fit_cameras`` step at
+                256x256, and a small fit held against the same fit on the
+                CPU plain versions.
+ 10. times    — CUDA-event medians of each kernel and its plain version at
+                the main paths' shapes, ``render_hdr`` end to end, and the
+                gradient path: a replay step for one view, an 8-view fit
+                step and an 8-view recording.
 Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
 pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
+B5: colors and per-ray cotangents bit-exact; per-prim and sky cotangents
+within 1e-5 of the sum of the terms' magnitudes (the kernel sums in another
+order), and bit-reproducible where the kernel's reduction is deterministic.
 Any failure raises, so the script exits non-zero and never prints the last
 line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -60,9 +80,15 @@ from raytracer_js_tpu_torch import (HitBackend, RenderConfig, ResponseType,
                                     ToneMapperKind, make_camera)
 from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
+from raytracer_js_tpu_torch.kernels import replay_grad as rg
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
-from raytracer_js_tpu_torch.models.camera import pixel_rays
+from raytracer_js_tpu_torch.models.camera import move, pixel_rays, rotate_h
 from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED
+from raytracer_js_tpu_torch.ops.trace import record_paths, trace_rays
+from raytracer_js_tpu_torch.optim import FitConfig, fit
+from raytracer_js_tpu_torch.optim.fit import record_views, replay_loss
+from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
+                                                       float_partition)
 from raytracer_js_tpu_torch.render import render_rays, start_substance
 from raytracer_js_tpu_torch.utils import parity
 from raytracer_js_tpu_torch.utils.mesh import icosphere
@@ -73,6 +99,8 @@ C3_W, C3_H = 512, 512
 WARMUP, TIMED = 3, 20
 KERNEL_SOURCE = "raytracer_js_tpu_torch/csrc/trace_fused.cu"
 NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
+REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
+FIT_VIEWS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +254,102 @@ def box_edge_case(device=None):
     return b.build(device), org, d / d.norm(dim=1, keepdim=True)
 
 
+def replay_scene(seed: int = 0, n_sph: int = 9, device=None):
+    """The replay-gradient test scene of the reference package
+    (``tests/test_replay_grad.py``): a ground box, a mirror box, ``n_sph``
+    random diffuse/mirror spheres and an emitter."""
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.3, 0.45, 0.7)))
+    grey = b.add_solid_texture((0.6, 0.55, 0.5))
+    white = b.add_solid_texture((1.0, 0.9, 0.8))
+    diffuse = b.add_material(ResponseType.REFLECTION)
+    mirror = b.add_material(ResponseType.REFLECTION, mirror=True)
+    light = b.add_material(ResponseType.REFLECTION, light=True)
+    b.add_box((0.0, 0.0, -51.0), 100.0, diffuse, grey)
+    b.add_box((4.0, -2.5, 1.0), (1.0, 2.0, 1.5), mirror, white)
+    rng = np.random.default_rng(seed)
+    pal = [b.add_solid_texture(rng.uniform(0.2, 1.0, 3)) for _ in range(4)]
+    centers = rng.uniform([2.0, -3.0, -0.5], [8.0, 3.0, 3.0], (n_sph, 3))
+    radii = rng.uniform(0.3, 0.9, n_sph)
+    for i in range(n_sph):
+        b.add_sphere(centers[i], float(radii[i]),
+                     mirror if i % 3 == 0 else diffuse, pal[i % 4])
+    b.add_sphere((5.0, 0.5, 5.0), 1.2, light, white)
+    return b.build(device)
+
+
+def listed_field(n: int = 600, seed: int = 0, device=None):
+    """B5's listed class: a ground box, ``n`` small diffuse and mirror
+    spheres ahead of the camera and an emitter (more than 384 prims, so B4
+    records)."""
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((.35, .45, .65)))
+    m = b.add_material(ResponseType.REFLECTION)
+    mm = b.add_material(ResponseType.REFLECTION, mirror=True)
+    b.add_box((0.0, 0.0, -51.0), 100.0, m, b.add_solid_texture((.6,) * 3))
+    rng = np.random.default_rng(seed)
+    pal = [b.add_solid_texture(rng.uniform(0.2, 1.0, 3)) for _ in range(6)]
+    for i in range(n):
+        p = rng.uniform(-4, 4, 3)
+        p[0] += 8
+        b.add_sphere(tuple(p), 0.25, (m, mm)[i % 3 == 0], pal[i % 6])
+    b.add_sphere((6.0, 0.0, 6.0), 1.0,
+                 b.add_material(ResponseType.REFLECTION, light=True),
+                 b.add_solid_texture((1.0, 1.0, 1.0)))
+    return b.build(device)
+
+
+def replay_edge_rays(device=None):
+    """A mirror box around the origin and a sphere beside it -> (scene,
+    exhausted rays, all-miss rays): rays from the box's inside bounce off
+    its walls until refmax runs out (but for the odd one that leaves
+    through an edge); rays from outside point away."""
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.2, 0.3, 0.4)))
+    white = b.add_solid_texture((0.9, 0.8, 0.7))
+    b.add_box((0.0, 0.0, 0.0), 4.0,
+              b.add_material(ResponseType.REFLECTION, mirror=True), white)
+    b.add_sphere((0.0, 6.0, 0.0), 1.0, b.add_material(ResponseType.REFLECTION),
+                 white)
+    rng = np.random.default_rng(7)
+    d = rng.normal(size=(300, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inside = rng.uniform(-1.0, 1.0, (300, 3)).astype(np.float32)
+    outside = np.tile(np.float32([[10.0, 0.0, 0.0]]), (300, 1))
+    away = d.copy()
+    away[:, 0] = np.abs(away[:, 0]) + 0.1
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return b.build(device), (t(inside), t(d)), (t(outside), t(away))
+
+
+def fit_cameras(w: int, h: int, n: int = FIT_VIEWS, device=None):
+    """Config 5's view batch (``bench.py:325-326``): ``n`` cameras at
+    (0, v - n/2, 0.5), fov pi/2 x pi/2 * h/w."""
+    return [make_camera((0.0, float(v - n // 2), 0.5), w, h, np.pi / 2,
+                        np.pi / 2 * h / w, device=device) for v in range(n)]
+
+
+def perturbed(scene, seed: int = 3):
+    """The scene with its spheres' colors and centers perturbed (numpy
+    seed): the start of the fit."""
+    rng = np.random.default_rng(seed)
+    rgb = scene.textures.solid_rgb.clone()
+    tex = torch.unique(scene.prim_texture[:scene.n_spheres].long())
+    noise = rng.uniform(-0.15, 0.15, (len(tex), 3)).astype(np.float32)
+    rgb[tex] = torch.clamp(rgb[tex] + torch.as_tensor(noise,
+                                                      device=rgb.device),
+                           0.05, 1.0)
+    shift = rng.normal(0.0, 0.03, (scene.n_spheres, 3)).astype(np.float32)
+    return dataclasses.replace(
+        scene, textures=dataclasses.replace(scene.textures, solid_rgb=rgb),
+        sphere_center=scene.sphere_center + torch.as_tensor(
+            shift, device=rgb.device))
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -308,6 +432,82 @@ def compare_hits(phase, name, scene, org, dir, kernel, plain, **kw):
     return rep, (k_t, k_pid)
 
 
+def compare_replay(name, scene, org, dir, pid_seq, refmax, g_color=None):
+    """B5's kernels against their plain versions on one wavefront, both on
+    the card (the backward twice, for reproducibility) -> report."""
+    tabs = rg.scene_tables(scene)
+    k_col = rg.launch_fwd(tabs, org, dir, pid_seq, refmax, 1.0)
+    p_col = rg.replay_fwd_plain(tabs, org, dir, pid_seq, refmax, 1.0)
+    if g_color is None:
+        g_color = torch.as_tensor(np.random.default_rng(1).normal(
+            size=(org.shape[0], 3)).astype(np.float32), device=org.device)
+    k = rg.launch_bwd(tabs, org, dir, pid_seq, g_color, refmax, 1.0)
+    k2 = rg.launch_bwd(tabs, org, dir, pid_seq, g_color, refmax, 1.0)
+    g_org, g_dir, keys, rows, skies = rg.replay_bwd_terms(
+        tabs, org, dir, pid_seq, g_color, refmax, 1.0)
+    p = (g_org, g_dir, *rg.reduce_terms(tabs, keys, rows, skies))
+    mag = rg.reduce_terms(tabs, keys, rows.abs(), skies.abs())
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    sums_rel = max(float(((a - b).abs() / torch.clamp(m, min=1e-30)).max())
+                   if a.numel() else 0.0 for a, b, m in zip(k[2:], p[2:], mag))
+    sums_ok = all(bool(((a - b).abs() <= 1e-5 * m).all())
+                  for a, b, m in zip(k[2:], p[2:], mag))
+    repro = [bool(torch.equal(a, b)) for a, b in zip(k, k2)]
+    # above SCAN_MAX_PRIMS the kernel sums spheres with atomics
+    listed = tabs.n_prims > rg.SCAN_MAX_PRIMS
+    repro_ok = all(r for i, r in enumerate(repro) if not (listed and i == 2))
+    rep = dict(rays=org.shape[0], prims=scene.n_prims, refmax=refmax,
+               hits=int((pid_seq >= 0).sum()), listed=listed,
+               colors_equal=bool(torch.equal(k_col, p_col)),
+               color_max_abs_err=err(k_col, p_col),
+               g_org_equal=bool(torch.equal(k[0], p[0])),
+               g_dir_equal=bool(torch.equal(k[1], p[1])),
+               sums_max_err_over_abs_sum=sums_rel, sums_ok=sums_ok,
+               reproducible=repro,
+               bwd_max_abs_err=max(err(a, b) for a, b in zip(k, p)))
+    emit(phase="B5", case=name, **rep)
+    check(rep["colors_equal"] and rep["g_org_equal"] and rep["g_dir_equal"]
+          and sums_ok and repro_ok, f"B5 {name}: {rep}")
+    return rep, k_col
+
+
+def replay_grads(scene, cfg, org, dir, target, pid_seq=None, kernel=True):
+    """Loss and gradients (every float leaf, then org and dir) of the mean
+    squared error against ``target``: given ``pid_seq``, through B5 or
+    (``kernel=False``) autograd on the replay; else autograd on the search
+    path."""
+    params, rebuild = float_partition(scene)
+    ps = [p.detach().clone().requires_grad_(True) for p in params]
+    o = org.detach().clone().requires_grad_(True)
+    d = dir.detach().clone().requires_grad_(True)
+    if pid_seq is not None and kernel:
+        c = rg.replay_colors(rebuild(ps), cfg, o, d, pid_seq)
+    else:
+        c = trace_rays(rebuild(ps), cfg, o, d, pid_seq=pid_seq).color
+    loss = ((c - target) ** 2).sum() / org.shape[0]
+    loss.backward()
+    return float(loss.detach()), [torch.zeros_like(p) if p.grad is None else p.grad
+                         for p in ps + [o, d]]
+
+
+def host_median_ms(fn, warmup=1, timed=5) -> float:
+    """Median host wall time of a synchronized call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
 def random_rays(n, seed, device):
     rng = np.random.default_rng(seed)
     org = rng.uniform([-1, -2, 0], [2, 2, 1.5], (n, 3)).astype(np.float32)
@@ -317,13 +517,13 @@ def random_rays(n, seed, device):
 
 
 def reset_launches() -> None:
-    for counts in (tf.LAUNCHES, nh.LAUNCHES):
+    for counts in (tf.LAUNCHES, nh.LAUNCHES, rg.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches_now() -> dict:
-    return {**tf.LAUNCHES, **nh.LAUNCHES}
+    return {**tf.LAUNCHES, **nh.LAUNCHES, **rg.LAUNCHES}
 
 
 def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
@@ -370,7 +570,8 @@ def main() -> int:
     _build.load()
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=build.seconds, library=build.path.name,
-         ptxas=[ln for ln in build.log.splitlines() if "registers" in ln])
+         ptxas=[ln.strip() for ln in build.log.splitlines()
+                if "registers" in ln or "spill" in ln])
 
     # ---- 2. B1 against its plain version -----------------------------------
     head = headline_scene(device=dev)
@@ -452,7 +653,65 @@ def main() -> int:
     b4.append(compare_hits("B4", "e_box_edge", edge, e_org, e_dir,
                            *dense)[0])
 
-    # ---- 6. the main path -----------------------------------------------------
+    # ---- 6. B5 against its plain version -----------------------------------
+    cfg_rep = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    pid_head = record_paths(head, cfg_rep, org, dir)            # B3
+    n_head = org.shape[0]
+    target = torch.as_tensor(np.random.default_rng(11).uniform(
+        0.0, 1.0, (n_head, 3)).astype(np.float32), device=dev)
+    tabs_head = rg.scene_tables(head)
+    g_head = 2.0 * (rg.launch_fwd(tabs_head, org, dir, pid_head, 2, 1.0)
+                    - target) / n_head
+    b5 = [compare_replay("a_headline", head, org, dir, pid_head, 2,
+                         g_head)[0]]
+    rsc = replay_scene(device=dev)
+    o64, d64 = pixel_rays(make_camera((0.0, 0.0, 0.5), 64, 64, np.pi / 2,
+                                      np.pi / 2, device=dev))
+    for refmax in (3, 4):
+        pid = record_paths(rsc, RenderConfig(refmax=refmax,
+                                             backend=HitBackend.PALLAS),
+                           o64, d64)
+        b5.append(compare_replay(f"b_replay_scene_refmax{refmax}", rsc, o64,
+                                 d64, pid, refmax)[0])
+    lfield = listed_field(device=dev)
+    check(rg.supports_listed(lfield, cfg_rep)
+          and not rg.supports(lfield, cfg_rep), "listed field not listed")
+    before = dict(nh.LAUNCHES)
+    pid = record_paths(lfield, cfg_rep, o512, d512)
+    check(nh.LAUNCHES["dense"] - before["dense"] == cfg_rep.refmax,
+          "the listed field was not recorded by B4")
+    b5.append(compare_replay("c_listed_field_600", lfield, o512, d512, pid,
+                             2)[0])
+    esc, (o_in, d_in), (o_out, d_out) = replay_edge_rays(dev)
+    cfg_e = RenderConfig(refmax=3, backend=HitBackend.PALLAS)
+    pid_in = record_paths(esc, cfg_e, o_in, d_in)
+    pid_out = record_paths(esc, cfg_e, o_out, d_out)
+    exhausted = (pid_in >= 0).all(dim=1)
+    check(int(exhausted.sum()) >= 0.9 * o_in.shape[0]
+          and bool((pid_out < 0).all()),
+          "edge rays: too few exhausted / not all missing")
+    rep, col = compare_replay("d_exhausted", esc, o_in, d_in, pid_in, 3)
+    check(bool((col[exhausted] == 0).all()), "exhausted rays are not black")
+    b5.append(rep)
+    rep, col = compare_replay("d_all_miss", esc, o_out, d_out, pid_out, 3)
+    check(bool((col == esc.textures.solid_rgb[esc.sky_tex]).all()),
+          "missing rays do not see the sky")
+    b5.append(rep)
+    # B5's gradients against autograd through the search path (B3), view (a)
+    l_k, g_k = replay_grads(head, cfg_rep, org, dir, target, pid_head)
+    l_s, g_s = replay_grads(head, cfg_rep, org, dir, target)
+    torch.cuda.synchronize()
+    leaves = float_leaf_names(head) + ["org", "dir"]
+    ratios = {n: float(((a - b).abs() / (2e-6 + 2e-4 * b.abs())).max())
+              for n, a, b in zip(leaves, g_k, g_s) if b.numel()}
+    worst = max(ratios.values())
+    emit(phase="B5", case="a_headline_vs_search_autograd", loss_kernel=l_k,
+         loss_search=l_s, worst_err_over_tol=worst,
+         worst_leaf=max(ratios, key=ratios.get))
+    check(worst <= 1.0 and abs(l_k - l_s) <= 1e-5 * abs(l_s),
+          f"B5 grads differ from the search path's: {worst}")
+
+    # ---- 7. the main path -----------------------------------------------------
     reset_launches()
     t0 = time.perf_counter()
     hdr = rt.render_hdr(head, head_cam, cfg_head)
@@ -486,7 +745,7 @@ def main() -> int:
     check(int(frame_vs_wave.sum()) <= parity.MAX_FLIP_FRAC * hdr[..., 0].numel(),
           "frame and wavefront kernels disagree beyond ULP noise")
 
-    # ---- 7. main-PALLAS: config 3 through B4, the headline through B3 -------
+    # ---- 8. main-PALLAS: config 3 through B4, the headline through B3 -------
     cfg_c3 = RenderConfig(refmax=3, backend=HitBackend.PALLAS)
     reset_launches()
     t0 = time.perf_counter()
@@ -545,7 +804,88 @@ def main() -> int:
           <= parity.MAX_FLIP_FRAC * hdr[..., 0].numel(),
           "headline PALLAS and FUSED renders disagree beyond ULP noise")
 
-    # ---- 8. times at the main paths' shapes --------------------------------
+    # ---- 9. main-fit: config 5's 8-view fit, B3 records, B5 differentiates -
+    cams = fit_cameras(HEADLINE_W, HEADLINE_H, device=dev)
+    cfg_fused = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+    targets = torch.stack([rt.render_hdr(head, c, cfg_fused).reshape(-1, 3)
+                           for c in cams])
+    start = perturbed(head)
+    fc = FitConfig(steps=4, lr=1e-2, replay_every=2)
+    # the first torch.optim optimizer of a process imports torch._dynamo
+    # (seconds): a one-time set-up cost, taken here outside the fit's time
+    t0 = time.perf_counter()
+    torch.optim.Adam([torch.zeros(1, device=dev, requires_grad=True)])
+    emit(phase="main-fit", case="first_optimizer_setup",
+         seconds=time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fit(start, cfg_rep, cams, targets, fc)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = launches_now()
+    recordings = -(-fc.steps // fc.replay_every)
+    tex = torch.unique(head.prim_texture[:head.n_spheres].long())
+
+    def rgb_err(sc):
+        return float((sc.textures.solid_rgb[tex]
+                      - head.textures.solid_rgb[tex]).abs().mean())
+
+    emit(phase="main-fit", seconds=fit_s, seconds_per_step=fit_s / fc.steps,
+         views=len(cams), w=cams[0].w, h=cams[0].h, refmax=cfg_rep.refmax,
+         prims=head.n_prims, steps=fc.steps, replay_every=fc.replay_every,
+         losses=res.losses, launches=fit_launches,
+         sphere_rgb_err_start=rgb_err(start),
+         sphere_rgb_err_end=rgb_err(res.scene))
+    check(fit_launches["scalar"] == recordings * len(cams) * cfg_rep.refmax
+          and fit_launches["dense"] == 0,
+          f"the fit did not record with B3 once a bounce: {fit_launches}")
+    check(fit_launches["fwd"] == fc.steps * len(cams)
+          and fit_launches["bwd"] == fc.steps * len(cams),
+          f"the fit did not differentiate through B5: {fit_launches}")
+    check(fit_launches["frame"] == 0 and fit_launches["rays"] == 0,
+          "the fit launched a fused kernel")
+    check(all(np.isfinite(res.losses)) and res.losses[3] < res.losses[0],
+          f"fit losses not finite and falling: {res.losses}")
+    check(res.scene.device.type == "cuda"
+          and all(bool(torch.isfinite(p).all())
+                  for p in float_partition(res.scene)[0]),
+          "the fitted scene is not finite on the GPU")
+    # one camera-pose step through B5's ray cotangents
+    true_cam = make_camera((0.0, 0.0, 0.5), 256, 256, np.pi / 2, np.pi / 2,
+                           device=dev)
+    cam_tgt = rt.render_hdr(head, true_cam, cfg_fused).reshape(1, -1, 3)
+    start_cam = rotate_h(move(true_cam, (0.05, 0.1, -0.05)), 0.03)
+    n_scene = len(float_partition(head)[0])
+    before = dict(rg.LAUNCHES)
+    res_c = fit(head, cfg_rep, [start_cam], cam_tgt,
+                FitConfig(steps=1, lr=1e-2, fit_cameras=True,
+                          replay_every=1),
+                trainable=lambda i, p: i >= n_scene)
+    c = res_c.cameras[0]
+    tri = torch.stack([c.front, c.left, c.up])
+    orth = float((tri @ tri.T - torch.eye(3, device=dev)).abs().max())
+    moved = float((c.pos - start_cam.pos).abs().max())
+    emit(phase="main-fit", case="fit_cameras_256", losses=res_c.losses,
+         triad_orthonormal_err=orth, pos_moved=moved,
+         b5_bwd_launches=rg.LAUNCHES["bwd"] - before["bwd"])
+    check(np.isfinite(res_c.losses[0]) and orth <= 1e-5 and moved > 0.0
+          and rg.LAUNCHES["bwd"] - before["bwd"] == 1,
+          "the fit_cameras step failed")
+    # the same small fit on the card and on the CPU plain versions
+    small_cams = fit_cameras(64, 48, n=2, device=dev)
+    small_tgt = torch.stack([rt.render_hdr(head, c, cfg_fused).reshape(-1, 3)
+                             for c in small_cams])
+    fc_small = FitConfig(steps=3, lr=1e-2, replay_every=2)
+    r_dev = fit(start, cfg_rep, small_cams, small_tgt, fc_small)
+    r_cpu = fit(start.to("cpu"), cfg_rep, fit_cameras(64, 48, n=2),
+                small_tgt.cpu(), fc_small)
+    emit(phase="main-fit", case="small_card_vs_cpu_plain",
+         losses_card=r_dev.losses, losses_cpu=r_cpu.losses)
+    check(np.allclose(r_dev.losses, r_cpu.losses, rtol=1e-4, atol=0.0),
+          "the fit on the card differs from the CPU plain versions")
+
+    # ---- 10. times at the main paths' shapes -------------------------------
     tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
     refr = tf._refr_pair(head, None)
     cam_arr = tf._cam_array(head_cam, refr)
@@ -604,9 +944,56 @@ def main() -> int:
              h=cam.h, refmax=refmax, prims=scene.n_prims, frames=frames,
              card=name, nvidia_smi=smi)
 
+    # B5 on one headline view; the replay step with B5 and with autograd;
+    # an 8-view fit step and an 8-view recording
+    b5_fwd_ms = cuda_median_ms(lambda: rg.launch_fwd(
+        tabs_head, org, dir, pid_head, 2, 1.0))
+    b5_fwd_plain_ms = cuda_median_ms(lambda: rg.replay_fwd_plain(
+        tabs_head, org, dir, pid_head, 2, 1.0), warmup=1, timed=5)
+    b5_bwd_ms = cuda_median_ms(lambda: rg.launch_bwd(
+        tabs_head, org, dir, pid_head, g_head, 2, 1.0))
+    b5_bwd_plain_ms = cuda_median_ms(lambda: rg.replay_bwd_plain(
+        tabs_head, org, dir, pid_head, g_head, 2, 1.0), warmup=1, timed=5)
+    step_b5_ms = cuda_median_ms(lambda: replay_grads(
+        head, cfg_rep, org, dir, target, pid_head), warmup=2, timed=10)
+    step_autograd_ms = cuda_median_ms(lambda: replay_grads(
+        head, cfg_rep, org, dir, target, pid_head, kernel=False), warmup=1,
+        timed=5)
+    recs = record_views(start, cfg_rep, cams)
+    rec_ms = host_median_ms(lambda: record_views(start, cfg_rep, cams))
+    fit_params, rebuild_start = float_partition(start)
+    fit_params = [p.detach().clone().requires_grad_(True) for p in fit_params]
+    adam = torch.optim.Adam(fit_params, lr=1e-2)
+
+    def fit_step():
+        adam.zero_grad(set_to_none=True)
+        replay_loss(rebuild_start(fit_params), cfg_rep, cams, targets,
+                    recs).backward()
+        adam.step()
+
+    fit_step_ms = host_median_ms(fit_step)
+    views = len(cams)
+    for what, ms, n_views, frames in (
+            ("B5 fwd kernel (one view)", b5_fwd_ms, 1, TIMED),
+            ("B5 fwd plain (one view)", b5_fwd_plain_ms, 1, 5),
+            ("B5 bwd kernel (one view)", b5_bwd_ms, 1, TIMED),
+            ("B5 bwd plain (one view)", b5_bwd_plain_ms, 1, 5),
+            ("replay value_and_grad step, B5 (one view)", step_b5_ms, 1,
+             10),
+            ("replay value_and_grad step, autograd (one view)",
+             step_autograd_ms, 1, 5),
+            ("fit step, 8 views, B5 + Adam (host clock)", fit_step_ms,
+             views, 5),
+            ("recording, 8 views, B3 (host clock)", rec_ms, views, 5)):
+        emit(phase="times", what=what, ms_per_frame=ms,
+             primary_rays_per_s=n_views * pixels / (ms * 1e-3),
+             w=HEADLINE_W, h=HEADLINE_H, views=n_views,
+             refmax=cfg_rep.refmax, prims=head.n_prims, frames=frames,
+             card=name, nvidia_smi=smi)
+
     # ---- kernels summary and the last line ------------------------------------
-    def worst(reps):
-        return max(r["max_abs_err"] for r in reps)
+    def worst(reps, key="max_abs_err"):
+        return max(r[key] for r in reps)
 
     print(json.dumps({"kernels": [
         {"name": "trace_frame_kernel", "route": "cuda",
@@ -627,6 +1014,18 @@ def main() -> int:
          "replaces": "raytracer_js_tpu/kernels/nearest_hit.py:91",
          "launches": c3_launches["dense"], "max_abs_err": worst(b4),
          "ms": b4_ms, "plain_ms": b4_plain_ms},
+        {"name": "replay_fwd_kernel", "route": "cuda",
+         "source": REPLAY_SOURCE,
+         "replaces": "raytracer_js_tpu/kernels/replay_grad.py:399",
+         "launches": fit_launches["fwd"],
+         "max_abs_err": worst(b5, "color_max_abs_err"),
+         "ms": b5_fwd_ms, "plain_ms": b5_fwd_plain_ms},
+        {"name": "replay_bwd_kernel", "route": "cuda",
+         "source": REPLAY_SOURCE,
+         "replaces": "raytracer_js_tpu/kernels/replay_grad.py:592",
+         "launches": fit_launches["bwd"],
+         "max_abs_err": worst(b5, "bwd_max_abs_err"),
+         "ms": b5_bwd_ms, "plain_ms": b5_bwd_plain_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,8 +10,11 @@ fused-class scene: one CUDA kernel renders the whole frame
 (``kernels/trace_fused``, ``csrc/trace_fused.cu``). ``HitBackend.PALLAS``
 runs the wavefront loop with the nearest-hit kernels
 (``kernels/nearest_hit``, ``csrc/nearest_hit.cu``) and carries every scene
-class, image textures and cube-map skies included. On CPU tensors every
-kernel runs its plain PyTorch version instead.
+class, image textures and cube-map skies included. Inverse rendering
+(``optim.fit``) differentiates the search path, or the replay of recorded
+winners through the replay kernels (``kernels/replay_grad``,
+``csrc/replay_grad.cu``). On CPU tensors every kernel runs its plain
+PyTorch version instead.
 """
 from .config import (
     HitBackend,

@@ -109,6 +109,8 @@ _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 
 _FUSED_TABLES = [_P, _I, _P, _I, _P, _I, _P]  # sph, box, tri (+ counts), sky
 _HIT_TABLES = [_P, _I, _I] * 3                 # sph, box, tri (+ count, stride)
+# sph, box (+ counts), sky, org, dir, pid_seq, n, refmax, atten
+_REPLAY_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _I, _F]
 
 #: every C entry of the library -> (argtypes, restype); pointers and the
 #: stream are c_void_p, so ctypes never cuts them to 32 bits
@@ -121,6 +123,9 @@ SIGNATURES = {
         _P, _P, _LL, _P, _P, _I, _P], _I),
     "rt_nearest_hit_dense": (_HIT_TABLES + [
         _P, _P, _LL, _P, _P, _P, _I, _P], _I),
+    "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
+    "rt_replay_bwd": (_REPLAY_ARGS + [
+        _F, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
 }
 

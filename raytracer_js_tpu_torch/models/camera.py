@@ -119,6 +119,22 @@ def move(cam: Camera, delta) -> Camera:
     return dataclasses.replace(cam, pos=cam.pos + d)
 
 
+def move_xy_forward(cam: Camera, scale=1.0) -> Camera:
+    """WASD-style planar move along the XY projection of front
+    (camera.ts:167-170)."""
+    fr = cam.front[:2]
+    fr = fr / (torch.linalg.vector_norm(fr) + 1e-20)
+    return move(cam, torch.cat([fr * scale, torch.zeros_like(cam.pos[:1])]))
+
+
+def renormalized(cam: Camera) -> Camera:
+    """Re-orthonormalize the triad (Gram-Schmidt) after gradient updates."""
+    f = vm.normalize(cam.front)
+    lf = cam.left - vm.dot(cam.left, f) * f
+    lf = vm.normalize(lf)
+    return dataclasses.replace(cam, front=f, left=lf, up=vm.cross(f, lf))
+
+
 def angle_steps(cam: Camera):
     """(step_h, step_v, off_h, off_v): the f32 angle step per pixel and the
     integer center offsets of the closed form."""

@@ -24,8 +24,14 @@ Behavioral contract (reference source in parentheses):
 * miss -> color times sky (equirect or cube map), MISS; alive after
   ``refmax`` bounces -> black.
 
-The hit search is discrete and runs under ``torch.no_grad()``. Path replay
-(``pid_seq``) and ``record_paths`` come with the gradient work.
+Autograd: the hit search is discrete and runs under ``torch.no_grad()`` on
+detached inputs; gradients flow only through the surface recompute
+(``ops/intersect`` ``*_surface``), the color products, the inverse-square
+law and the sky and texture lookups. Path replay: :func:`record_paths`
+records the winner per bounce (``pid_seq [N, refmax]``) and
+``trace_rays(..., pid_seq=...)`` replays it without any search — the same
+values and gradients as the search path, since the search result carries
+no gradient there either.
 """
 from __future__ import annotations
 
@@ -272,10 +278,17 @@ def sky_color(scene: Scene, dir: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
-            bounce: int, prows: Optional[PrimRows]) -> RayState:
-    """One wavefront pass: traverse -> intersect -> shade -> respawn."""
+            bounce: int, prows: Optional[PrimRows],
+            pid_override: Optional[Tensor] = None) -> RayState:
+    """One wavefront pass: traverse -> intersect -> shade -> respawn.
+
+    ``pid_override`` [N] supplies the winner per ray (-1 = miss) in place of
+    the nearest-hit search: the path-replay mode."""
     alive = state.status == int(RayStatus.ALIVE)
-    _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir)
+    if pid_override is None:
+        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir)
+    else:
+        pid = pid_override
     hit = alive & (pid >= 0)
 
     if scene.n_prims == 0:
@@ -368,17 +381,11 @@ def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
                     refr=refr_out, status=status)
 
 
-def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
-               seed: int = sampling.DEFAULT_SEED,
-               ray_id: Optional[Tensor] = None,
-               start_refr: Optional[Tensor] = None) -> RayState:
-    """Trace a wavefront of N rays to termination.
-
-    ``ray_id`` is the global ray id the counter RNG is keyed by (default
-    ``arange(N)``); ``start_refr`` is the substance at the camera (default
-    the scene default). Returns the final RayState: LIGHT rays carry the
-    inverse-square attenuation, EXHAUST rays are black.
-    """
+def _start(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
+           seed: int, ray_id: Optional[Tensor],
+           start_refr: Optional[Tensor]):
+    """Fresh wavefront state (white color, ALIVE) and the RNG coordinates,
+    which only rough mirrors and the Fresnel-BOTH split draw from."""
     n = org.shape[0]
     if ray_id is None:
         ray_id = torch.arange(n, dtype=torch.int32, device=org.device)
@@ -392,9 +399,52 @@ def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     rng = ((seed, ray_id)
            if scene.has_rough or (scene.has_both and cfg.fresnel_both)
            else None)
+    return state, rng
+
+
+@torch.no_grad()
+def record_paths(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
+                 seed: int = sampling.DEFAULT_SEED,
+                 ray_id: Optional[Tensor] = None,
+                 start_refr: Optional[Tensor] = None) -> Tensor:
+    """Run the search path and record the winner per bounce ->
+    ``pid_seq [N, refmax]`` int32 (-1 = a miss or a dead ray).
+
+    Feed it to :func:`trace_rays`'s ``pid_seq`` for the path-replay
+    backward. The recording is discrete bookkeeping: no graph is built.
+    """
+    state, rng = _start(scene, cfg, org, dir, seed, ray_id, start_refr)
+    prows = prim_rows(scene)
+    rec = []
+    for b in range(cfg.refmax):
+        alive = state.status == int(RayStatus.ALIVE)
+        _t, pid = nearest_hit(scene, cfg, state.org, state.dir)
+        pid = torch.where(alive, pid, -1).to(torch.int32)
+        rec.append(pid)
+        state = _bounce(scene, cfg, state, rng, b, prows, pid_override=pid)
+    return torch.stack(rec, dim=1)
+
+
+def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
+               seed: int = sampling.DEFAULT_SEED,
+               ray_id: Optional[Tensor] = None,
+               start_refr: Optional[Tensor] = None,
+               pid_seq: Optional[Tensor] = None) -> RayState:
+    """Trace a wavefront of N rays to termination.
+
+    ``ray_id`` is the global ray id the counter RNG is keyed by (default
+    ``arange(N)``); ``start_refr`` is the substance at the camera (default
+    the scene default). ``pid_seq`` [N, refmax] switches to path replay:
+    the winners come from :func:`record_paths` and no search runs.
+    Returns the final RayState: LIGHT rays carry the inverse-square
+    attenuation, EXHAUST rays are black.
+    """
+    state, rng = _start(scene, cfg, org, dir, seed, ray_id, start_refr)
     prows = prim_rows(scene)
     for b in range(cfg.refmax):
-        state = _bounce(scene, cfg, state, rng, b, prows)
+        state = _bounce(scene, cfg, state, rng, b, prows,
+                        pid_override=None if pid_seq is None
+                        else pid_seq[:, b])
 
     # alive after refmax bounces -> black (raytracer.ts:256-263)
     exhausted = state.status == int(RayStatus.ALIVE)

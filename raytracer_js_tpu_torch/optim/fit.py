@@ -1,0 +1,260 @@
+"""Inverse-rendering fit loop (port of ``raytracer_js_tpu.optim.fit``).
+
+Pixel loss -> gradients on material colors, entity geometry and camera
+pose, optimized with ``torch.optim`` (Adam or SGD with optax's defaults).
+A fit renders a batch of views per step (BASELINE config 5: 8 views) and
+differentiates either the search path or, with ``replay_every``, the
+search-free replay of recorded winners: kernel B5
+(``kernels/replay_grad``) on its class, autograd through
+``ops/trace.trace_rays(..., pid_seq=...)`` elsewhere.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+from ..config import RenderConfig
+from ..kernels import replay_grad as rg_kernel
+from ..models.camera import Camera, pixel_rays, renormalized
+from ..models.scene import Scene
+from ..ops import sampling
+from ..ops.trace import record_paths, trace_rays
+from ..ops.vecmath import cross
+from ..parallel.sharding import float_partition
+from ..render import render_rays, start_substance
+from ..utils import checkpoint as ckpt
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    steps: int = 100
+    lr: float = 1e-2
+    optimizer: str = "adam"   # "adam" | "sgd"
+    #: checkpoint every N steps into ``ckpt_dir`` (0 = off); a fit restarted
+    #: with the same ckpt_dir resumes from the newest snapshot
+    save_every: int = 0
+    ckpt_dir: Optional[str] = None
+    #: path-replay gradients: record the winners per bounce
+    #: (ops/trace.record_paths) at the first step and every N steps, and
+    #: differentiate the search-free replay in between (0 = off). Between
+    #: recordings the winners go stale as geometry moves; replay_every=1 is
+    #: the search path's gradient at every step.
+    replay_every: int = 0
+    #: the OCTREE accel's rebuild period; not ported yet (ROADMAP A11)
+    accel_every: int = 0
+    #: optimize the camera poses too: each camera's (pos, front, left, up)
+    #: joins the params after the scene's float leaves; the triad gradient
+    #: is projected onto rotations and the triad re-orthonormalized after
+    #: every step (raw triad gradients diverge)
+    fit_cameras: bool = False
+
+
+@dataclasses.dataclass
+class FitResult:
+    scene: Scene
+    losses: list
+    #: fitted cameras (None unless FitConfig.fit_cameras)
+    cameras: Optional[list] = None
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The counter-RNG seed of fit step ``step``:
+    ``lowbias32(seed ^ lowbias32(step))`` (ops/sampling). The port's
+    counterpart of ``jax.random.fold_in(key, step)``; the two give
+    different streams."""
+    return int(sampling.lowbias32(seed ^ int(sampling.lowbias32(step))))
+
+
+def _project_triad_grads(params, grads, n_scene: int, n_cams: int):
+    """Riemannian projection of camera-triad gradients onto rotations.
+
+    The raw (front, left, up) gradient has radial components (shrinking
+    ``front`` dims every path length, so the loss can fall that way), which
+    the re-orthonormalization after each step undoes: plain Adam or SGD on
+    raw triad leaves diverges. The tangent space of the orthonormal triads
+    is {dv = w x v}; the projected gradient is the rotation vector
+    ``w = sum_v v x g_v`` written back per leaf as ``g_v := w x v``, a strict
+    descent direction.
+    """
+    grads = list(grads)
+    for i in range(n_cams):
+        o = n_scene + 4 * i + 1
+        f, lf, u = params[o], params[o + 1], params[o + 2]
+        w = cross(f, grads[o]) + cross(lf, grads[o + 1]) + cross(u,
+                                                                  grads[o + 2])
+        grads[o] = cross(w, f)
+        grads[o + 1] = cross(w, lf)
+        grads[o + 2] = cross(w, u)
+    return grads
+
+
+def _make_opt(cfg: FitConfig, params):
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr)
+    raise ValueError(cfg.optimizer)
+
+
+def _view_rays(cam: Camera, v: int):
+    """(org, dir, global ray ids): view v's rays are numbered from v * N."""
+    org, dirs = pixel_rays(cam)
+    n = org.shape[0]
+    rid = torch.arange(n, dtype=torch.int32, device=org.device) + v * n
+    return org, dirs, rid
+
+
+def multiview_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
+                   targets: Tensor,
+                   seed: int = sampling.DEFAULT_SEED) -> Tensor:
+    """Mean squared pixel loss over a view batch, through the search path.
+
+    ``targets`` is [V, h*w, 3] (flattened per view).
+    """
+    total = torch.zeros((), dtype=torch.float32, device=targets.device)
+    n_pix = 0
+    for v, cam in enumerate(cameras):
+        org, dirs, rid = _view_rays(cam, v)
+        colors = render_rays(scene, cfg, org, dirs, seed, rid)
+        total = total + ((colors - targets[v]) ** 2).sum()
+        n_pix += org.shape[0]
+    return total / n_pix
+
+
+@torch.no_grad()
+def record_views(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
+                 seed: int = sampling.DEFAULT_SEED) -> List[Tensor]:
+    """The winners per bounce of every view -> [pid_seq [h*w, refmax]]."""
+    recs = []
+    for v, cam in enumerate(cameras):
+        org, dirs, rid = _view_rays(cam, v)
+        refr0 = start_substance(scene, cam.pos).expand(org.shape[0])
+        recs.append(record_paths(scene, cfg, org, dirs, seed, rid,
+                                 start_refr=refr0))
+    return recs
+
+
+def replay_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
+                targets: Tensor, recs: Sequence[Tensor],
+                seed: int = sampling.DEFAULT_SEED) -> Tensor:
+    """:func:`multiview_loss` through the replay of recorded winners:
+    kernel B5 where ``replay_grad.supports`` holds, else autograd through
+    the replaying trace loop."""
+    use_kernel = rg_kernel.supports(scene, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=targets.device)
+    n_pix = 0
+    for v, cam in enumerate(cameras):
+        org, dirs, rid = _view_rays(cam, v)
+        if use_kernel:
+            colors = rg_kernel.replay_colors(scene, cfg, org, dirs, recs[v])
+        else:
+            refr0 = start_substance(scene, cam.pos).expand(org.shape[0])
+            colors = trace_rays(scene, cfg, org, dirs, seed, rid,
+                                start_refr=refr0, pid_seq=recs[v]).color
+        total = total + ((colors - targets[v]) ** 2).sum()
+        n_pix += org.shape[0]
+    return total / n_pix
+
+
+def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
+        targets: Tensor, fit_cfg: FitConfig = FitConfig(),
+        seed: int = sampling.DEFAULT_SEED,
+        trainable: Optional[Callable[[int, Tensor], bool]] = None,
+        mesh=None, accel=None) -> FitResult:
+    """Optimize the scene's float leaves (and, with ``fit_cameras``, the
+    camera poses) to match ``targets`` [V, h*w, 3].
+
+    ``trainable(i, param)`` masks which params receive updates (by zeroing
+    their gradients). A param the loss never reaches gets a zero gradient,
+    as under ``jax.grad``. Step ``s`` draws its random numbers from
+    :func:`step_seed` ``(seed, s)``. ``mesh`` (ray-sharded fits) and
+    ``accel`` (the OCTREE backend) are not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError("sharded fits over a device mesh are not "
+                                  "ported yet (ROADMAP A13)")
+    if accel is not None or fit_cfg.accel_every:
+        raise NotImplementedError("the OCTREE accel and its rebuild policy "
+                                  "are not ported yet (ROADMAP A11)")
+    if fit_cfg.replay_every and cfg.spp != 1:
+        raise ValueError("replay_every requires spp == 1 (one recorded "
+                         "structure per ray)")
+    scene_params, rebuild_scene = float_partition(scene)
+    n_scene = len(scene_params)
+    init = list(scene_params)
+    if fit_cfg.fit_cameras:
+        for cam in cameras:
+            init += [cam.pos, cam.front, cam.left, cam.up]
+    params = [p.detach().clone().requires_grad_(True) for p in init]
+
+    def rebuild_all(ps):
+        sc = rebuild_scene(ps[:n_scene])
+        if not fit_cfg.fit_cameras:
+            return sc, list(cameras)
+        cams = [dataclasses.replace(cam, pos=ps[n_scene + 4 * i],
+                                    front=ps[n_scene + 4 * i + 1],
+                                    left=ps[n_scene + 4 * i + 2],
+                                    up=ps[n_scene + 4 * i + 3])
+                for i, cam in enumerate(cameras)]
+        return sc, cams
+
+    opt = _make_opt(fit_cfg, params)
+    start_step = 0
+    if fit_cfg.ckpt_dir:
+        newest = ckpt.latest(fit_cfg.ckpt_dir)
+        if newest is not None:
+            (saved, opt_state), start_step, _ = ckpt.restore(newest)
+            with torch.no_grad():
+                for p, q in zip(params, saved, strict=True):
+                    p.copy_(q)
+            opt.load_state_dict(opt_state)
+
+    losses = []
+    recs = None
+    for step in range(start_step, fit_cfg.steps):
+        k = step_seed(seed, step)
+        opt.zero_grad(set_to_none=True)
+        sc, cams = rebuild_all(params)
+        if fit_cfg.replay_every:
+            if (step - start_step) % fit_cfg.replay_every == 0:
+                recs = record_views(sc, cfg, cams, k)
+            loss = replay_loss(sc, cfg, cams, targets, recs, k)
+        else:
+            loss = multiview_loss(sc, cfg, cams, targets, k)
+        loss.backward()
+        with torch.no_grad():
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            if trainable is not None:
+                grads = [g if trainable(i, p) else torch.zeros_like(g)
+                         for i, (g, p) in enumerate(zip(grads, params))]
+            if fit_cfg.fit_cameras:
+                grads = _project_triad_grads(params, grads, n_scene,
+                                             len(cameras))
+            for p, g in zip(params, grads):
+                p.grad = g
+        opt.step()
+        if fit_cfg.fit_cameras:
+            # the retraction: a gradient step denormalizes the triad
+            with torch.no_grad():
+                for i, cam in enumerate(rebuild_all(params)[1]):
+                    cam = renormalized(cam)
+                    o = n_scene + 4 * i
+                    params[o + 1].copy_(cam.front)
+                    params[o + 2].copy_(cam.left)
+                    params[o + 3].copy_(cam.up)
+        losses.append(float(loss.detach()))
+        if (fit_cfg.ckpt_dir and fit_cfg.save_every
+                and (step + 1) % fit_cfg.save_every == 0):
+            pathlib.Path(fit_cfg.ckpt_dir).mkdir(parents=True, exist_ok=True)
+            ckpt.save(pathlib.Path(fit_cfg.ckpt_dir) / f"ckpt_{step + 1}",
+                      (params, opt.state_dict()), step=step + 1)
+    sc_out, cams_out = rebuild_all([p.detach() for p in params])
+    return FitResult(scene=sc_out, losses=losses,
+                     cameras=cams_out if fit_cfg.fit_cameras else None)

@@ -49,6 +49,20 @@ def start_substance(scene: Scene, pos: Tensor) -> Tensor:
     return refr[0]
 
 
+def refuse_grad(scene: Scene, *tensors: Tensor) -> None:
+    """Raise if autograd would record through the fused kernels: they (and
+    their plain versions) return detached colors, so a loss through them
+    would get zero gradients without a word."""
+    from .parallel.sharding import float_partition
+
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*float_partition(scene)[0], *tensors)):
+        raise RuntimeError(
+            "the FUSED backend has no backward: an input requires grad; "
+            "render with HitBackend.PALLAS or HitBackend.BRUTE to "
+            "differentiate")
+
+
 def _average(one, spp: int, stochastic: bool) -> Tensor:
     if spp == 1 or not stochastic:
         return one(0)
@@ -76,6 +90,7 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
         cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
     if cfg.backend == HitBackend.FUSED:
         if trace_fused.supports(scene):
+            refuse_grad(scene, org, dir)
             refr0 = (start_substance(scene, org[0])
                      if scene.has_transmission else None)
 
@@ -117,6 +132,7 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
         seed = sampling.DEFAULT_SEED
     if cfg.backend == HitBackend.FUSED and trace_fused.supports_frame(scene):
         # headline path: rays are generated inside the kernel
+        refuse_grad(scene, camera.pos, camera.front, camera.left, camera.up)
         refr0 = (start_substance(scene, camera.pos)
                  if scene.has_transmission else None)
 

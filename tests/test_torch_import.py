@@ -42,8 +42,20 @@ b.add_sphere((4, 0, 0), 1.0, b.add_material(rt.ResponseType.REFLECTION,
 img = rt.render_hdr(b.build(), cam, rt.RenderConfig(
     refmax=2, backend=rt.HitBackend.PALLAS))
 assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
+from raytracer_js_tpu_torch.kernels import replay_grad
+from raytracer_js_tpu_torch.optim import FitConfig, fit
+from raytracer_js_tpu_torch.utils import checkpoint
+b = rt.SceneBuilder()
+b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+b.add_sphere((4, 0, 0), 1.0, b.add_material(rt.ResponseType.REFLECTION,
+                                            mirror=True),
+             b.add_solid_texture((.9, .2, .1)))
+res = fit(b.build(), rt.RenderConfig(refmax=2, backend=rt.HitBackend.PALLAS),
+          [cam], torch.zeros((1, 64, 3)), FitConfig(steps=2, replay_every=1))
+assert len(res.losses) == 2 and res.losses[1] < res.losses[0]
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
-print("rendered", float(hdr.sum()), trace_fused.LAUNCHES, nearest_hit.LAUNCHES)
+print("rendered", float(hdr.sum()), trace_fused.LAUNCHES, nearest_hit.LAUNCHES,
+      replay_grad.LAUNCHES)
 """
 
 
@@ -53,14 +65,15 @@ def test_imports_and_renders_with_jax_and_flax_blocked():
     assert out.returncode == 0, out.stderr
     assert "rendered" in out.stdout
     # CPU tensors take the plain versions: no kernel was launched
-    assert "{'frame': 0, 'rays': 0} {'scalar': 0, 'dense': 0}" in out.stdout
+    assert ("{'frame': 0, 'rays': 0} {'scalar': 0, 'dense': 0} "
+            "{'fwd': 0, 'bwd': 0}") in out.stdout
 
 
 def test_no_module_imports_jax_or_flax():
     pattern = re.compile(r"^\s*(import jax|from jax|import flax|from flax)",
                          re.MULTILINE)
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 20
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     offenders += [str(f) for f in files if "flax" in f.read_text()]
     assert not offenders
