@@ -33,6 +33,17 @@ Phases, one JSON line each:
                 512x512, recorded by B4; (d) all-miss rays and rays
                 exhausted at refmax. Then B5's gradients against autograd
                 through the search path on view (a).
+ 6b. B7       — the tiled frame kernel against its plain version, every
+                plane bit for bit (and the chunks each exit group scanned):
+                (a) one 128x32 tile; (b) partial edge tiles (151x37, the
+                600-sphere field); (c) config 3's image scene (uv planes);
+                (d) the rough + glass scene (normal planes, transmission).
+ 6c. B6       — the listed nearest-hit kernel against its plain version (t
+                and pid bit for bit, the same list slots streamed) and
+                against B4 on the same rays and Morton-permuted scene: (a)
+                the 600-sphere field listed per 128-ray block; (b) config
+                3's mesh, triangles listed; (c) a supertile fan of 4; (d)
+                n_live < N.
   7. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
                 STDDEV tone map -> PNG, plus ``render_rays`` FUSED over the
                 same camera's rays, with the launch counters reset first.
@@ -48,10 +59,22 @@ Phases, one JSON line each:
                 the targets are rendered. Then one ``fit_cameras`` step at
                 256x256, and a small fit held against the same fit on the
                 CPU plain versions.
+ 9b. main-TILED — ``render_hdr`` TILED on BASELINE config 4 (1920x1088,
+                100k prims, refmax 2; tables built on the host) -> exposure
+                -> tone map -> PNG, counters reset first: B7 once, B6 each
+                sweep round, no B3/B4, ``unresolved`` 0. Then B7 (e) on the
+                full frame and B6 (e) on the first sweep round's compacted
+                slice and lists, against their plain versions; and the frame
+                against ``render_hdr`` PALLAS under the parity rule, at most
+                ``C4_MAX_ROUNDING_FRAC`` of its pixels proven as rounding.
  10. times    — CUDA-event medians of each kernel and its plain version at
                 the main paths' shapes, ``render_hdr`` end to end, and the
                 gradient path: a replay step for one view, an 8-view fit
-                step and an 8-view recording.
+                step and an 8-view recording; config 4's TILED frame, B7,
+                B6 per sweep round, and its PALLAS frame. Then each
+                kernel's bound: the larger of its tests' operations over
+                67 TFLOP/s (float32) and its bytes in and out over
+                3.35 TB/s, counted from this run's inputs (``OPS``).
 Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
 pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
 B5: colors and per-ray cotangents bit-exact; per-prim and sky cotangents
@@ -82,6 +105,7 @@ from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
+from raytracer_js_tpu_torch.kernels import trace_tiled as tt
 from raytracer_js_tpu_torch.models.camera import move, pixel_rays, rotate_h
 from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED
 from raytracer_js_tpu_torch.ops.trace import record_paths, trace_rays
@@ -89,6 +113,7 @@ from raytracer_js_tpu_torch.optim import FitConfig, fit
 from raytracer_js_tpu_torch.optim.fit import record_views, replay_loss
 from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
                                                        float_partition)
+from raytracer_js_tpu_torch import render_tiled as rtl
 from raytracer_js_tpu_torch.render import render_rays, start_substance
 from raytracer_js_tpu_torch.utils import parity
 from raytracer_js_tpu_torch.utils.mesh import icosphere
@@ -96,10 +121,18 @@ from raytracer_js_tpu_torch.view import exposure, screen, view
 
 HEADLINE_W, HEADLINE_H = 1920, 1088
 C3_W, C3_H = 512, 512
+C4_W, C4_H = 1920, 1088
+#: share of config 4's pixels that TILED and PALLAS may differ in by
+#: rounding (a first hit on a sphere whose t float32 leaves undetermined
+#: beyond rtol): the factored quadratic of TILED's bounce 0 leaves t of the
+#: small far spheres undetermined by about 1e-3; 0.31% of the frame on an
+#: H100 80GB HBM3 (700 W)
+C4_MAX_ROUNDING_FRAC = 0.005
 WARMUP, TIMED = 3, 20
 KERNEL_SOURCE = "raytracer_js_tpu_torch/csrc/trace_fused.cu"
 NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
 REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
+TILED_SOURCE = "raytracer_js_tpu_torch/csrc/trace_tiled.cu"
 FIT_VIEWS = 8
 
 
@@ -167,6 +200,37 @@ def config3_scene(subdiv: int = 4, device=None):
 def config3_camera(device=None):
     return make_camera((0.0, 0.0, 0.5), C3_W, C3_H, np.pi / 2, np.pi / 2,
                        device=device)
+
+
+def config4_scene(n_prims: int = 100_000, seed: int = 7, device=None):
+    """BASELINE config 4 (``bench.build_config4_scene``): a uniform field
+    of ``n_prims - 2`` small spheres over a slab ahead of the camera (every
+    third a mirror), a ground box and an emitter."""
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+    grey = b.add_solid_texture((0.6, 0.6, 0.6))
+    white = b.add_solid_texture((1.0, 1.0, 1.0))
+    diffuse = b.add_material(ResponseType.REFLECTION)
+    mirror = b.add_material(ResponseType.REFLECTION, mirror=True)
+    light = b.add_material(ResponseType.REFLECTION, light=True)
+    b.add_box((20.0, 0.0, -52.0), 100.0, diffuse, grey)
+    rng = np.random.default_rng(seed)
+    n_s = n_prims - 2
+    centers = rng.uniform([4.0, -20.0, -1.0], [44.0, 20.0, 7.0], (n_s, 3))
+    radii = rng.uniform(0.05, 0.18, n_s)
+    palette = [b.add_solid_texture(rng.uniform(0.2, 1.0, 3))
+               for _ in range(16)]
+    for i in range(n_s):
+        b.add_sphere(centers[i], float(radii[i]),
+                     mirror if i % 3 == 0 else diffuse, palette[i % 16])
+    b.add_sphere((24.0, 0.0, 14.0), 3.0, light, white)
+    return b.build(device)
+
+
+def config4_camera(device=None):
+    """Config 4's camera (``bench.py``): 1920x1088, fov pi/2 x pi/2 * h/w."""
+    return make_camera((0.0, 0.0, 0.5), C4_W, C4_H, np.pi / 2,
+                       np.pi / 2 * C4_H / C4_W, device=device)
 
 
 def config1_scene(with_glass: bool = False, with_tri: bool = False,
@@ -380,7 +444,7 @@ def compare_frame(name, scene, cam, cfg, sample=0):
     emit(phase="B1", case=name, sample=sample, w=cam.w, h=cam.h,
          refmax=cfg.refmax, prims=scene.n_prims, **rep)
     check(rep["ok"], f"B1 {name} sample {sample}: {rep}")
-    return rep, k_img
+    return rep, k_img, k_rec
 
 
 def compare_rays(name, scene, cam, cfg, seed=DEFAULT_SEED):
@@ -475,6 +539,134 @@ def compare_replay(name, scene, org, dir, pid_seq, refmax, g_color=None):
     return rep, k_col
 
 
+def bits(x):
+    """A plane as int32 bits, so a bit-for-bit comparison holds NaNs."""
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def compare_tiled(name, scene, cam, tables=None):
+    """B7 against its plain version on one frame, both on the card: every
+    plane bit for bit, and the chunks each exit group scanned; -> (report,
+    kernel planes, tables)."""
+    tables = tables or rtl.frame_tables(scene, cam)
+    tab, cnts, c_max = tables[:3]
+    k = tt.frame_bounce0(scene, cam, tab, cnts, c_max, work=True)
+    t0 = time.perf_counter()
+    p = tt.frame_bounce0_plain(scene, cam, tab, cnts, c_max, work=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    differ = [n for n in p if not torch.equal(bits(k[n]), bits(p[n]))]
+    err = max(float(torch.where(torch.isfinite(p[n]), (k[n] - p[n]).abs(),
+                                0.0).max())
+              for n in p if p[n].dtype == torch.float32)
+    rep = dict(w=cam.w, h=cam.h, tiles=cnts.shape[0], c_max=c_max,
+               prims=scene.n_prims, planes=len(p) - 1, differ=differ,
+               max_abs_err=err, chunks_scanned=int(k["chunks"].sum()),
+               plain_seconds=plain_s, **{f: v for f, v in
+                                        tt._flags(scene).items()})
+    ok = not differ
+    if differ:
+        # the parity rule, winner flips proven on the bounce-0 rays
+        hp, wp = k["cr"].shape
+        org, dirs = pixel_rays(cam)
+        crop = (lambda x: x[:cam.h, :cam.w].reshape(-1))
+        col = (lambda d: torch.stack([crop(d[c]) for c in ("cr", "cg", "cb")],
+                                     -1))
+        rec = {"pid": crop(p["pid"])[None], "org": org[None],
+               "dir": dirs[None]}
+        prep = parity.compare(col(k), crop(k["status"]), col(p),
+                              crop(p["status"]),
+                              prove=parity.flip_prover(
+                                  scene, rec, crop(k["pid"])[None]))
+        rep["parity"] = prep
+        ok = prep["ok"]
+    emit(phase="B7", case=name, **rep)
+    check(ok, f"B7 {name}: {rep}")
+    return rep, k, tables
+
+
+def compare_listed(name, scene_s, org, dir, n_live=None, **lists):
+    """B6 against its plain version (t and pid bit for bit, the same list
+    slots streamed per block) and against B4 on the same rays and scene
+    (equal pids but for proven flips: the cull is exact), all on the card;
+    -> (report, inputs, slots)."""
+    n = org.shape[0]
+    li = nh.listed_inputs(scene_s, n, **lists)
+    nl = (None if n_live is None else
+          torch.tensor([n_live], dtype=torch.int32, device=org.device))
+    k_t, k_pid, k_slots = nh.launch_listed(li, org, dir, n_live=nl,
+                                           work=True)
+    t0 = time.perf_counter()
+    p_t, p_pid, p_slots = nh.nearest_hit_listed_plain(
+        scene_s, org, dir, n_live, inputs=li, work=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    d_t, d_pid = nh.launch_dense(nh.pack_tables(scene_s), org, dir,
+                                 n_live=nl)
+    torch.cuda.synchronize()
+    exact = (torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
+             and torch.equal(k_slots, p_slots))
+    vs_b4 = parity.compare_hits(scene_s, org, dir, k_t, k_pid, d_t, d_pid)
+    live = n if n_live is None else min(n_live, n)
+    cols = max((lst[0].shape[1] for lst in (li.sph_list, li.tri_list)
+                if lst is not None), default=0)
+    rep = dict(rays=n, n_live=live, prims=scene_s.n_prims,
+               sph_fan=li.sph_fan, tri_fan=li.tri_fan, list_cols=cols,
+               slots_streamed=int(k_slots.sum()),
+               mean_slots_per_live_block=float(
+                   k_slots[:-(-live // nh.BLOCK_R)].sum(1).float().mean())
+               if live else 0.0,
+               bit_exact=exact, plain_seconds=plain_s,
+               max_abs_err=float(torch.where(torch.isfinite(p_t),
+                                             (k_t - p_t).abs(), 0.0).max()),
+               vs_b4=vs_b4)
+    emit(phase="B6", case=name, **rep)
+    check(exact and vs_b4["ok"], f"B6 {name}: {rep}")
+    check(bool(torch.isinf(k_t[live:]).all())
+          and bool((k_pid[live:] == -1).all()),
+          f"B6 {name}: rows past n_live are not misses")
+    return rep, li, k_slots
+
+
+#: float operations per intersection test, counted from the kernels'
+#: expressions (one each for an add, multiply, compare, min/max, select,
+#: sqrt or divide), the running-minimum fold included. The bounds count
+#: the tests only: the shading per ray is a few hundred operations, under
+#: 1% of the tests at these prim counts.
+OPS = {"sphere": 29, "sphere_unit": 29, "box": 34, "tri": 63,
+       "tri_edges": 57, "replay_fwd": 120, "replay_bwd": 400}
+#: one H100 SXM at its published peaks (NVIDIA data sheet): float32 outside
+#: the tensor cores, and HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def bound(ops: float, nbytes: float):
+    """The least time the card could take -> (bound_ms, bound_by)."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def class_ops(scene, tri_key="tri"):
+    """Operations of one ray against every prim of the scene."""
+    return (scene.n_spheres * OPS["sphere"] + scene.n_boxes * OPS["box"]
+            + scene.n_tris * OPS[tri_key])
+
+
+def fused_alive(scene, rec_pid):
+    """Rays alive at each bounce of a fused trace, from its recording: all
+    at bounce 0, then the mirror and transmission continuations."""
+    tabs = tf.pack_tables(scene)
+    mode = torch.cat([tabs.sph[tf.S_MODE], tabs.box[tf.B_MODE],
+                      tabs.tri[tf.T_MODE]])
+    alive = [rec_pid.shape[1]]
+    for b in range(rec_pid.shape[0] - 1):
+        pid = rec_pid[b].long()
+        m = mode[pid.clamp(min=0)]
+        alive.append(int(((pid >= 0) & ((m == 1.0) | (m == 3.0))).sum()))
+    return alive
+
+
 def replay_grads(scene, cfg, org, dir, target, pid_seq=None, kernel=True):
     """Loss and gradients (every float leaf, then org and dir) of the mean
     squared error against ``target``: given ``pid_seq``, through B5 or
@@ -517,13 +709,14 @@ def random_rays(n, seed, device):
 
 
 def reset_launches() -> None:
-    for counts in (tf.LAUNCHES, nh.LAUNCHES, rg.LAUNCHES):
+    for counts in (tf.LAUNCHES, nh.LAUNCHES, rg.LAUNCHES, tt.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches_now() -> dict:
-    return {**tf.LAUNCHES, **nh.LAUNCHES, **rg.LAUNCHES}
+    return {**tf.LAUNCHES, **nh.LAUNCHES, **rg.LAUNCHES,
+            "tiled_frame": tt.LAUNCHES["frame"]}
 
 
 def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
@@ -591,7 +784,8 @@ def main() -> int:
                           rot_h=0.3, rot_v=-0.2, device=dev)
 
     b1 = []
-    rep, head_img = compare_frame("a_headline", head, head_cam, cfg_head)
+    rep, head_img, head_rec = compare_frame("a_headline", head, head_cam,
+                                            cfg_head)
     b1.append(rep)
     b1.append(compare_frame("b_config1_glass_tri", glass, cam256, cfg3)[0])
     for s in range(cfg_rough.spp):
@@ -710,6 +904,43 @@ def main() -> int:
          worst_leaf=max(ratios, key=ratios.get))
     check(worst <= 1.0 and abs(l_k - l_s) <= 1e-5 * abs(l_s),
           f"B5 grads differ from the search path's: {worst}")
+
+    # ---- 6b. B7 against its plain version ----------------------------------
+    b7 = [compare_tiled("a_one_tile_128x32", head, make_camera(
+        (0.0, 0.0, 0.5), 128, 32, np.pi / 2, np.pi / 8, device=dev))[0]]
+    b7.append(compare_tiled("b_edge_tiles_151x37", field, make_camera(
+        (0.05, -0.1, 0.45), 151, 37, 1.45, 1.2, device=dev))[0])
+    b7.append(compare_tiled("c_image_uv_config3", c3, make_camera(
+        (0.05, -0.1, 0.45), 131, 67, 1.45, 1.2, device=dev))[0])
+    b7.append(compare_tiled("d_rough_glass_normals", rough, make_camera(
+        (0.0, 0.0, 0.5), 200, 90, 1.4, 0.9, device=dev))[0])
+    check(b7[2]["want_uv"] and b7[3]["want_normal"] and b7[3]["has_trans"],
+          "B7 cases miss the uv or normal planes")
+
+    # ---- 6c. B6 against its plain version and B4 ---------------------------
+    sw_field = rtl._sweep_perm(field)
+    work512 = torch.ones(o512.shape[0], dtype=torch.bool, device=dev)
+    ids_field = rtl._block_tile_select(o512, d512, work512, sw_field[1][1])
+    b6 = [compare_listed("a_near_miss_600", sw_field[0], o512, d512,
+                         tile_ids=ids_field)[0]]
+    sw_c3 = rtl._sweep_perm(c3)
+    work3 = torch.ones(org3.shape[0], dtype=torch.bool, device=dev)
+    b6.append(compare_listed("b_config3_mesh_triangles", sw_c3[0], org3, dir3,
+                             tri_tile_ids=rtl._block_tile_select(
+                                 org3, dir3, work3, sw_c3[2][1]),
+                             tri_fan=sw_c3[2][2])[0])
+    max_tiles = rtl.LISTED_MAX_TILES
+    rtl.LISTED_MAX_TILES = 2
+    sw_fan = rtl._sweep_perm(field)
+    rtl.LISTED_MAX_TILES = max_tiles
+    check(sw_fan[1][2] > 1, "no supertile fan")
+    b6.append(compare_listed("c_fan_near_miss_600", sw_fan[0], o512, d512,
+                             tile_ids=rtl._block_tile_select(
+                                 o512, d512, work512, sw_fan[1][1]),
+                             sph_fan=sw_fan[1][2])[0])
+    n_half = o512.shape[0] // 2 + 77
+    b6.append(compare_listed("d_n_live", sw_field[0], o512, d512,
+                             n_live=n_half, tile_ids=ids_field)[0])
 
     # ---- 7. the main path -----------------------------------------------------
     reset_launches()
@@ -885,6 +1116,103 @@ def main() -> int:
     check(np.allclose(r_dev.losses, r_cpu.losses, rtol=1e-4, atol=0.0),
           "the fit on the card differs from the CPU plain versions")
 
+    # ---- 9b. main-TILED: BASELINE config 4 through B7 and B6 ---------------
+    t0 = time.perf_counter()
+    c4, c4_cam = config4_scene(device=dev), config4_camera(dev)
+    c4_build_s = time.perf_counter() - t0
+    cfg_c4 = RenderConfig(refmax=2, backend=HitBackend.TILED)
+    searches = []       # each sweep round's search inputs, kept for 6c (e)
+    real_search = nh.nearest_hit_pallas
+
+    def keep_inputs(scene_s, org, dir, **kw):
+        searches.append((scene_s, org, dir, kw))
+        return real_search(scene_s, org, dir, **kw)
+
+    nh.nearest_hit_pallas = keep_inputs
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    hdr4 = rt.render_hdr(c4, c4_cam, cfg_c4)
+    buf4 = exposure.accumulate(
+        exposure.new_exposure_buffer(C4_H, C4_W, device=dev), hdr4)
+    ldr4 = view.draw(buf4, ToneMapConfig(kind=ToneMapperKind.STDDEV_AROUND_MEAN))
+    with tempfile.TemporaryDirectory() as tmp:
+        png = screen.write_png(pathlib.Path(tmp) / "config4.png", ldr4)
+        png4_bytes = png.stat().st_size if png.exists() else 0
+    torch.cuda.synchronize()
+    c4_s = time.perf_counter() - t0
+    c4_launches = launches_now()
+    nh.nearest_hit_pallas = real_search
+    t0 = time.perf_counter()
+    tables4 = rtl.frame_tables(c4, c4_cam)
+    torch.cuda.synchronize()
+    tables4_s = time.perf_counter() - t0
+    img4, diag4, rec4 = rtl.render_frame_tiled(c4, cfg_c4, c4_cam,
+                                               tables=tables4, with_diag=True,
+                                               with_record=True)
+    torch.cuda.synchronize()
+    c_max4 = tables4[2]
+    emit(phase="main-TILED", seconds=c4_s, scene_build_seconds=c4_build_s,
+         frame_tables_host_seconds=tables4_s, launches=c4_launches,
+         shape=list(hdr4.shape), device=str(hdr4.device), prims=c4.n_prims,
+         refmax=cfg_c4.refmax, tiles=tables4[1].shape[0], c_max=c_max4,
+         table_bytes=tables4[0].numel() * 4,
+         unresolved=int(diag4["unresolved"]), rounds=diag4["rounds"],
+         finite=bool(torch.isfinite(hdr4).all()), png_bytes=png4_bytes,
+         ldr_min=float(ldr4.min()), ldr_max=float(ldr4.max()),
+         same_as_render_frame_tiled=bool(torch.equal(img4, hdr4)))
+    check(c4_launches["tiled_frame"] == 1, f"config 4 TILED did not launch "
+          f"B7 exactly once: {c4_launches}")
+    check(c4_launches["listed"] >= 1 and c4_launches["dense"] == 0
+          and c4_launches["scalar"] == 0, f"config 4 TILED did not search "
+          f"its sweep rounds with B6 alone: {c4_launches}")
+    check(len(searches) == c4_launches["listed"] == diag4["rounds"],
+          "config 4: sweep rounds and B6 launches disagree")
+    check(int(diag4["unresolved"]) == 0, "config 4 left rays unresolved")
+    check(tuple(hdr4.shape) == (C4_H, C4_W, 3) and hdr4.device.type == "cuda",
+          "bad config-4 image")
+    check(bool(torch.isfinite(hdr4).all()), "non-finite config-4 HDR values")
+    check(torch.equal(img4, hdr4), "render_hdr and render_frame_tiled differ")
+    check(png4_bytes > 0 and float(ldr4.min()) >= 0.0
+          and float(ldr4.max()) <= 1.0, "bad config-4 PNG")
+
+    # B7 at config 4's full frame, B6 on its first sweep round's slice
+    rep, k4, _ = compare_tiled("e_config4_full", c4, c4_cam, tables4)
+    b7.append(rep)
+    scene_s, org_s, dir_s, kw_s = searches[0]
+    n_live4 = int(kw_s.pop("n_live"))
+    rep, li4, slots4 = compare_listed("e_config4_first_sweep_round", scene_s,
+                                      org_s, dir_s, n_live=n_live4, **kw_s)
+    b6.append(rep)
+
+    # the same frame through PALLAS (B4 over all 100k prims a bounce), under
+    # the parity rule: flips proven on the TILED side's rays per bounce;
+    # rounding proven where the first hit is a sphere whose t is not
+    # determined in float32 on either side (TILED's bounce 0 takes the
+    # factored quadratic, the PALLAS loop recomputes the hit from o - c)
+    cfg_c4p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    hdr4_p = rt.render_hdr(c4, c4_cam, cfg_c4p)
+    org4, dir4 = pixel_rays(c4_cam)
+    pid4_p = record_paths(c4, cfg_c4p, org4, dir4)
+    crop = (lambda x: x[:C4_H, :C4_W].reshape(-1))
+    rec4_t = {"pid": rec4.T.contiguous(), "org": torch.stack([org4, torch.stack(
+        [crop(k4[c]) for c in ("ox", "oy", "oz")], -1)]),
+        "dir": torch.stack([dir4, torch.stack(
+            [crop(k4[c]) for c in ("dx", "dy", "dz")], -1)])}
+    graze = [parity.grazing_prover(c4, org4, dir4),
+             parity.grazing_prover(c4, org4, dir4, pid=rec4[:, 0])]
+    zeros4 = torch.zeros((C4_H, C4_W), dtype=torch.int32, device=dev)
+    vs_pallas = parity.compare(
+        hdr4, zeros4, hdr4_p, zeros4,
+        prove=parity.flip_prover(c4, rec4_t, pid4_p.T),
+        prove_rounding=lambda idx: graze[0](idx) | graze[1](idx),
+        max_rounding_frac=C4_MAX_ROUNDING_FRAC)
+    winners_equal = float((rec4 == pid4_p).all(dim=1).float().mean())
+    emit(phase="main-TILED", case="vs_PALLAS", winners_equal_frac=winners_equal,
+         rounding_frac=vs_pallas["rounding"] / vs_pallas["pixels"],
+         max_rounding_frac=C4_MAX_ROUNDING_FRAC, **vs_pallas)
+    check(vs_pallas["ok"], f"config 4 TILED differs from PALLAS: {vs_pallas}")
+
     # ---- 10. times at the main paths' shapes -------------------------------
     tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
     refr = tf._refr_pair(head, None)
@@ -991,41 +1319,111 @@ def main() -> int:
              refmax=cfg_rep.refmax, prims=head.n_prims, frames=frames,
              card=name, nvidia_smi=smi)
 
+    # config 4: render_hdr TILED with cached tables, B7 alone, B6 on the
+    # first sweep round, and the PALLAS frame for comparison
+    c4_render_ms = cuda_median_ms(lambda: rt.render_hdr(
+        c4, c4_cam, cfg_c4, tables=tables4), warmup=1, timed=5)
+    cam_arr4, nby4, nbx4 = tt._frame_inputs(c4, c4_cam, *tables4[:3])
+    b7_ms = cuda_median_ms(lambda: tt.launch_frame(
+        tables4[0], tables4[1], cam_arr4, c_max4, nby4, nbx4,
+        **tt._flags(c4)))
+    b7_plain_ms = cuda_median_ms(lambda: tt.frame_bounce0_plain(
+        c4, c4_cam, *tables4[:3]), warmup=0, timed=1)
+    nl4 = torch.tensor([n_live4], dtype=torch.int32, device=dev)
+    b6_ms = cuda_median_ms(lambda: nh.launch_listed(li4, org_s, dir_s,
+                                                    n_live=nl4))
+    b6_plain_ms = cuda_median_ms(lambda: nh.nearest_hit_listed_plain(
+        scene_s, org_s, dir_s, n_live4, inputs=li4), warmup=0, timed=1)
+    c4_pallas_ms = cuda_median_ms(lambda: rt.render_hdr(c4, c4_cam, cfg_c4p),
+                                  warmup=0, timed=2)
+    px4 = C4_W * C4_H
+    for what, ms, frames in (
+            ("render_hdr TILED config 4 (tables cached)", c4_render_ms, 5),
+            ("B7 kernel (bounce 0)", b7_ms, TIMED),
+            ("B7 plain (bounce 0)", b7_plain_ms, 1),
+            ("B6 kernel (first sweep round)", b6_ms, TIMED),
+            ("B6 plain (first sweep round)", b6_plain_ms, 1),
+            ("render_hdr PALLAS config 4", c4_pallas_ms, 2)):
+        emit(phase="times", what=what, ms_per_frame=ms,
+             primary_rays_per_s=px4 / (ms * 1e-3), w=C4_W, h=C4_H,
+             refmax=cfg_c4.refmax, prims=c4.n_prims, frames=frames,
+             rounds_per_frame=diag4["rounds"], sweep_slice_live=n_live4,
+             frame_tables_host_ms=tables4_s * 1e3, card=name,
+             nvidia_smi=smi)
+
+    # ---- bounds: the tests these inputs need, the bytes in and out ----------
+    n_head, n_c3 = org.shape[0], org3.shape[0]
+    alive = sum(fused_alive(head, head_rec["pid"]))
+    head_tab = 4 * (13 * head.n_spheres + 13 * head.n_boxes + 17 * head.n_tris)
+    b1_bound = bound(alive * class_ops(head), 16 * n_head + head_tab)
+    b2_bound = bound(alive * class_ops(head), 44 * n_head + head_tab)
+    b3_bound = bound(n_head * class_ops(head), 32 * n_head + head_tab)
+    b4_bound = bound(n_c3 * class_ops(c3), 32 * n_c3 + 4 * (
+        4 * c3.n_spheres + 6 * c3.n_boxes + 9 * c3.n_tris))
+    b5f_bound = bound(n_head * 2 * OPS["replay_fwd"], n_head * (24 + 8 + 12))
+    b5b_bound = bound(n_head * 2 * OPS["replay_bwd"],
+                      n_head * (24 + 8 + 12 + 24))
+    ch = k4["chunks"].double()
+    hp4, wp4 = k4["cr"].shape
+    b7_ops = float((ch * torch.tensor(
+        [OPS["sphere_unit"], OPS["box"], OPS["tri_edges"]],
+        dtype=torch.float64, device=dev)).sum()) * tt.CHUNK * tt.GROUP_SUB \
+        * tt.LANE
+    rows4 = float(ch.sum(1).reshape(-1, tt.GROUPS_PER_TILE).max(1).values
+                  .sum()) * tt.CHUNK
+    b7_bound = bound(b7_ops, rows4 * 80 + 15 * 4 * hp4 * wp4
+                     + 32 * tables4[1].shape[0])
+    live_blk = -(-n_live4 // nh.BLOCK_R)
+    active = torch.clamp(n_live4 - nh.BLOCK_R * torch.arange(
+        live_blk, device=dev), max=nh.BLOCK_R).double()
+    sl4 = slots4[:live_blk].double()
+    b6_ops = (float((sl4[:, 0] * active).sum()) * li4.sph_fan * nh.BLOCK_K
+              * OPS["sphere"]
+              + float((sl4[:, 1] * active).sum()) * li4.tri_fan * nh.BLOCK_K
+              * OPS["tri"]
+              + n_live4 * scene_s.n_boxes * OPS["box"]
+              + (n_live4 * scene_s.n_spheres * OPS["sphere"]
+                 if li4.sph_list is None else 0)
+              + (n_live4 * scene_s.n_tris * OPS["tri"]
+                 if li4.tri_list is None else 0))
+    lists_bytes = sum(lst[0].numel() * 8 for lst in (li4.sph_list,
+                                                      li4.tri_list)
+                      if lst is not None)
+    b6_bound = bound(b6_ops, 32 * org_s.shape[0] + lists_bytes + 4 * (
+        4 * scene_s.n_spheres + 6 * scene_s.n_boxes + 9 * scene_s.n_tris))
+
     # ---- kernels summary and the last line ------------------------------------
     def worst(reps, key="max_abs_err"):
         return max(r[key] for r in reps)
 
+    def row(kname, source, replaces, launched, err, ms, plain_ms, bnd):
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    src = "raytracer_js_tpu/kernels/"
     print(json.dumps({"kernels": [
-        {"name": "trace_frame_kernel", "route": "cuda",
-         "source": KERNEL_SOURCE,
-         "replaces": "raytracer_js_tpu/kernels/trace_fused.py:678",
-         "launches": launches["frame"], "max_abs_err": worst(b1),
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
-        {"name": "trace_rays_kernel", "route": "cuda",
-         "source": KERNEL_SOURCE,
-         "replaces": "raytracer_js_tpu/kernels/trace_fused.py:636",
-         "launches": launches["rays"], "max_abs_err": worst(b2),
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
-        {"name": "nh_scalar_kernel", "route": "cuda", "source": NH_SOURCE,
-         "replaces": "raytracer_js_tpu/kernels/nearest_hit.py:702",
-         "launches": head_launches["scalar"], "max_abs_err": worst(b3),
-         "ms": b3_ms, "plain_ms": b3_plain_ms},
-        {"name": "nh_dense_kernel", "route": "cuda", "source": NH_SOURCE,
-         "replaces": "raytracer_js_tpu/kernels/nearest_hit.py:91",
-         "launches": c3_launches["dense"], "max_abs_err": worst(b4),
-         "ms": b4_ms, "plain_ms": b4_plain_ms},
-        {"name": "replay_fwd_kernel", "route": "cuda",
-         "source": REPLAY_SOURCE,
-         "replaces": "raytracer_js_tpu/kernels/replay_grad.py:399",
-         "launches": fit_launches["fwd"],
-         "max_abs_err": worst(b5, "color_max_abs_err"),
-         "ms": b5_fwd_ms, "plain_ms": b5_fwd_plain_ms},
-        {"name": "replay_bwd_kernel", "route": "cuda",
-         "source": REPLAY_SOURCE,
-         "replaces": "raytracer_js_tpu/kernels/replay_grad.py:592",
-         "launches": fit_launches["bwd"],
-         "max_abs_err": worst(b5, "bwd_max_abs_err"),
-         "ms": b5_bwd_ms, "plain_ms": b5_bwd_plain_ms},
+        row("trace_frame_kernel", KERNEL_SOURCE, src + "trace_fused.py:678",
+            launches["frame"], worst(b1), b1_ms, b1_plain_ms, b1_bound),
+        row("trace_rays_kernel", KERNEL_SOURCE, src + "trace_fused.py:636",
+            launches["rays"], worst(b2), b2_ms, b2_plain_ms, b2_bound),
+        row("nh_scalar_kernel", NH_SOURCE, src + "nearest_hit.py:702",
+            head_launches["scalar"], worst(b3), b3_ms, b3_plain_ms,
+            b3_bound),
+        row("nh_dense_kernel", NH_SOURCE, src + "nearest_hit.py:91",
+            c3_launches["dense"], worst(b4), b4_ms, b4_plain_ms, b4_bound),
+        row("replay_fwd_kernel", REPLAY_SOURCE, src + "replay_grad.py:399",
+            fit_launches["fwd"], worst(b5, "color_max_abs_err"), b5_fwd_ms,
+            b5_fwd_plain_ms, b5f_bound),
+        row("replay_bwd_kernel", REPLAY_SOURCE, src + "replay_grad.py:592",
+            fit_launches["bwd"], worst(b5, "bwd_max_abs_err"), b5_bwd_ms,
+            b5_bwd_plain_ms, b5b_bound),
+        row("nh_listed_kernel", NH_SOURCE, src + "nearest_hit.py:155",
+            c4_launches["listed"], worst(b6), b6_ms, b6_plain_ms, b6_bound),
+        row("tiled_frame_kernel", TILED_SOURCE, src + "trace_tiled.py:468",
+            c4_launches["tiled_frame"], worst(b7), b7_ms, b7_plain_ms,
+            b7_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,7 +10,11 @@ fused-class scene: one CUDA kernel renders the whole frame
 (``kernels/trace_fused``, ``csrc/trace_fused.cu``). ``HitBackend.PALLAS``
 runs the wavefront loop with the nearest-hit kernels
 (``kernels/nearest_hit``, ``csrc/nearest_hit.cu``) and carries every scene
-class, image textures and cube-map skies included. Inverse rendering
+class, image textures and cube-map skies included. ``HitBackend.TILED``
+renders big scenes (``render_tiled``: per-tile candidate tables and the
+tiled frame kernel for bounce 0, ``kernels/trace_tiled``,
+``csrc/trace_tiled.cu``; sweep rounds through the listed nearest-hit
+kernel for later bounces). Inverse rendering
 (``optim.fit``) differentiates the search path, or the replay of recorded
 winners through the replay kernels (``kernels/replay_grad``,
 ``csrc/replay_grad.cu``). On CPU tensors every kernel runs its plain

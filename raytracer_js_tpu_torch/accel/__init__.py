@@ -1,0 +1,2 @@
+"""Acceleration structures (port of ``raytracer_js_tpu.accel``): the
+per-tile candidate tables of the TILED frame entry."""

@@ -1,4 +1,6 @@
-// Nearest-hit search kernels for the PALLAS backend (Hopper, sm_90a).
+// Nearest-hit search kernels for the PALLAS and TILED backends (Hopper,
+// sm_90a). B6 (nh_listed_kernel, the TILED sweep rounds' search) is
+// described beside its code below.
 //
 // What they replace (the reference package's TPU kernels):
 //   nh_scalar_kernel (B3) -> _nh_scalar_kernel
@@ -288,6 +290,177 @@ nh_dense_kernel(Tables T, const float* __restrict__ org,
   }
 }
 
+// ---- B6: the listed nearest hit ---------------------------------------------
+// nh_listed_kernel -> _nearest_hit_kernel_listed (nearest_hit.py:155, entry
+// nearest_hit_pallas(tile_ids=...) :898): one block of 128 threads per
+// 128-ray list row, one thread per ray. The row's (super)tile ids are
+// streamed in the given order (ascending t_lo); each 128-prim tile is staged
+// in shared memory and tested by every ray of the block. Every kChunkT list
+// slots the block takes its horizon, the largest over its rays of
+// min(t_best, bbox-exit cap), and stops once the next slot's t_lo exceeds
+// it: a tile whose t_lo lies past every ray's horizon cannot hold a nearer
+// hit. A fan > 1 id covers `fan` consecutive 128-prim tiles. Boxes stream
+// dense; spheres and triangles are listed when their lists are given, dense
+// otherwise. A t tie goes to the first prim streamed (strict <).
+//
+// What bounds it: the sphere tests of the streamed tiles (~780 tiles of 128
+// spheres per 128-ray block at config 4: ~12.8M tests a block, an IEEE sqrt
+// each); the ids, t_lo and rays are a few KB a block. Design: the tile
+// staging is the only shared-memory traffic, two barriers a tile and one
+// block reduction a chunk; no double buffering yet.
+
+constexpr int kChunkT = 16;       // list slots between early-exit checks
+
+enum { K_SPH = 0, K_BOX = 1, K_TRI = 2 };
+
+template <int Kind>
+__device__ __forceinline__ float prim_t(const Ray& r,
+                                        const float (*tile)[kTile], int j) {
+  if (Kind == K_SPH)
+    return sphere_dense(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j]);
+  if (Kind == K_BOX)
+    return box_t(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j],
+                 tile[4][j], tile[5][j]);
+  return tri_t(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j], tile[4][j],
+               tile[5][j], tile[6][j], tile[7][j], tile[8][j]);
+}
+
+// Stage prims [k0, k0 + kTile) of a table padded to whole tiles and fold all
+// kTile of them into the running minimum (pids pid0 + k0 + j).
+template <int Kind, int Rows>
+__device__ __forceinline__ void listed_tile(float (*tile)[kTile],
+                                            const float* tab, int stride,
+                                            int k0, int pid0, bool active,
+                                            const Ray& r, float& t_best,
+                                            int& pid) {
+  __syncthreads();
+  for (int row = 0; row < Rows; ++row)
+    tile[row][threadIdx.x] = ld(tab, row, stride, k0 + (int)threadIdx.x);
+  __syncthreads();
+  if (active) {
+    for (int j = 0; j < kTile; ++j)
+      fold(prim_t<Kind>(r, tile, j), pid0 + k0 + j, t_best, pid);
+  }
+}
+
+// The dense scan of one class (B4's loop), prims [0, count).
+template <int Kind, int Rows>
+__device__ __forceinline__ void dense_class(float (*tile)[kTile],
+                                            const float* tab, int stride,
+                                            int count, int pid0, bool active,
+                                            const Ray& r, float& t_best,
+                                            int& pid) {
+  for (int k0 = 0; k0 < count; k0 += kTile) {
+    __syncthreads();
+    stage(tile, tab, Rows, stride, count, k0);
+    __syncthreads();
+    if (active) {
+      const int m = min(kTile, count - k0);
+      for (int j = 0; j < m; ++j)
+        fold(prim_t<Kind>(r, tile, j), pid0 + k0 + j, t_best, pid);
+    }
+  }
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kBlock / 32; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+struct List {
+  const int* ids;      // [rows, cols] (super)tile ids, null when dense
+  const float* tlo;    // [rows, cols] ascending entry bounds (+inf padding)
+  int cols;            // a kChunkT multiple
+  int fan;             // 128-prim tiles per id
+};
+
+// Stream one class's list for this block's row; returns the slots streamed.
+template <int Kind, int Rows>
+__device__ int listed_scan(float (*tile)[kTile], float* red, const List& L,
+                           const float* tab, int stride, int pid0, int row,
+                           bool active, const Ray& r, float t_cap,
+                           float& t_best, int& pid) {
+  const int* ids = L.ids + (size_t)row * L.cols;
+  const float* tlo = L.tlo + (size_t)row * L.cols;
+  float t_hi = block_max(active ? fminf(t_best, t_cap) : -kInf, red);
+  int j = 0;
+  for (; j < L.cols && __ldg(tlo + j) <= t_hi; j += kChunkT) {
+    for (int k = 0; k < kChunkT; ++k) {
+      const int id = __ldg(ids + j + k);
+      for (int f = 0; f < L.fan; ++f)
+        listed_tile<Kind, Rows>(tile, tab, stride, (id * L.fan + f) * kTile,
+                                pid0, active, r, t_best, pid);
+    }
+    t_hi = block_max(active ? fminf(t_best, t_cap) : -kInf, red);
+  }
+  return j;
+}
+
+__global__ void __launch_bounds__(kBlock)
+nh_listed_kernel(Tables T, const float* __restrict__ org,
+                 const float* __restrict__ dir, long long n,
+                 const int* __restrict__ n_live,
+                 const float* __restrict__ bbox, List sph_list,
+                 List tri_list, float* __restrict__ t_out,
+                 int* __restrict__ pid_out, int* __restrict__ work) {
+  __shared__ float tile[9][kTile];
+  __shared__ float red[kBlock / 32];
+  const int row = blockIdx.x;
+  const long long i = (long long)row * kBlock + threadIdx.x;
+  const long long live = min(n, (long long)__ldg(n_live));
+  if ((long long)row * kBlock >= live) {
+    if (i < n) {
+      t_out[i] = kInf;
+      pid_out[i] = -1;
+    }
+    return;
+  }
+  const bool active = i < live;
+  const Ray r = load_ray(org, dir, active ? i : 0);
+  // per-ray early-exit cap: the scene-bbox exit (every hit point lies in
+  // the union of the prim AABBs)
+  const float ex_x = fmaxf((__ldg(bbox + 0) - r.ox) * r.ix,
+                           (__ldg(bbox + 3) - r.ox) * r.ix);
+  const float ex_y = fmaxf((__ldg(bbox + 1) - r.oy) * r.iy,
+                           (__ldg(bbox + 4) - r.oy) * r.iy);
+  const float ex_z = fmaxf((__ldg(bbox + 2) - r.oz) * r.iz,
+                           (__ldg(bbox + 5) - r.oz) * r.iz);
+  const float t_exit = fminf(fminf(ex_x, ex_y), ex_z);
+  const float t_cap = fmaxf(t_exit, 0.0f) * (1.0f + 1e-4f) + 1e-3f;
+  float t_best = kInf;
+  int pid = -1;
+  int slots_s = 0, slots_t = 0;
+  if (sph_list.ids != nullptr)
+    slots_s = listed_scan<K_SPH, 4>(tile, red, sph_list, T.sph, T.s_stride,
+                                    0, row, active, r, t_cap, t_best, pid);
+  else
+    dense_class<K_SPH, 4>(tile, T.sph, T.s_stride, T.n_sph, 0, active, r,
+                          t_best, pid);
+  dense_class<K_BOX, 6>(tile, T.box, T.b_stride, T.n_box, T.n_sph, active, r,
+                        t_best, pid);
+  if (tri_list.ids != nullptr)
+    slots_t = listed_scan<K_TRI, 9>(tile, red, tri_list, T.tri, T.t_stride,
+                                    T.n_sph + T.n_box, row, active, r, t_cap,
+                                    t_best, pid);
+  else
+    dense_class<K_TRI, 9>(tile, T.tri, T.t_stride, T.n_tri,
+                          T.n_sph + T.n_box, active, r, t_best, pid);
+  if (work != nullptr && threadIdx.x == 0) {
+    work[2 * row] = slots_s;
+    work[2 * row + 1] = slots_t;
+  }
+  if (i < n) {
+    t_out[i] = active ? t_best : kInf;
+    pid_out[i] = active && t_best < kInf ? pid : -1;
+  }
+}
+
 Tables make_tables(const float* sph, int n_sph, int s_stride,
                    const float* box, int n_box, int b_stride,
                    const float* tri, int n_tri, int t_stride) {
@@ -346,5 +519,38 @@ extern "C" int rt_nearest_hit_dense(const float* sph, int n_sph, int s_stride,
   const long long grid = (n + kBlock - 1) / kBlock;
   nh_dense_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
       T, org, dir, n, n_live, t_out, pid_out);
+  return (int)cudaGetLastError();
+}
+
+// B6. The sphere and triangle tables are padded to whole (super)tiles, the
+// sphere padding poisoned (ccmr = +inf); a null ids pointer scans that class
+// dense. The lists have at least ceil(n / 128) rows and a multiple of 16
+// columns. `work` may be null; else it receives the list slots each block
+// streamed, [rows, 2] (spheres, triangles).
+extern "C" int rt_nearest_hit_listed(
+    const float* sph, int n_sph, int s_stride, const float* box, int n_box,
+    int b_stride, const float* tri, int n_tri, int t_stride,
+    const float* org, const float* dir, long long n, const int* n_live,
+    const float* bbox, const int* sph_ids, const float* sph_tlo, int s_cols,
+    int sph_fan, const int* tri_ids, const float* tri_tlo, int t_cols,
+    int tri_fan, float* t_out, int* pid_out, int* work, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  const Tables T = make_tables(sph, n_sph, s_stride, box, n_box, b_stride,
+                               tri, n_tri, t_stride);
+  List ls, lt;
+  ls.ids = sph_ids;
+  ls.tlo = sph_tlo;
+  ls.cols = s_cols;
+  ls.fan = sph_fan;
+  lt.ids = tri_ids;
+  lt.tlo = tri_tlo;
+  lt.cols = t_cols;
+  lt.fan = tri_fan;
+  const long long grid = (n + kBlock - 1) / kBlock;
+  nh_listed_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
+      T, org, dir, n, n_live, bbox, ls, lt, t_out, pid_out, work);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,12 @@ to the lowest pid — the contract of ``ops/trace.nearest_hit_brute``.
   kernel, with the sphere test in its factored form and ``n_live``: rows at
   or past ``n_live`` report a miss.
 
-Both kernels live in ``csrc/nearest_hit.cu``. Each has a plain PyTorch
+- :func:`nearest_hit_pallas` with ``tile_ids``/``tri_tile_ids`` (B6,
+  ``nh_listed_kernel``) — the listed search of the TILED sweep rounds: each
+  128-ray block streams its own list of 128-prim (super)tiles in ascending
+  entry bound and stops early (:func:`nearest_hit_listed_plain`).
+
+The kernels live in ``csrc/nearest_hit.cu``. Each has a plain PyTorch
 version (``*_plain``) with the kernel's expressions in the kernel's order,
 written out elementwise (never a matmul: TF32 or another summation order
 would move near-miss discriminants, the phantom-hit class). The plain
@@ -36,12 +41,17 @@ Tensor = torch.Tensor
 
 #: kernel launches per kernel since the last reset (the plain versions and
 #: the empty cases answered on the host do not count)
-LAUNCHES = {"scalar": 0, "dense": 0}
+LAUNCHES = {"scalar": 0, "dense": 0, "listed": 0}
 
 #: the reference sends scenes of 1..SCALAR_MAX_PRIMS prims to B3
 SCALAR_MAX_PRIMS = 384
 #: elements of one [rays, prims] temporary in a plain version
 PLAIN_CHUNK_ELEMS = 1 << 25
+#: B6: rays per list row (one CUDA block), prims per listed tile, and list
+#: slots streamed between early-exit checks
+BLOCK_R = 128
+BLOCK_K = 128
+CHUNK_T = 16
 
 _INF = math.inf
 _SLAB_EPS = 1e-12
@@ -318,31 +328,300 @@ def nearest_hit_pallas_scalar(scene: Scene, org: Tensor,
     return launch_scalar(pack_tables(scene), org, dir)
 
 
+# ---------------------------------------------------------------------------
+# B6: the listed search
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ListedInputs:
+    """What B6 and its plain version read: the tables, spheres and
+    triangles padded to whole (super)tiles (padded spheres poisoned with
+    ``ccmr = +inf``, padded triangles all-zero: neither can be hit), the
+    lists ([rows, cols] ids i32 / t_lo f32, rows >= ceil(N / BLOCK_R), cols
+    a CHUNK_T multiple; None scans that class dense) and the scene-bbox row
+    [8] (lo xyz, hi xyz, 0, 0)."""
+
+    tabs: HitTables
+    sph_list: Optional[Tuple[Tensor, Tensor]]
+    tri_list: Optional[Tuple[Tensor, Tensor]]
+    sph_fan: int
+    tri_fan: int
+    bbox: Tensor
+
+
+def _prep_list(pair, n: int) -> Tuple[Tensor, Tensor]:
+    """The reference's list padding: rows to a multiple of 8, columns to a
+    CHUNK_T multiple (id 0, t_lo +inf)."""
+    ids, tlo = pair
+    if ids.shape[0] * BLOCK_R < n:
+        raise ValueError(f"{ids.shape[0]} list rows cover fewer than {n} "
+                         f"rays")
+    ids = ids.to(torch.int32)
+    tlo = tlo.to(torch.float32)
+    rpad = -(-ids.shape[0] // 8) * 8 - ids.shape[0]
+    cpad = -(-ids.shape[1] // CHUNK_T) * CHUNK_T - ids.shape[1]
+    ids = torch.nn.functional.pad(ids, (0, cpad, 0, rpad))
+    tlo = torch.nn.functional.pad(tlo, (0, cpad, 0, rpad), value=_INF)
+    return ids.contiguous(), tlo.contiguous()
+
+
+def listed_inputs(scene: Scene, n: int, tile_ids=None, tri_tile_ids=None,
+                  sph_fan: int = 1, tri_fan: int = 1) -> ListedInputs:
+    from ..models.scene import prim_aabbs
+
+    tabs = pack_tables(scene)
+
+    def padded(tab, count, fan, poison_row):
+        width = -(-max(count, 1) // (BLOCK_K * fan)) * (BLOCK_K * fan)
+        out = torch.zeros((tab.shape[0], width), dtype=torch.float32,
+                          device=tab.device)
+        out[:, :count] = tab[:, :count]
+        if poison_row is not None:
+            out[poison_row, count:] = _INF
+        return out
+
+    tabs = dataclasses.replace(
+        tabs, sph=padded(tabs.sph, tabs.n_sph, sph_fan, 3),
+        tri=padded(tabs.tri, tabs.n_tri, tri_fan, None))
+    lo, hi = prim_aabbs(scene)
+    bbox = torch.cat([lo.min(dim=0).values, hi.max(dim=0).values,
+                      torch.zeros(2, device=lo.device)]).contiguous()
+    return ListedInputs(
+        tabs=tabs,
+        sph_list=None if tile_ids is None else _prep_list(tile_ids, n),
+        tri_list=None if tri_tile_ids is None else _prep_list(tri_tile_ids,
+                                                              n),
+        sph_fan=int(sph_fan), tri_fan=int(tri_fan), bbox=bbox)
+
+
+def _block_rays(r: _Rays, g: int) -> _Rays:
+    """[g * BLOCK_R, 1] ray columns -> [g, BLOCK_R, 1]."""
+    return _Rays(*(getattr(r, f.name).reshape(g, BLOCK_R, 1)
+                   for f in dataclasses.fields(_Rays)))
+
+
+def _fold(t: Tensor, pids: Tensor, active: Tensor, t_best: Tensor,
+          pid: Tensor):
+    """Fold a [..., L] block of tests, in stream order, into the running
+    minimum: the first minimum of the block, then the kernel's strict <."""
+    t_c, k_c = t.min(dim=-1)
+    upd = active & (t_c < t_best)
+    return (torch.where(upd, t_c, t_best),
+            torch.where(upd, pids.expand(t.shape).gather(
+                -1, k_c[..., None])[..., 0], pid))
+
+
+def _dense_plain(r: _Rays, tab: Tensor, count: int, pid0: int, test,
+                 active, t_best, pid):
+    """B4's scan of one class, prims [0, count), in chunks of prims."""
+    step = max(1, PLAIN_CHUNK_ELEMS // max(active.numel(), 1))
+    for k0 in range(0, count, step):
+        k1 = min(count, k0 + step)
+        pids = torch.arange(pid0 + k0, pid0 + k1, device=tab.device)
+        t_best, pid = _fold(test(r, tab[:, k0:k1]), pids, active, t_best,
+                            pid)
+    return t_best, pid
+
+
+def _listed_plain(r: _Rays, ids: Tensor, tlo: Tensor, fan: int, tab: Tensor,
+                  pid0: int, test, active, t_cap, t_best, pid, slots):
+    """Stream each block's list (the kernel's ``listed_scan``); ``slots``
+    [g] counts the list slots each block streamed."""
+    g, cols = ids.shape
+    dev = ids.device
+    lane = torch.arange(BLOCK_K, device=dev)
+    spread = torch.arange(fan, device=dev)
+
+    def horizon(bi):
+        return torch.where(active[bi], torch.minimum(t_best[bi], t_cap[bi]),
+                           -_INF).max(dim=1).values
+
+    every = torch.arange(g, device=dev)
+    open_ = (cols > 0) & (tlo[:, 0] <= horizon(every))
+    j = 0
+    while bool(open_.any()):
+        bi = torch.nonzero(open_).flatten()
+        tiles = (ids[bi, j:j + CHUNK_T, None] * fan + spread).reshape(
+            bi.shape[0], -1)
+        prims = (tiles[:, :, None] * BLOCK_K + lane).reshape(
+            bi.shape[0], 1, -1)                              # [b, 1, L]
+        rb = _Rays(*(getattr(r, f.name)[bi] for f in dataclasses.fields(_Rays)))
+        t = test(rb, tab[:, prims])                          # [b, R, L]
+        t_best[bi], pid[bi] = _fold(t, pid0 + prims, active[bi], t_best[bi],
+                                    pid[bi])
+        slots[bi] += CHUNK_T
+        j += CHUNK_T
+        open_[bi] = ((j < cols) & (tlo[bi, min(j, cols - 1)]
+                                   <= horizon(bi)))
+    return t_best, pid
+
+
+def nearest_hit_listed_plain(scene: Scene, org: Tensor, dir: Tensor,
+                             n_live=None, tile_ids=None, tri_tile_ids=None,
+                             sph_fan: int = 1, tri_fan: int = 1,
+                             work: bool = False, inputs=None):
+    """Plain version of B6 -> (t [N], pid [N]) (+ ``slots`` [rows, 2], the
+    list slots each block streamed per listed class, when ``work``).
+
+    Block b = rays [128 b, 128 b + 128) streams list row b: spheres (listed
+    or dense), boxes (dense), triangles (listed or dense), each prim folded
+    with a strict ``<`` in stream order, so a t tie goes to the prim
+    streamed first. A listed class stops once the next chunk's t_lo exceeds
+    the block's horizon, the largest over its rays of min(t_best,
+    bbox-exit cap). Rows at or past ``n_live`` report (+inf, -1) and take
+    no part in the horizon (the reference computes them and lets its caller
+    mask them). ``inputs`` is a prebuilt :func:`listed_inputs`.
+    """
+    n = org.shape[0]
+    dev = org.device
+    li = inputs or listed_inputs(scene, n, tile_ids, tri_tile_ids, sph_fan,
+                                 tri_fan)
+    tabs = li.tabs
+    live = n if n_live is None else min(int(n_live), n)
+    n_blk = -(-n // BLOCK_R)
+    rows = max(n_blk, 1)
+    for lst in (li.sph_list, li.tri_list):
+        if lst is not None:
+            rows = lst[0].shape[0]
+    slots = torch.zeros((rows, 2), dtype=torch.int32, device=dev)
+    t_out = torch.full((n,), _INF, dtype=torch.float32, device=dev)
+    pid_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    live_blk = -(-live // BLOCK_R)
+    widest = max(BLOCK_K * CHUNK_T * max(li.sph_fan, li.tri_fan),
+                 tabs.n_box, 1)
+    per = max(1, PLAIN_CHUNK_ELEMS // (BLOCK_R * widest))
+    lo_x, lo_y, lo_z, hi_x, hi_y, hi_z = (li.bbox[k] for k in range(6))
+    for b0 in range(0, live_blk, per):
+        b1 = min(live_blk, b0 + per)
+        g = b1 - b0
+        r0, r1 = b0 * BLOCK_R, min(b1 * BLOCK_R, n)
+        o = torch.zeros((g * BLOCK_R, 3), dtype=torch.float32, device=dev)
+        d = torch.ones((g * BLOCK_R, 3), dtype=torch.float32, device=dev)
+        o[:r1 - r0] = org[r0:r1]
+        d[:r1 - r0] = dir[r0:r1]
+        r = _block_rays(_rays(o, d), g)
+        row = torch.arange(r0, r0 + g * BLOCK_R, device=dev).reshape(g, -1)
+        active = row < live
+        ex = [torch.maximum((lo - oc[..., 0]) * ic[..., 0],
+                            (hi - oc[..., 0]) * ic[..., 0])
+              for lo, hi, oc, ic in ((lo_x, hi_x, r.ox, r.ix),
+                                     (lo_y, hi_y, r.oy, r.iy),
+                                     (lo_z, hi_z, r.oz, r.iz))]
+        t_exit = torch.minimum(torch.minimum(ex[0], ex[1]), ex[2])
+        t_cap = torch.clamp(t_exit, min=0.0) * (1.0 + 1e-4) + 1e-3
+        t_best = torch.full((g, BLOCK_R), _INF, dtype=torch.float32,
+                            device=dev)
+        pid = torch.full((g, BLOCK_R), -1, dtype=torch.int64, device=dev)
+        s = torch.zeros((g, 2), dtype=torch.int32, device=dev)
+        classes = ((li.sph_list, li.sph_fan, tabs.sph, tabs.n_sph, 0,
+                    _sphere_dense),
+                   (None, 1, tabs.box, tabs.n_box, tabs.n_sph, _box),
+                   (li.tri_list, li.tri_fan, tabs.tri, tabs.n_tri,
+                    tabs.n_sph + tabs.n_box, _tri))
+        for k, (lst, fan, tab, count, pid0, test) in enumerate(classes):
+            if lst is None:
+                t_best, pid = _dense_plain(r, tab, count, pid0, test, active,
+                                           t_best, pid)
+            else:
+                t_best, pid = _listed_plain(
+                    r, lst[0][b0:b1].long(), lst[1][b0:b1], fan, tab, pid0,
+                    test, active, t_cap, t_best, pid, s[:, k // 2])
+        slots[b0:b1] = s
+        t_best = torch.where(active, t_best, _INF).reshape(-1)[:r1 - r0]
+        t_out[r0:r1] = t_best
+        pid_out[r0:r1] = torch.where(t_best < _INF, pid.reshape(-1)[:r1 - r0],
+                                     -1).to(torch.int32)
+    return (t_out, pid_out, slots) if work else (t_out, pid_out)
+
+
+def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
+                  n_live: Optional[Tensor] = None, work: bool = False):
+    """Launch B6 on the current stream -> (t [N], pid [N]) (+ ``slots``
+    when ``work``); ``n_live`` is a [1] int32 device tensor (None: every
+    row), so the count never syncs to the host. Does not synchronize."""
+    dev = org.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
+                         f"{dev}")
+    n = org.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    tabs = li.tabs
+    args = []
+    for name, tab, rows, count in (("sphere table", tabs.sph, 4, tabs.n_sph),
+                                   ("box table", tabs.box, 6, tabs.n_box),
+                                   ("triangle table", tabs.tri, 9,
+                                    tabs.n_tri)):
+        _build.need(tab, name, f32, (rows, tab.shape[1]), dev)
+        args += [_build.ptr(tab), count, tab.shape[1]]
+    _build.need(org, "org", f32, (n, 3), dev)
+    _build.need(dir, "dir", f32, (n, 3), dev)
+    _build.need(li.bbox, "bbox", f32, (8,), dev)
+    n_blk = -(-n // BLOCK_R)
+    list_args = []
+    rows = n_blk
+    for name, lst, fan in (("sphere list", li.sph_list, li.sph_fan),
+                           ("triangle list", li.tri_list, li.tri_fan)):
+        if lst is None:
+            list_args += [None, None, 0, 1]
+            continue
+        ids, tlo = lst
+        if ids.shape[0] < n_blk or ids.shape[1] % CHUNK_T:
+            raise ValueError(f"{name} has shape {tuple(ids.shape)}")
+        _build.need(ids, f"{name} ids", i32, tuple(ids.shape), dev)
+        _build.need(tlo, f"{name} t_lo", f32, tuple(ids.shape), dev)
+        list_args += [_build.ptr(ids), _build.ptr(tlo), ids.shape[1], fan]
+        rows = ids.shape[0]
+    t = torch.full((n,), _INF, dtype=f32, device=dev)
+    pid = torch.full((n,), -1, dtype=i32, device=dev)
+    slots = torch.zeros((rows, 2), dtype=i32, device=dev) if work else None
+    if n == 0:
+        return (t, pid, slots) if work else (t, pid)
+    if n_live is None:
+        n_live = torch.full((1,), n, dtype=i32, device=dev)
+    _build.need(n_live, "n_live", i32, (1,), dev)
+    lib = _build.load()
+    err = lib.rt_nearest_hit_listed(
+        *args, _build.ptr(org), _build.ptr(dir), n, _build.ptr(n_live),
+        _build.ptr(li.bbox), *list_args, _build.ptr(t), _build.ptr(pid),
+        _build.ptr(slots), dev.index, _build.stream(dev))
+    _build.check(lib, err, "nh_listed_kernel")
+    LAUNCHES["listed"] += 1
+    return (t, pid, slots) if work else (t, pid)
+
+
 def nearest_hit_pallas(scene: Scene, org: Tensor, dir: Tensor,
                        n_live: Union[int, Tensor, None] = None,
                        tile_bounds: Optional[Tensor] = None,
                        tile_ids=None, tri_tile_ids=None, sph_fan: int = 1,
                        tri_fan: int = 1) -> Tuple[Tensor, Tensor]:
-    """B4: dense nearest hit -> (t [N], pid [N]), the drop-in for
-    ``ops/trace.nearest_hit_brute``. ``n_live`` (an int or a scalar tensor)
-    declares that only the first ``n_live`` rays matter: rows at or past it
-    report (+inf, -1). CUDA tensors launch the kernel; CPU tensors run the
-    plain version.
+    """Nearest hit -> (t [N], pid [N]), the drop-in for
+    ``ops/trace.nearest_hit_brute``: B4 (dense), or B6 (listed) when
+    ``tile_ids = (ids [B, T] i32, tlo [B, T] f32)`` or ``tri_tile_ids``
+    is given (see :func:`nearest_hit_listed_plain`; the spheres or
+    triangles must be in the tile order the ids index, ``B >= ceil(N /
+    128)``, and each list row sorted by a conservative t_lo; ``sph_fan``/
+    ``tri_fan`` make the ids supertiles of ``fan`` consecutive 128-prim
+    tiles). ``n_live`` (an int or a scalar tensor) declares that only the
+    first ``n_live`` rays matter: rows at or past it report (+inf, -1).
+    CUDA tensors launch the kernel; CPU tensors run the plain version.
 
-    The cone-culled (``tile_bounds``) and listed (``tile_ids``,
-    ``tri_tile_ids``, fans) variants are not ported yet.
+    The cone-culled variant (``tile_bounds``, kernel B8) is not ported yet.
     """
     if tile_bounds is not None:
         raise NotImplementedError("the cone-culled nearest-hit kernel is not "
                                   "ported yet (ROADMAP B8)")
-    if (tile_ids is not None or tri_tile_ids is not None or sph_fan != 1
-            or tri_fan != 1):
-        raise NotImplementedError("the listed nearest-hit kernel is not "
-                                  "ported yet (ROADMAP B6)")
-    if _build.on_cpu(org.device):
-        return nearest_hit_pallas_plain(scene, org, dir, n_live=n_live)
+    on_cpu = _build.on_cpu(org.device)
     nl = None
-    if n_live is not None:
+    if n_live is not None and not on_cpu:
         nl = torch.as_tensor(n_live, device=org.device).reshape(1).to(
             torch.int32)
+    if tile_ids is not None or tri_tile_ids is not None:
+        if on_cpu:
+            return nearest_hit_listed_plain(scene, org, dir, n_live, tile_ids,
+                                            tri_tile_ids, sph_fan, tri_fan)
+        li = listed_inputs(scene, org.shape[0], tile_ids, tri_tile_ids,
+                           sph_fan, tri_fan)
+        return launch_listed(li, org, dir, n_live=nl)
+    if on_cpu:
+        return nearest_hit_pallas_plain(scene, org, dir, n_live=n_live)
     return launch_dense(pack_tables(scene), org, dir, n_live=nl)

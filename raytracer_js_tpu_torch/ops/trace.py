@@ -278,10 +278,12 @@ def sky_color(scene: Scene, dir: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
-            bounce: int, prows: Optional[PrimRows],
+            bounce, prows: Optional[PrimRows],
             pid_override: Optional[Tensor] = None) -> RayState:
     """One wavefront pass: traverse -> intersect -> shade -> respawn.
 
+    ``bounce`` is the RNG stream's bounce index: an int, or a per-ray [N]
+    tensor (the TILED sweep rounds mix rays of several bounces).
     ``pid_override`` [N] supplies the winner per ray (-1 = miss) in place of
     the nearest-hit search: the path-replay mode."""
     alive = state.status == int(RayStatus.ALIVE)

@@ -6,9 +6,10 @@ Port of ``raytracer_js_tpu.render``: one wavefront of ``h*w`` rays per frame
 backend runs the headline frame through the frame kernel; arbitrary
 wavefronts go through the wavefront kernel; scenes outside the fused class
 (BOTH materials, image textures, a cube-map sky) take the BRUTE loop. The
-PALLAS backend runs the wavefront loop with kernels B3/B4 as its search;
-TILED requests on scenes of at most ``TILED_MIN_PRIMS`` prims, and on BOTH
-scenes, go to PALLAS. This is the reference's dispatch.
+PALLAS backend runs the wavefront loop with kernels B3/B4 as its search.
+TILED renders through ``render_tiled`` (kernels B7 and B6); TILED requests
+on scenes of at most ``TILED_MIN_PRIMS`` prims without cached tables, and
+on BOTH scenes, go to PALLAS. This is the reference's dispatch.
 """
 from __future__ import annotations
 
@@ -25,13 +26,13 @@ from .ops import trace as trace_mod
 
 Tensor = torch.Tensor
 
-#: TILED requests on scenes of at most this many prims (and on BOTH
-#: scenes) render on the PALLAS wavefront path, as in the reference
+#: TILED requests on scenes of at most this many prims without cached
+#: tables (and on BOTH scenes) render on the PALLAS wavefront path, as in
+#: the reference
 TILED_MIN_PRIMS = 2048
 
 _NOT_PORTED = {
     HitBackend.OCTREE: "ROADMAP A11",
-    HitBackend.TILED: "ROADMAP A12, kernels B6/B7",
 }
 
 
@@ -114,13 +115,24 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
 
 
 def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
-               seed: Optional[int] = None) -> Tensor:
+               seed: Optional[int] = None, accel=None,
+               tables=None) -> Tensor:
     """Full-frame HDR render -> [h, w, 3] float32 (linear, pre-tone-map),
-    on the scene's device."""
+    on the scene's device.
+
+    ``tables`` — cached TILED candidate tables
+    (``render_tiled.frame_tables(scene, camera)``); without them TILED
+    builds them on the host per call. ``accel`` (the octree) is not ported
+    and raises.
+    """
     from .kernels import trace_fused
 
+    if accel is not None:
+        raise NotImplementedError("the octree accel= is not ported yet "
+                                  "(ROADMAP A11)")
     if cfg.backend == HitBackend.TILED and (
-            scene.n_prims <= TILED_MIN_PRIMS or scene.has_both):
+            (scene.n_prims <= TILED_MIN_PRIMS and tables is None)
+            or scene.has_both):
         # small scenes render faster on the whole-table wavefront path, and
         # the tiled kernels have no BOTH branch
         cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
@@ -130,6 +142,21 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
             f"({_NOT_PORTED[cfg.backend]})")
     if seed is None:
         seed = sampling.DEFAULT_SEED
+    if cfg.backend == HitBackend.TILED:
+        from . import render_tiled as rtl
+
+        if tables is None:
+            tables = rtl.frame_tables(scene, camera)
+        # image scenes: a solid-search record pass + one flat replay shading
+        frame = (rtl.render_frame_tiled_replay_shaded
+                 if scene.textures.has_images or scene.sky_box is not None
+                 else rtl.render_frame_tiled)
+
+        def one_tiled(s):
+            return frame(scene, cfg, camera, tables=tables, seed=seed,
+                         sample=s)
+
+        return _average(one_tiled, cfg.spp, _stochastic(scene, cfg))
     if cfg.backend == HitBackend.FUSED and trace_fused.supports_frame(scene):
         # headline path: rays are generated inside the kernel
         refuse_grad(scene, camera.pos, camera.front, camera.left, camera.up)

@@ -1,0 +1,587 @@
+"""Big-scene frame renderer: the TILED backend in sweep mode.
+
+Port of ``raytracer_js_tpu.render_tiled`` for scenes of at most
+``SWEEP_MAX_PRIMS`` primitives (BASELINE configs 4 and 5):
+
+* bounce 0 — kernel B7 (``kernels/trace_tiled.frame_bounce0``) builds the
+  rays from the camera and scans per-tile candidate tables
+  (``accel/candidates.frame_candidates``, host-built once per camera pose);
+* bounces >= 1 — sweep rounds (:func:`_rescue_round`): the still-working
+  rays are sorted by (position cell, direction bin) and compacted to the
+  front, each 128-ray block gets a conservative list of Morton-ordered
+  128-sphere (and 128-triangle) tiles (:func:`_block_tile_select`), kernel
+  B6 (``kernels/nearest_hit``, listed) finds the winners, and
+  ``ops/trace._bounce`` shades and respawns with ``pid_override``.
+
+The terminal semantics (EXHAUST blackout, light-hit inverse-square
+attenuation) are applied at the end (:func:`_epilogue`). Image textures,
+image and cube-map skies (:func:`_apply_images`), rough scatter and
+refraction (:func:`_respawn_glue`) ride the glue between the kernels.
+
+What raises, naming its ROADMAP item: packet mode (scenes above
+``SWEEP_MAX_PRIMS``, kernel B7-wave), the octree ``accel=`` and the in-kernel
+cone cull ``SWEEP_CULL`` (kernel B8). The reference's ``RT_*`` environment
+knobs are module constants here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .accel import candidates as cand
+from .config import JS_EPSILON, HitBackend, RayStatus, RenderConfig
+from .kernels import trace_tiled as tt
+from .models import textures as tex_mod
+from .models.scene import Scene
+from .ops import sampling
+
+Tensor = torch.Tensor
+
+#: scenes at or below this primitive count run sweep rounds for bounces
+#: >= 1; above it the reference runs packet rounds (not ported)
+SWEEP_MAX_PRIMS = 1048576
+#: the compacted live prefix one sweep round processes; overflow live rays
+#: take another round
+SWEEP_SLICE = 655360
+#: listed id-table width cap: classes with more 128-prim tiles get a
+#: supertile fan
+LISTED_MAX_TILES = 2048
+#: the in-kernel cone cull (kernel B8, rejected as the reference's default)
+SWEEP_CULL = False
+#: a class is listed only with at least this many (super)tiles: below it
+#: the per-chunk exits cost more than the dense stream saves
+LISTED_MIN_TILES = 64
+
+#: internal status marking rays at the bounce cap, so the shading pass
+#: leaves them alone without losing their ALIVE-ness
+_CAP = 7
+_ALIVE = int(RayStatus.ALIVE)
+_MISS = int(RayStatus.MISS)
+_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "cr", "cg", "cb", "path",
+          "status")
+
+
+def frame_tables(scene: Scene, cam):
+    """Host-side bounce-0 candidate tables (cache them across frames while
+    the camera pose and the geometry are unchanged) -> ``(tab, cnts, c_max,
+    grid)``; ``grid``, the packet rounds' cell grid, is None until packet
+    mode is ported."""
+    tab, cnts, c_max = cand.frame_candidates(scene, cam, tt.TILE_SUB,
+                                             tt.LANE)
+    return tab, cnts, c_max, None
+
+
+def _dir_bin(d: Tensor) -> Tensor:
+    """Coarse direction bin (4 levels per axis, 64 bins)."""
+    q = torch.clamp(((d + 1.0) * 2.0).to(torch.int32), 0, 3)
+    return (q[:, 0] * 4 + q[:, 1]) * 4 + q[:, 2]
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _spread3(x: Tensor) -> Tensor:
+    """Spread the low 8 bits of x so consecutive bits land 3 apart (uint32
+    arithmetic in int64 holders masked to 32 bits)."""
+    x = x.to(torch.int64) & 0xFF
+    x = ((x * 0x00010001) & _MASK32) & 0xFF0000FF
+    x = ((x * 0x00000101) & _MASK32) & 0x0F00F00F
+    x = ((x * 0x00000011) & _MASK32) & 0xC30C30C3
+    x = ((x * 0x00000005) & _MASK32) & 0x49249249
+    return x
+
+
+def _median(x: Tensor) -> Tensor:
+    """The reference's ``jnp.median``: the mean of the two middle values
+    ((lo + hi) * 0.5) on an even count."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def _robust_extent(scene: Scene):
+    """(lo, hi) of the SMALL-primitive population (huge straddlers like the
+    ground box are left out: they would flatten every quantization)."""
+    centers, radii = cand.bounding_spheres(scene)
+    med = (_median(radii) if radii.shape[0]
+           else torch.tensor(1.0, device=scene.device))
+    small = radii <= 8.0 * med + 1e-12
+    big = 1e30
+    lo = torch.where(small[:, None], centers - radii[:, None], big).min(
+        dim=0).values
+    hi = torch.where(small[:, None], centers + radii[:, None], -big).max(
+        dim=0).values
+    return lo, hi
+
+
+def _morton_key(scene: Scene, org: Tensor, bits: int = 8) -> Tensor:
+    """Morton code of positions over the robust extent -> i32."""
+    lo, hi = _robust_extent(scene)
+    rel = (org - lo) / torch.clamp(hi - lo, min=1e-20)
+    q = torch.clamp((rel * (1 << bits)).to(torch.int32), 0, (1 << bits) - 1)
+    code = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
+            | (_spread3(q[:, 2]) << 2))
+    return code.to(torch.int32)
+
+
+def _pos_cell(scene: Scene, org: Tensor, grid: int = 16) -> Tensor:
+    """Binning cell over the small-primitive population bounds."""
+    lo, hi = _robust_extent(scene)
+    rel = (org - lo) / torch.clamp(hi - lo, min=1e-20)
+    q = torch.clamp((rel * grid).to(torch.int32), 0, grid - 1)
+    return (q[:, 0] * grid + q[:, 1]) * grid + q[:, 2]
+
+
+def _apply_images(scene: Scene, colors, dirs, status, prev_alive, pid, u, v):
+    """Image-texture and (image or cube-map) sky modulation for one bounce:
+    the kernel leaves image-textured winners at identity and skips the sky
+    when the scene has images or a sky box; this samples the atlas for
+    image-kind winners and applies the sky to rays that MISSed this
+    bounce. ``colors`` [n, 3]; the masks [n]."""
+    from .ops.trace import sky_color
+
+    hit = pid >= 0
+    pid_c = torch.clamp(pid.long(), 0, max(scene.n_prims - 1, 0))
+    tex_id = scene.prim_texture[pid_c]
+    kind = scene.textures.kind[torch.clamp(
+        tex_id.long(), 0, scene.textures.kind.shape[0] - 1)]
+    is_img = hit & tex_mod.is_image_kind(kind)
+    smp = tex_mod.sample(scene.textures, tex_id, u, v)
+    colors = torch.where(is_img[:, None], colors * smp, colors)
+    newly_miss = prev_alive & (status == _MISS)
+    return torch.where(newly_miss[:, None], colors * sky_color(scene, dirs),
+                       colors)
+
+
+def _respawn_glue(scene: Scene, seed, rid, bounce, refr, org, dirs, status,
+                  pid, t, nrm):
+    """Rough-scatter and transmission continuations for one bounce, as
+    ``ops/trace._bounce`` does them: the kernel reflects mirror winners and
+    leaves transmission winners (mode 3) untouched. Rough mirror winners get
+    the counter-RNG scatter (same (seed, rid, bounce) streams as every
+    backend), re-advancing the origin; transmission winners advance along
+    the old direction, query the innermost containing substance and refract
+    (Snell + TIR). ``nrm`` is the flipped winner normal. Returns ``(org,
+    dirs, refr)``."""
+    from .config import EPS_ADVANCE, ResponseType
+    from .ops.trace import substance_refr_at
+    from .ops.vecmath import refract
+
+    alive = status == _ALIVE
+    cont = alive & (pid >= 0)
+    pid_c = torch.clamp(pid.long(), 0, max(scene.n_prims - 1, 0))
+    mat_id = scene.prim_material[pid_c].long()
+    mat = scene.materials
+    resp = mat.response[mat_id]
+    if scene.has_rough:
+        rough = mat.roughness[mat_id]
+        m_r = (cont & (resp == int(ResponseType.REFLECTION))
+               & mat.mirror[mat_id] & (rough > 0.0))
+        # invert the kernel's eps-advance to recover the hit point
+        hit = org - EPS_ADVANCE * dirs
+        scat = sampling.scatter_direction(seed, rid, bounce, dirs, nrm, rough)
+        dirs = torch.where(m_r[:, None], scat, dirs)
+        org = torch.where(m_r[:, None], hit + EPS_ADVANCE * scat, org)
+    if scene.has_transmission:
+        is_t = cont & (resp == int(ResponseType.TRANSMISSION))
+        hit = org + t[:, None] * dirs
+        adv = hit + EPS_ADVANCE * dirs
+        target, do_refract = substance_refr_at(scene, adv, refr)
+        eta = refr / torch.clamp(target, min=1e-6)
+        refr_dir, _tir = refract(dirs, nrm, eta)
+        new_dir = torch.where(do_refract[:, None], refr_dir, dirs)
+        new_refr = torch.where(do_refract, target, refr)
+        dirs = torch.where(is_t[:, None], new_dir, dirs)
+        org = torch.where(is_t[:, None], adv, org)
+        refr = torch.where(is_t, new_refr, refr)
+    return org, dirs, refr
+
+
+def _block_tile_select(org: Tensor, dirs: Tensor, working: Tensor,
+                       tb: Tensor):
+    """Per-ray-block conservative tile selection for B6 -> (ids [B, T] i32
+    in ascending t_lo order, tlo [B, T] f32, +inf on excluded slots).
+
+    Blocks are consecutive 128-ray runs of the (cell, direction)-sorted
+    slice; each gets an apex ball (o0, ro) over its WORKING rays and a
+    direction cone (axis = mean direction, cos_t = worst alignment), and a
+    Morton tile is included iff the ball-cone can reach its bounding sphere
+    (the identity of ``accel/candidates.cone_include_np``), so the cull is
+    exact. The sort is stable (the reference's ``argsort``), so equal t_lo
+    keep tile order: a t tie across tiles goes to the first tile streamed.
+    """
+    from .kernels.nearest_hit import BLOCK_R
+
+    n = org.shape[0]
+    assert n % BLOCK_R == 0, (n, BLOCK_R)
+    nb = n // BLOCK_R
+
+    def norm(v):
+        return torch.sqrt((v * v).sum(-1))
+
+    o = org.reshape(nb, BLOCK_R, 3)
+    d = dirs.reshape(nb, BLOCK_R, 3)
+    m = working.reshape(nb, BLOCK_R, 1).to(org.dtype)
+    cnt_live = torch.clamp(m.sum(dim=1), min=1.0)             # [B, 1]
+    o0 = (o * m).sum(dim=1) / cnt_live                        # [B, 3]
+    ro = torch.sqrt(torch.max(((o - o0[:, None]) ** 2).sum(-1) * m[..., 0],
+                              dim=1).values)                  # [B]
+    ax = (d * m).sum(dim=1)
+    ax = ax / torch.clamp(norm(ax)[:, None], min=1e-20)
+    d_n = d / torch.clamp(norm(d)[..., None], min=1e-20)
+    cos_t = torch.where(m[..., 0] > 0, (d_n * ax[:, None]).sum(-1),
+                        1.0).min(dim=1).values
+    use_cone = cos_t >= 0.25
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t ** 2, min=0.0))
+    v = tb[None, :, :3] - o0[:, None, :]                      # [B, T, 3]
+    dist = norm(v)
+    rr = tb[None, :, 3] + ro[:, None]
+    inside = dist <= rr * (1.0 + 1e-5) + 1e-7
+    sin_a = torch.clamp(rr / torch.clamp(dist, min=1e-20), max=1.0)
+    cos_a = torch.sqrt(torch.clamp(1.0 - sin_a ** 2, min=0.0))
+    cos_b = (v * ax[:, None]).sum(-1) / torch.clamp(dist, min=1e-20)
+    include = (inside
+               | (cos_b >= cos_a * cos_t[:, None] - sin_a * sin_t[:, None]
+                  - 1e-5)
+               | ~use_cone[:, None])
+    # conservative per-(block, tile) entry distance, the sort key
+    t_lo = torch.where(include, torch.clamp(dist - rr, min=0.0), torch.inf)
+    tlo_sorted, order = torch.sort(t_lo, dim=1, stable=True)
+    return order.to(torch.int32), tlo_sorted
+
+
+def _sweep_perm(scene: Scene):
+    """Morton-permuted prim tables plus per-(super)tile bounds for the
+    listed search -> (scene_view, sph, tri), each class entry ``(perm [n]
+    i32, tb [T, 4] f32, fan)`` or None; None when no class takes part.
+
+    Only the geometry is permuted: winners map back to global ids before
+    shading, so id-indexed tables stay as they are. A class takes part with
+    at least 4 * BLOCK_K primitives.
+    """
+    from .kernels.nearest_hit import BLOCK_K
+
+    def class_fan(n):
+        # coarsen the listed granularity until the id table fits
+        # LISTED_MAX_TILES (super)tiles
+        fan = 1
+        while -(-(-(-n // BLOCK_K)) // fan) > LISTED_MAX_TILES:
+            fan *= 2
+        return fan
+
+    def norm(v):
+        return torch.sqrt((v * v).sum(-1))
+
+    def tile_bounds(c_p, r_p, fan):
+        blk = BLOCK_K * fan
+        n = c_p.shape[0]
+        t = -(-n // blk)
+        pad = t * blk - n
+        cp = torch.cat([c_p, c_p[-1:].expand(pad, 3)]) if pad else c_p
+        rp = torch.cat([r_p, r_p.new_zeros(pad)]) if pad else r_p
+        cpt = cp.reshape(t, blk, 3)
+        rpt = rp.reshape(t, blk)
+        tc = 0.5 * (cpt.min(dim=1).values + cpt.max(dim=1).values)
+        tr = torch.max(norm(cpt - tc[:, None]) + rpt, dim=1).values
+        return torch.cat([tc, tr[:, None]], dim=1)
+
+    scene_p = scene
+    sph = tri = None
+    if scene.n_spheres >= 4 * BLOCK_K:
+        code = _morton_key(scene, scene.sphere_center, bits=8)
+        perm = torch.argsort(code, stable=True).to(torch.int32)
+        c_p = scene.sphere_center[perm.long()]
+        r_p = scene.sphere_radius[perm.long()]
+        scene_p = dataclasses.replace(scene_p, sphere_center=c_p,
+                                      sphere_radius=r_p)
+        fan = class_fan(scene.n_spheres)
+        sph = (perm, tile_bounds(c_p, r_p, fan), fan)
+    if scene.n_tris >= 4 * BLOCK_K:
+        cent = (scene.tri_v0 + scene.tri_v1 + scene.tri_v2) / 3.0
+        code = _morton_key(scene, cent, bits=8)
+        perm = torch.argsort(code, stable=True).to(torch.int32)
+        pl = perm.long()
+        v0, v1, v2 = scene.tri_v0[pl], scene.tri_v1[pl], scene.tri_v2[pl]
+        scene_p = dataclasses.replace(scene_p, tri_v0=v0, tri_v1=v1,
+                                      tri_v2=v2)
+        c_p = cent[pl]
+        r_p = torch.maximum(torch.maximum(norm(v0 - c_p), norm(v1 - c_p)),
+                            norm(v2 - c_p))
+        fan = class_fan(scene.n_tris)
+        tri = (perm, tile_bounds(c_p, r_p, fan), fan)
+    if sph is None and tri is None:
+        return None
+    return scene_p, sph, tri
+
+
+def _epilogue(cr, cg, cb, path, status, atten: float):
+    """EXHAUST blackout and the light-hit inverse-square law."""
+    exhausted = status == _ALIVE
+    status = torch.where(exhausted, int(RayStatus.EXHAUST), status)
+    pa = path * atten
+    isl = 1.0 / (JS_EPSILON + pa * pa)
+    lit = status == int(RayStatus.LIGHT)
+    scale = torch.where(exhausted, 0.0, torch.where(lit, isl, 1.0))
+    return cr * scale, cg * scale, cb * scale, status
+
+
+def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
+                  rid, prows, cap: int, sweep_tab=None, rec=None):
+    """One sweep round: sort the still-working rays to the front in
+    (position cell, direction bin) order, search the first ``cap`` of them
+(B6 listed per 128-ray block for each class of ``sweep_tab``, the
+    :func:`_sweep_perm` tables, with ``LISTED_MIN_TILES`` tiles; B4
+    whole-table otherwise), shade and respawn through ``ops/trace._bounce``
+    with ``pid_override``, and scatter the state back. Each round fully resolves up to ``cap`` working rays (hit,
+    miss or continuation).
+
+    ``flat`` holds the 11 state columns [n]; ``bounce``/``refr`` [n];
+    ``rec`` ([n, refmax] i32, -1-initialized) switches on path recording:
+    each resolved ray's winner is written at its bounce column. Returns the
+    updated ``(flat, bounce, refr, rec)``.
+    """
+    from .kernels.nearest_hit import nearest_hit_pallas
+    from .ops.trace import RayState, _bounce
+
+    n = flat[0].shape[0]
+    cap = min(cap, n)
+    working = (flat[10] == _ALIVE) & (bounce < cfg.refmax)
+    if not bool(working.any()):
+        return flat, bounce, refr, rec
+    org_a = torch.stack(flat[0:3], -1)
+    dir_a = torch.stack(flat[3:6], -1)
+    key = (_pos_cell(scene, org_a) * 64 + _dir_bin(dir_a)).to(torch.int32)
+    key = torch.where(working, key, 1 << 30)
+    perm = torch.sort(key, stable=True).indices
+    flat_s = [f[perm] for f in flat]
+    bounce_s, refr_s = bounce[perm], refr[perm]
+    rid_s = rid[perm] if rid is not None else None
+    rec_s = rec[perm] if rec is not None else None
+    sl = [f[:cap] for f in flat_s]
+    org = torch.stack(sl[0:3], -1)
+    dirs = torch.stack(sl[3:6], -1)
+    # working rays are the sorted prefix: the search skips every block
+    # past them
+    nl = torch.clamp(working.sum(), max=cap).to(torch.int32)
+    work_sl = (sl[10] == _ALIVE) & (bounce_s[:cap] < cfg.refmax)
+    if sweep_tab is not None:
+        scene_s, sph_e, tri_e = sweep_tab
+        kw = {}
+        if sph_e is not None and sph_e[1].shape[0] >= LISTED_MIN_TILES:
+            kw["tile_ids"] = _block_tile_select(org, dirs, work_sl, sph_e[1])
+            kw["sph_fan"] = sph_e[2]
+        if tri_e is not None and tri_e[1].shape[0] >= LISTED_MIN_TILES:
+            kw["tri_tile_ids"] = _block_tile_select(org, dirs, work_sl,
+                                                    tri_e[1])
+            kw["tri_fan"] = tri_e[2]
+        _t, pid = nearest_hit_pallas(scene_s, org, dirs, n_live=nl, **kw)
+        # winners map back from permuted-class to global ids
+        pid = pid.long()
+        if sph_e is not None:
+            loc = torch.clamp(pid, 0, max(scene.n_spheres - 1, 0))
+            pid = torch.where((pid >= 0) & (pid < scene.n_spheres),
+                              sph_e[0].long()[loc], pid)
+        if tri_e is not None:
+            b_end = scene.n_spheres + scene.n_boxes
+            loc = torch.clamp(pid - b_end, 0, max(scene.n_tris - 1, 0))
+            pid = torch.where(pid >= b_end, b_end + tri_e[0].long()[loc],
+                              pid)
+    else:
+        _t, pid = nearest_hit_pallas(scene, org, dirs, n_live=nl)
+    pid = torch.where(work_sl, pid, -1).to(torch.int32)
+    st = RayState(org=org, dir=dirs, color=torch.stack(sl[6:9], -1),
+                  path=sl[9], refr=refr_s[:cap],
+                  status=torch.where(work_sl, _ALIVE, torch.where(
+                      sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
+    rng = (seed, rid_s[:cap]) if scene.has_rough else None
+    out = _bounce(scene, cfg, st, rng, bounce_s[:cap], prows,
+                  pid_override=pid)
+    cont = work_sl & (out.status == _ALIVE)
+    status_out = torch.where(out.status == _CAP, _ALIVE, out.status).to(
+        torch.int32)
+    new_sl = [out.org[:, 0], out.org[:, 1], out.org[:, 2], out.dir[:, 0],
+              out.dir[:, 1], out.dir[:, 2], out.color[:, 0], out.color[:, 1],
+              out.color[:, 2], out.path, status_out]
+    # scatter back: position k of the sorted order is ray perm[k]
+    flat_n = []
+    for a, f in zip(new_sl, flat_s):
+        g = torch.empty_like(f)
+        g[perm] = torch.cat([a.to(f.dtype), f[cap:]])
+        flat_n.append(g)
+    bounce_n = torch.empty_like(bounce)
+    bounce_n[perm] = torch.cat([bounce_s[:cap] + cont.to(bounce.dtype),
+                                bounce_s[cap:]])
+    refr_n = torch.empty_like(refr)
+    refr_n[perm] = torch.cat([out.refr, refr_s[cap:]])
+    if rec is not None:
+        # a working slice ray records its winner (-1 = resolved miss) at its
+        # current bounce column
+        upd = (work_sl[:, None] & (bounce_s[:cap, None] == torch.arange(
+            cfg.refmax, device=rec.device)))
+        head = torch.where(upd, pid[:, None], rec_s[:cap])
+        rec_n = torch.empty_like(rec)
+        rec_n[perm] = torch.cat([head, rec_s[cap:]])
+        rec = rec_n
+    return flat_n, bounce_n, refr_n, rec
+
+
+def _check_ported(scene: Scene, cfg: RenderConfig, accel) -> None:
+    if accel is not None:
+        raise NotImplementedError("the octree accel= is not ported yet "
+                                  "(ROADMAP A11)")
+    if SWEEP_CULL:
+        raise NotImplementedError("the in-kernel cone cull SWEEP_CULL "
+                                  "(kernel B8) is not ported yet (ROADMAP B8)")
+    if cfg.refmax > 1 and scene.n_prims > SWEEP_MAX_PRIMS:
+        raise NotImplementedError(
+            f"TILED packet mode (scenes above SWEEP_MAX_PRIMS = "
+            f"{SWEEP_MAX_PRIMS} prims, kernel B7-wave) is not ported yet "
+            f"(ROADMAP A14)")
+
+
+def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
+                       seed: Optional[int] = None, sample: int = 0,
+                       accel=None, with_diag: bool = False,
+                       with_record: bool = False):
+    """Full-frame HDR render via the tiled kernels -> [h, w, 3].
+
+    Bounce 0 runs kernel B7 over the exact (untruncated) frustum candidate
+    tables; later bounces run sweep rounds (:func:`_rescue_round`) until no
+    ray is working, at most ``(refmax + 3) * ceil(n / SWEEP_SLICE)``.
+    ``with_diag`` adds ``{"unresolved": rays still working when the rounds
+    ran out (0 == the frame is exact), "rounds": sweep rounds run}``;
+    ``with_record`` adds ``pid_seq [h*w, refmax]`` i32, the winner of every
+    pixel ray per bounce (-1 = miss), which ``ops/trace.trace_rays``
+    replays (``pid_seq=``). Return orders: img | (img, diag) | (img, rec) |
+    (img, diag, rec).
+
+    ``tables`` — an optional cached :func:`frame_tables` result (or its
+    first three entries). ``seed``/``sample`` key the counter-RNG streams of
+    rough scenes (rid = (y*w + x)*spp + sample, as every backend).
+    """
+    from .render import start_substance
+
+    _check_ported(scene, cfg, accel)
+    if seed is None:
+        seed = sampling.DEFAULT_SEED
+    if tables is None:
+        tables = frame_tables(scene, cam)
+    tab, cnts, c_max = tables[:3]
+    dev = scene.device
+    need_glue = scene.has_rough or scene.has_transmission
+    st = tt.frame_bounce0(scene, cam, tab, cnts, c_max)
+    hp, wp = st["cr"].shape
+    n = hp * wp
+    xi = torch.arange(wp, device=dev).repeat(hp)
+    yi = torch.arange(hp, device=dev).repeat_interleave(wp)
+    valid = (xi < cam.w) & (yi < cam.h)
+    flat = {k: v.reshape(-1) for k, v in st.items()}
+    if need_glue:
+        rid = torch.where(valid, (yi * cam.w + xi) * cfg.spp + sample,
+                          0).to(torch.int32)
+        refr = start_substance(scene, cam.pos).expand(n).contiguous()
+    else:
+        rid = None
+        refr = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if scene.textures.has_images or scene.sky_box is not None:
+        # padding pixels started MISS; everything else was ALIVE
+        colors = _apply_images(
+            scene, torch.stack([flat["cr"], flat["cg"], flat["cb"]], -1),
+            torch.stack([flat["dx"], flat["dy"], flat["dz"]], -1),
+            flat["status"], valid, flat["pid"], flat["u"], flat["v"])
+        flat.update(cr=colors[:, 0], cg=colors[:, 1], cb=colors[:, 2])
+    if need_glue:
+        # bounce-0 scatter and refraction continuations (bounce index 0)
+        org0, dir0, refr = _respawn_glue(
+            scene, seed, rid, torch.zeros_like(rid), refr,
+            torch.stack([flat["ox"], flat["oy"], flat["oz"]], -1),
+            torch.stack([flat["dx"], flat["dy"], flat["dz"]], -1),
+            flat["status"], flat["pid"], flat["t"],
+            torch.stack([flat["nx"], flat["ny"], flat["nz"]], -1))
+        flat.update(ox=org0[:, 0], oy=org0[:, 1], oz=org0[:, 2],
+                    dx=dir0[:, 0], dy=dir0[:, 1], dz=dir0[:, 2])
+
+    cols = [flat[k] for k in _NAMES]
+    unresolved = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = 0
+    rec = None
+    if with_record:
+        rec = torch.full((n, cfg.refmax), -1, dtype=torch.int32, device=dev)
+        rec[:, 0] = torch.where(valid, flat["pid"], -1)
+    if cfg.refmax > 1:
+        from .ops.trace import prim_rows
+
+        # rays continuing out of bounce 0 have spent one bounce
+        bounce = (cols[10] == _ALIVE).to(torch.int32)
+        sw_cap = min(n, SWEEP_SLICE)
+        sw_rounds = (cfg.refmax + 3) * (-(-n // sw_cap))
+        sweep_tab = _sweep_perm(scene)
+        prows = prim_rows(scene)
+        while rounds < sw_rounds and bool(
+                ((cols[10] == _ALIVE) & (bounce < cfg.refmax)).any()):
+            cols, bounce, refr, rec = _rescue_round(
+                scene, cfg, cols, bounce, refr, seed, rid, prows,
+                cap=sw_cap, sweep_tab=sweep_tab, rec=rec)
+            rounds += 1
+        unresolved = ((cols[10] == _ALIVE) & (bounce < cfg.refmax)).sum().to(
+            torch.int32)
+    cr, cg, cb, _ = _epilogue(cols[6], cols[7], cols[8], cols[9], cols[10],
+                              float(cfg.distance_attenuation_factor))
+    img = torch.stack([cr, cg, cb], -1).reshape(hp, wp, 3)[:cam.h, :cam.w]
+    return _rtl_outs(img, unresolved, rec, cam, hp, wp, cfg, with_diag,
+                     with_record, rounds=rounds)
+
+
+def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
+                                     tables=None, seed: Optional[int] = None,
+                                     sample: int = 0, accel=None,
+                                     with_diag: bool = False):
+    """Image-scene TILED frame = a record pass on the texture-solidified
+    twin of the scene + one flat replay-shading pass -> [h, w, 3].
+
+    The search and the respawn never read texture colors, so the TILED
+    search runs on the twin with ``with_record=True`` and the real scene is
+    shaded once with ``ops/trace.trace_rays(pid_seq=rec)``: the same
+    winners, RNG streams (seed, rid, bounce), substance chains and paths.
+    """
+    from .models.camera import pixel_rays
+    from .ops.trace import trace_rays
+    from .render import start_substance
+
+    tex = scene.textures
+    twin = dataclasses.replace(
+        scene, textures=dataclasses.replace(
+            tex, kind=torch.zeros_like(tex.kind), has_images=False,
+            has_bilinear=False), sky_box=None)
+    out = render_frame_tiled(twin, cfg, cam, tables=tables, seed=seed,
+                             sample=sample, accel=accel, with_diag=with_diag,
+                             with_record=True)
+    diag, rec = (out[1], out[2]) if with_diag else (None, out[1])
+    org, dirs = pixel_rays(cam)
+    n = org.shape[0]
+    rid = torch.arange(n, dtype=torch.int32, device=org.device) * cfg.spp \
+        + sample
+    refr0 = start_substance(scene, cam.pos).expand(n)
+    st = trace_rays(scene, dataclasses.replace(cfg, backend=HitBackend.BRUTE),
+                    org, dirs,
+                    sampling.DEFAULT_SEED if seed is None else seed, rid,
+                    start_refr=refr0, pid_seq=rec)
+    img = st.color.reshape(cam.h, cam.w, 3)
+    return (img, diag) if with_diag else img
+
+
+def _rtl_outs(img, unresolved, rec, cam, hp, wp, cfg, with_diag,
+              with_record, rounds=None):
+    """Assemble render_frame_tiled's return tuple (img | +diag | +rec)."""
+    outs = (img,)
+    if with_diag:
+        diag = {"unresolved": unresolved}
+        if rounds is not None:
+            diag["rounds"] = rounds
+        outs = outs + (diag,)
+    if with_record:
+        rec = rec.reshape(hp, wp, cfg.refmax)[:cam.h, :cam.w]
+        outs = outs + (rec.reshape(-1, cfg.refmax),)
+    return outs if len(outs) > 1 else img

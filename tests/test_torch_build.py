@@ -36,7 +36,8 @@ def _ctype(param: str):
 def test_sources_are_every_cu_file():
     assert sorted(p.name for p in _build.SOURCES) == ["nearest_hit.cu",
                                                       "replay_grad.cu",
-                                                      "trace_fused.cu"]
+                                                      "trace_fused.cu",
+                                                      "trace_tiled.cu"]
 
 
 def test_signatures_match_the_c_entries():

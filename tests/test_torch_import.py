@@ -65,8 +65,8 @@ def test_imports_and_renders_with_jax_and_flax_blocked():
     assert out.returncode == 0, out.stderr
     assert "rendered" in out.stdout
     # CPU tensors take the plain versions: no kernel was launched
-    assert ("{'frame': 0, 'rays': 0} {'scalar': 0, 'dense': 0} "
-            "{'fwd': 0, 'bwd': 0}") in out.stdout
+    assert ("{'frame': 0, 'rays': 0} {'scalar': 0, 'dense': 0, "
+            "'listed': 0} {'fwd': 0, 'bwd': 0}") in out.stdout
 
 
 def test_no_module_imports_jax_or_flax():

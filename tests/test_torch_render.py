@@ -108,9 +108,11 @@ def _many_spheres(n):
 
 @pytest.mark.parametrize("backend", ["PALLAS", "OCTREE", "TILED"])
 def test_unported_backends_raise(backend):
-    """What each backend does not port yet raises, naming its ROADMAP item:
-    PALLAS's culled and listed kernel variants, OCTREE, and TILED on scenes
-    above ``TILED_MIN_PRIMS`` (smaller ones render on PALLAS)."""
+    """What each backend does not port yet raises, naming its ROADMAP item
+    (PALLAS's cone-culled kernel variant B8, OCTREE), and what was ported
+    since runs: PALLAS's listed variant (B6) and TILED on scenes above
+    ``TILED_MIN_PRIMS`` (kernels B7 and B6; smaller ones render on
+    PALLAS)."""
     from raytracer_js_tpu_torch.kernels import nearest_hit as nh
     from raytracer_js_tpu_torch.render import TILED_MIN_PRIMS
 
@@ -121,15 +123,20 @@ def test_unported_backends_raise(backend):
         org, d = torch.zeros((2, 3)), torch.ones((2, 3))
         with pytest.raises(NotImplementedError, match="ROADMAP B8"):
             nh.nearest_hit_pallas(ps, org, d, tile_bounds=torch.zeros(1, 4))
-        with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-            nh.nearest_hit_pallas(ps, org, d, tile_ids=(org, org))
+        ids = (torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1)))
+        assert all(torch.equal(a, b) for a, b in zip(
+            nh.nearest_hit_pallas(ps, org, d, tile_ids=ids),
+            nh.nearest_hit_pallas_plain(ps, org, d)))
     elif backend == "OCTREE":
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             rt.render_hdr(ps, pc, cfg)
     else:
         big = _many_spheres(TILED_MIN_PRIMS + 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            rt.render_hdr(big, pc, cfg)
+        img = rt.render_hdr(big, pc, cfg)
+        pallas = rt.render_hdr(big, pc, rt.RenderConfig(
+            refmax=2, backend=rt.HitBackend.PALLAS))
+        assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+        torch.testing.assert_close(img, pallas, rtol=1e-5, atol=1e-6)
 
 
 def test_render_hdr_pallas_config1():
