@@ -44,6 +44,20 @@ Phases, one JSON line each:
                 the 600-sphere field listed per 128-ray block; (b) config
                 3's mesh, triangles listed; (c) a supertile fan of 4; (d)
                 n_live < N.
+ 6d. B7-wave  — the tiled wavefront kernel against its plain version, every
+                plane bit for bit (and the chunks each exit group scanned),
+                on packetized wavefronts with their packet tables: (a)
+                config 4's first packet round (from 9c); (b) rowwise tables
+                on the 600-sphere field; (c) truncated cell-grid tables
+                (finite t_safe: unresolved rays pass through unchanged);
+                (d) the rough + glass scene (normal planes); (e) config 3's
+                image scene (uv planes); (f) one-row packets (wave_sub 1).
+ 6e. B8       — the cone-culled nearest-hit kernel against its plain version
+                (t, pid and the sphere tiles each block streamed, bit for
+                bit) and against B4 on the same rays and Morton-permuted
+                scene: (a) the 600-sphere field; (b) config 4's first sweep
+                round with n_live < N (from 9d); (c) incoherent blocks
+                (cos_t < 0.25 keeps every tile).
   7. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
                 STDDEV tone map -> PNG, plus ``render_rays`` FUSED over the
                 same camera's rays, with the launch counters reset first.
@@ -67,11 +81,25 @@ Phases, one JSON line each:
                 slice and lists, against their plain versions; and the frame
                 against ``render_hdr`` PALLAS under the parity rule, at most
                 ``C4_MAX_ROUNDING_FRAC`` of its pixels proven as rounding.
+ 9c. main-packet — ``render_hdr`` TILED in packet mode, counters reset
+                first: B7 once, B7-wave once per live segment per packet
+                round, B4 in rescue rounds only, ``unresolved`` 0. (a)
+                config 4 with ``render_tiled.SWEEP_MAX_PRIMS = 0``, held
+                against the 9b sweep frame at the reference's packet
+                tolerance (rtol 1e-4, atol 1e-5, < 0.2% of pixels), every
+                differing winner a proven flip or grazing hit; (b) the
+                1.1M-sphere slab (packet mode by the default threshold),
+                held against PALLAS on 65,536 sampled pixels.
+ 9d. main-cull — config 4 with ``SWEEP_LISTED = False`` and ``SWEEP_CULL =
+                True``: B8 once per sweep round, the frame equal to 9b's
+                but for proven flips.
  10. times    — CUDA-event medians of each kernel and its plain version at
                 the main paths' shapes, ``render_hdr`` end to end, and the
                 gradient path: a replay step for one view, an 8-view fit
                 step and an 8-view recording; config 4's TILED frame, B7,
-                B6 per sweep round, and its PALLAS frame. Then each
+                B6 per sweep round, and its PALLAS frame; the packet frames
+                (config 4, 1.1M) with B7-wave summed over their rounds, the
+                cull frame and B8 per round, the host tables. Then each
                 kernel's bound: the larger of its tests' operations over
                 67 TFLOP/s (float32) and its bytes in and out over
                 3.35 TB/s, counted from this run's inputs (``OPS``).
@@ -101,6 +129,7 @@ import raytracer_js_tpu_torch as rt
 from raytracer_js_tpu_torch import (HitBackend, RenderConfig, ResponseType,
                                     SceneBuilder, ToneMapConfig,
                                     ToneMapperKind, make_camera)
+from raytracer_js_tpu_torch.accel import candidates as cand
 from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
@@ -128,6 +157,14 @@ C4_W, C4_H = 1920, 1088
 #: small far spheres undetermined by about 1e-3; 0.31% of the frame on an
 #: H100 80GB HBM3 (700 W)
 C4_MAX_ROUNDING_FRAC = 0.005
+#: case (b) of the packet phase: config 4's slab with 1,099,998 spheres, past
+#: the sweep threshold, held against PALLAS on this many sampled pixels
+C4B_PRIMS = 1_100_000
+C4B_SAMPLES = 65536
+#: its cap on the rounding-proven share: the share grows with the sphere
+#: silhouettes a pixel sees, and the slab holds 11 times config 4's spheres
+C4B_MAX_ROUNDING_FRAC = 0.03
+SWEEP_MAX_PRIMS = rtl.SWEEP_MAX_PRIMS
 WARMUP, TIMED = 3, 20
 KERNEL_SOURCE = "raytracer_js_tpu_torch/csrc/trace_fused.cu"
 NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
@@ -628,6 +665,127 @@ def compare_listed(name, scene_s, org, dir, n_live=None, **lists):
     return rep, li, k_slots
 
 
+def compare_wave(name, scene, cols, tab, cnts, c_max, static_bases=None,
+                 wave_sub=tt.WAVE_SUB):
+    """B7-wave against its plain version on one packetized wavefront, both
+    on the card: every plane bit for bit and the chunks each exit group
+    scanned; -> report."""
+    k = tt.launch_wave(scene, cols, tab, cnts, c_max, wave_sub, static_bases,
+                       work=True)
+    t0 = time.perf_counter()
+    p = tt.wave_bounce_plain(scene, cols, tab, cnts, c_max, wave_sub,
+                             static_bases, work=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    differ = [n for n in p if not torch.equal(bits(k[n]), bits(p[n]))]
+    err = max(float(torch.where(torch.isfinite(p[n]), (k[n] - p[n]).abs(),
+                                0.0).max())
+              for n in p if p[n].dtype == torch.float32)
+    st_in, st_out = cols[10].reshape(-1), k["status"].reshape(-1)
+    unres = (st_in == 0) & (st_out == 0) & (k["pid"].reshape(-1) < 0)
+    t_safe = cnts[:, 3]
+    rep = dict(rays=cols[0].numel(), packets=cnts.shape[0], c_max=c_max,
+               wave_sub=wave_sub, group_rows=tt.group_rows(wave_sub),
+               static_bases=list(static_bases or []), prims=scene.n_prims,
+               alive_in=int((st_in == 0).sum()),
+               resolved_hits=int((k["pid"] >= 0).sum()),
+               unresolved=int(unres.sum()),
+               finite_t_safe_packets=int(torch.isfinite(t_safe).sum()),
+               planes=len(p) - 1, differ=differ, max_abs_err=err,
+               chunks_scanned=int(k["chunks"].sum()), plain_seconds=plain_s,
+               **tt._flags(scene))
+    emit(phase="B7-wave", case=name, **rep)
+    check(not differ, f"B7-wave {name}: {rep}")
+    return rep
+
+
+def packet_tables(scene, cols, wave_sub, c_sel=None, c_max=None):
+    """The packet tables of a wavefront: the cell grid's (budget
+    ``c_sel``) or, with ``c_max``, the rowwise selection -> (tab, cnts,
+    c_max, static bases)."""
+    org = torch.stack([c.reshape(-1) for c in cols[0:3]], -1)
+    dirs = torch.stack([c.reshape(-1) for c in cols[3:6]], -1)
+    alive = cols[10].reshape(-1) == 0
+    packet = wave_sub * tt.LANE
+    if c_max is not None:
+        tab, cnts, _ = cand.packet_candidates(scene, org, dirs, alive, packet,
+                                              c_max)
+        return tab, cnts, c_max, None
+    grid = cand.build_cell_grid(scene, c_sel=c_sel)
+    tab, cnts, _ = cand.packet_candidates_grid(scene, grid, org, dirs, alive,
+                                               packet)
+    return tab, cnts, grid.c_max, grid.base[1:]
+
+
+def camera_wavefront(cam, seed=2):
+    """Primary rays of a camera 128 pixels wide as [rows, 128] state
+    planes, a few terminated and a few at the bounce cap (status 7)."""
+    org, d = pixel_rays(cam)
+    n = org.shape[0]
+    rng = np.random.default_rng(seed)
+    status = np.where(rng.uniform(size=n) < 0.05, 2, 0).astype(np.int32)
+    status[rng.uniform(size=n) < 0.02] = 7
+    dev = org.device
+    col = torch.as_tensor(rng.uniform(0.2, 1.0, (n, 3)).astype(np.float32),
+                          device=dev)
+    path = torch.as_tensor(rng.uniform(0.0, 2.0, n).astype(np.float32),
+                           device=dev)
+    planes = ([org[:, k] for k in range(3)] + [d[:, k] for k in range(3)]
+              + [col[:, k] for k in range(3)]
+              + [path, torch.as_tensor(status, device=dev)])
+    return [x.reshape(-1, tt.LANE).contiguous() for x in planes]
+
+
+def bounce1_wavefront(scene, cam):
+    """The wavefront after B7's bounce 0 of a frame (mirror continuations
+    alive), as [rows, 128] state planes."""
+    tab, cnts, c_max = rtl.frame_tables(scene, cam)[:3]
+    st = tt.frame_bounce0(scene, cam, tab, cnts, c_max)
+    return [st[k].reshape(-1, tt.LANE).contiguous()
+            for k in tt.STATE_NAMES[:11]]
+
+
+def compare_culled(name, scene_s, org, dir, tb, n_live=None):
+    """B8 against its plain version (t, pid and the sphere tiles each block
+    streamed, bit for bit) and against B4 on the same rays and permuted
+    scene (equal but for proven flips: the cull is exact), all on the
+    card; -> (report, tiles)."""
+    n = org.shape[0]
+    tabs = nh.pack_tables(scene_s)
+    nl = (None if n_live is None else
+          torch.tensor([n_live], dtype=torch.int32, device=org.device))
+    k_t, k_pid, k_tiles = nh.launch_culled(tabs, org, dir, tb, n_live=nl,
+                                           work=True)
+    t0 = time.perf_counter()
+    p_t, p_pid, p_tiles = nh.nearest_hit_culled_plain(scene_s, org, dir, tb,
+                                                      n_live, work=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    d_t, d_pid = nh.launch_dense(tabs, org, dir, n_live=nl)
+    torch.cuda.synchronize()
+    exact = (torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
+             and torch.equal(k_tiles, p_tiles))
+    vs_b4 = parity.compare_hits(scene_s, org, dir, k_t, k_pid, d_t, d_pid)
+    live = n if n_live is None else min(n_live, n)
+    live_blk = -(-live // nh.BLOCK_R)
+    n_t = -(-scene_s.n_spheres // nh.BLOCK_K)
+    rep = dict(rays=n, n_live=live, prims=scene_s.n_prims, sphere_tiles=n_t,
+               tiles_streamed=int(k_tiles.sum()),
+               mean_tiles_per_live_block=float(
+                   k_tiles[:live_blk].float().mean()) if live else 0.0,
+               blocks_keeping_all=int((k_tiles[:live_blk] == n_t).sum()),
+               bit_exact=exact, plain_seconds=plain_s,
+               max_abs_err=float(torch.where(torch.isfinite(p_t),
+                                             (k_t - p_t).abs(), 0.0).max()),
+               vs_b4=vs_b4)
+    emit(phase="B8", case=name, **rep)
+    check(exact and vs_b4["ok"], f"B8 {name}: {rep}")
+    check(bool(torch.isinf(k_t[live:]).all())
+          and bool((k_pid[live:] == -1).all()),
+          f"B8 {name}: rows past n_live are not misses")
+    return rep, k_tiles
+
+
 #: float operations per intersection test, counted from the kernels'
 #: expressions (one each for an add, multiply, compare, min/max, select,
 #: sqrt or divide), the running-minimum fold included. The bounds count
@@ -716,7 +874,8 @@ def reset_launches() -> None:
 
 def launches_now() -> dict:
     return {**tf.LAUNCHES, **nh.LAUNCHES, **rg.LAUNCHES,
-            "tiled_frame": tt.LAUNCHES["frame"]}
+            "tiled_frame": tt.LAUNCHES["frame"],
+            "tiled_wave": tt.LAUNCHES["wave"]}
 
 
 def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
@@ -942,6 +1101,45 @@ def main() -> int:
     b6.append(compare_listed("d_n_live", sw_field[0], o512, d512,
                              n_live=n_half, tile_ids=ids_field)[0])
 
+    # ---- 6d. B7-wave against its plain version -----------------------------
+    b7w = []
+    cols = camera_wavefront(make_camera((0.0, 0.0, 0.5), 128, 64, np.pi / 2,
+                                        np.pi / 4, device=dev))
+    b7w.append(compare_wave("b_rowwise_near_miss_600", field, cols,
+                            *packet_tables(field, cols, 8, c_max=256)))
+    b7w.append(compare_wave("c_truncated_grid", lfield, cols,
+                            *packet_tables(lfield, cols, 8, c_sel=64)))
+    check(b7w[-1]["finite_t_safe_packets"] > 0 and b7w[-1]["unresolved"] > 0,
+          "B7-wave (c) left no ray unresolved")
+    cols = bounce1_wavefront(rough, make_camera((0.0, 0.0, 0.5), 200, 90,
+                                                1.4, 0.9, device=dev))
+    b7w.append(compare_wave("d_rough_glass_normals", rough, cols,
+                            *packet_tables(rough, cols, 8, c_sel=4096)))
+    cols = bounce1_wavefront(c3, make_camera((0.05, -0.1, 0.45), 131, 67,
+                                             1.45, 1.2, device=dev))
+    b7w.append(compare_wave("e_image_uv_config3", c3, cols,
+                            *packet_tables(c3, cols, 8, c_sel=4096)))
+    cols = bounce1_wavefront(field, cam512)
+    b7w.append(compare_wave("f_wave_sub_1", field, cols,
+                            *packet_tables(field, cols, 1, c_sel=256),
+                            wave_sub=1))
+    check(b7w[2]["want_normal"] and b7w[2]["has_trans"] and b7w[3]["want_uv"]
+          and b7w[0]["static_bases"] == [] and b7w[1]["static_bases"],
+          "B7-wave cases miss the normal or uv planes or a table layout")
+
+    # ---- 6e. B8 against its plain version and B4 ---------------------------
+    tb_field = sw_field[1][1]
+    b8 = [compare_culled("a_near_miss_600", sw_field[0], o512, d512,
+                         tb_field)[0]]
+    o_in, d_in = random_rays(4096, seed=9, device=dev)
+    b8.append(compare_culled("c_incoherent_blocks", sw_field[0], o_in,
+                             d_in / d_in.norm(dim=1, keepdim=True),
+                             tb_field)[0])
+    check(b8[0]["tiles_streamed"] < b8[0]["sphere_tiles"] * (
+        o512.shape[0] // nh.BLOCK_R), "B8 (a) culled no tile")
+    check(b8[1]["blocks_keeping_all"] == o_in.shape[0] // nh.BLOCK_R,
+          "B8 (c): an incoherent block culled a tile")
+
     # ---- 7. the main path -----------------------------------------------------
     reset_launches()
     t0 = time.perf_counter()
@@ -1000,7 +1198,7 @@ def main() -> int:
     # an off-grid camera (no equirect texel boundary on a pixel center)
     small = (0.0, 0.0, 0.5), 40, 32, 1.5, 1.4
     small_dev = rt.render_hdr(c3, make_camera(*small, device=dev), cfg_c3)
-    c3_cpu, small_cam = c3.to("cpu"), make_camera(*small)
+    c3_cpu, small_cam = c3.to("cpu"), make_camera(*small, device="cpu")
     small_cpu = rt.render_hdr(c3_cpu, small_cam, cfg_c3)
     zeros = torch.zeros(small_cpu.shape[:2], dtype=torch.int32)
     small_rep = parity.compare(
@@ -1109,7 +1307,8 @@ def main() -> int:
                              for c in small_cams])
     fc_small = FitConfig(steps=3, lr=1e-2, replay_every=2)
     r_dev = fit(start, cfg_rep, small_cams, small_tgt, fc_small)
-    r_cpu = fit(start.to("cpu"), cfg_rep, fit_cameras(64, 48, n=2),
+    r_cpu = fit(start.to("cpu"), cfg_rep, fit_cameras(64, 48, n=2,
+                                                     device="cpu"),
                 small_tgt.cpu(), fc_small)
     emit(phase="main-fit", case="small_card_vs_cpu_plain",
          losses_card=r_dev.losses, losses_cpu=r_cpu.losses)
@@ -1212,6 +1411,197 @@ def main() -> int:
          rounding_frac=vs_pallas["rounding"] / vs_pallas["pixels"],
          max_rounding_frac=C4_MAX_ROUNDING_FRAC, **vs_pallas)
     check(vs_pallas["ok"], f"config 4 TILED differs from PALLAS: {vs_pallas}")
+
+    # ---- 9c. main-packet: config 4 and 1.1M prims through B7-wave ----------
+    t0 = time.perf_counter()
+    cand.build_cell_grid(c4)
+    grid4_s = time.perf_counter() - t0
+    waves = []          # every packet round's wavefront, kept for 6d (a)
+    real_wave = tt.wave_bounce
+
+    def keep_wave(scene, cols, tab, cnts, c_max, **kw):
+        waves.append((scene, [c.clone() for c in cols], tab, cnts, c_max, kw))
+        return real_wave(scene, cols, tab, cnts, c_max, **kw)
+
+    def packet_frame(scene, cam, tables):
+        """The main path (render_hdr TILED, counters reset first), then the
+        same frame with its diagnostics, recording and wavefronts."""
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hdr = rt.render_hdr(scene, cam, cfg_c4, tables=tables)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = launches_now()
+        waves.clear()
+        tt.wave_bounce = keep_wave
+        try:
+            img, diag, rec = rtl.render_frame_tiled(
+                scene, cfg_c4, cam, tables=tables, with_diag=True,
+                with_record=True)
+            torch.cuda.synchronize()
+        finally:
+            tt.wave_bounce = real_wave
+        check(launched["tiled_frame"] == 1 and launched["tiled_wave"] >= 1
+              and launched["listed"] == 0 and launched["culled"] == 0
+              and launched["scalar"] == 0, f"packet mode did not run B7 "
+              f"once and B7-wave: {launched}")
+        check(launched["dense"] == diag["rounds"], "packet mode: rescue "
+              "rounds and B4 launches disagree")
+        check(launched["tiled_wave"] == len(waves), "packet mode: B7-wave "
+              "launches differ between two runs of the frame")
+        check(int(diag["unresolved"]) == 0, "packet mode left rays "
+              "unresolved")
+        check(torch.equal(img, hdr) and bool(torch.isfinite(hdr).all())
+              and tuple(hdr.shape) == (cam.h, cam.w, 3),
+              "bad packet-mode frame")
+        return hdr, rec, diag, launched, secs, list(waves)
+
+    rtl.SWEEP_MAX_PRIMS = 0
+    try:
+        hdr_pa, rec_pa, diag_pa, launches_pa, pa_s, waves_a = packet_frame(
+            c4, c4_cam, tables4)
+    finally:
+        rtl.SWEEP_MAX_PRIMS = SWEEP_MAX_PRIMS
+    # (a) against the sweep frame of 9b at the reference's packet tolerance;
+    # every pixel whose winners differ is a proven flip or a grazing sphere
+    # hit whose t float32 leaves undetermined (B7-wave takes the unit-d
+    # quadratic, B6 the a-weighted one)
+    org1 = torch.stack([crop(k4[c]) for c in ("ox", "oy", "oz")], -1)
+    dir1 = torch.stack([crop(k4[c]) for c in ("dx", "dy", "dz")], -1)
+    rec_pa_t = {"pid": rec_pa.T.contiguous(), "org": torch.stack([org4,
+                                                                  org1]),
+                "dir": torch.stack([dir4, dir1])}
+    flips_pa = parity.flip_prover(c4, rec_pa_t, rec4.T)
+    graze_pa = [parity.grazing_prover(c4, org1, dir1),
+                parity.grazing_prover(c4, org1, dir1, pid=rec_pa[:, 1]),
+                parity.grazing_prover(c4, org1, dir1, pid=rec4[:, 1])]
+    diff_win = torch.nonzero((rec_pa != rec4).any(dim=1)).flatten()
+    proven = (flips_pa(diff_win) | graze_pa[0](diff_win)
+              | graze_pa[1](diff_win) | graze_pa[2](diff_win))
+    off_pa = ~torch.isclose(hdr_pa, hdr4, rtol=1e-4, atol=1e-5).all(-1)
+    rep_pa = dict(w=C4_W, h=C4_H, prims=c4.n_prims, seconds=pa_s,
+                  launches=launches_pa, packet_rounds=diag_pa["packet_rounds"],
+                  rescue_rounds=diag_pa["rounds"],
+                  unresolved=int(diag_pa["unresolved"]),
+                  grid_c_max=tables4[3].c_max,
+                  grid_host_seconds=grid4_s,
+                  winners_differ=int(diff_win.numel()),
+                  winners_proven=int(proven.sum()),
+                  pixels_off_packet_tol=int(off_pa.sum()),
+                  pixels_off_frac=float(off_pa.float().mean()))
+    emit(phase="main-packet", case="a_config4_vs_sweep", **rep_pa)
+    check(bool(proven.all()), f"config 4 packet vs sweep: unproven winner "
+          f"differences: {rep_pa}")
+    check(rep_pa["pixels_off_frac"] < 0.002, f"config 4 packet frame beyond "
+          f"the packet tolerance of the sweep frame: {rep_pa}")
+
+    # (b) 1,099,998 spheres in the same slab: packet mode by the default
+    # threshold, held against PALLAS (B4) on 65,536 sampled pixels
+    t0 = time.perf_counter()
+    c4b = config4_scene(C4B_PRIMS, device=dev)
+    c4b_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables_b = rtl.frame_tables(c4b, c4_cam)
+    torch.cuda.synchronize()
+    tables_b_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand.build_cell_grid(c4b)
+    grid_b_s = time.perf_counter() - t0
+    check(c4b.n_prims > rtl.SWEEP_MAX_PRIMS, "case (b) is not above the "
+          "sweep threshold")
+    hdr_pb, rec_pb, diag_pb, launches_pb, pb_s, waves_b = packet_frame(
+        c4b, c4_cam, tables_b)
+    rng = np.random.default_rng(17)
+    idx = torch.as_tensor(np.sort(rng.choice(C4_W * C4_H, C4B_SAMPLES,
+                                             replace=False)), device=dev)
+    kb = tt.frame_bounce0(c4b, c4_cam, *tables_b[:3])
+    org_b, dir_b = org4[idx], dir4[idx]
+    org_b1 = torch.stack([crop(kb[c])[idx] for c in ("ox", "oy", "oz")], -1)
+    dir_b1 = torch.stack([crop(kb[c])[idx] for c in ("dx", "dy", "dz")], -1)
+    col_p = render_rays(c4b, cfg_c4p, org_b, dir_b)
+    pid_bp = record_paths(c4b, cfg_c4p, org_b, dir_b)
+    rec_b = rec_pb[idx]
+    rec_b_t = {"pid": rec_b.T.contiguous(), "org": torch.stack([org_b,
+                                                                org_b1]),
+               "dir": torch.stack([dir_b, dir_b1])}
+    graze_b = [parity.grazing_prover(c4b, org_b, dir_b),
+               parity.grazing_prover(c4b, org_b, dir_b, pid=rec_b[:, 0])]
+    zeros_b = torch.zeros(C4B_SAMPLES, dtype=torch.int32, device=dev)
+    vs_pallas_b = parity.compare(
+        hdr_pb.reshape(-1, 3)[idx], zeros_b, col_p, zeros_b,
+        prove=parity.flip_prover(c4b, rec_b_t, pid_bp.T),
+        prove_rounding=lambda i: graze_b[0](i) | graze_b[1](i),
+        max_rounding_frac=C4B_MAX_ROUNDING_FRAC)
+    emit(phase="main-packet", case="b_1.1M_vs_PALLAS_sampled",
+         w=C4_W, h=C4_H, prims=c4b.n_prims, seconds=pb_s,
+         scene_build_seconds=c4b_build_s,
+         frame_tables_host_seconds=tables_b_s,
+         grid_host_seconds=grid_b_s, frame_c_max=tables_b[2],
+         table_bytes=tables_b[0].numel() * 4, grid_c_max=tables_b[3].c_max,
+         launches=launches_pb, packet_rounds=diag_pb["packet_rounds"],
+         rescue_rounds=diag_pb["rounds"],
+         unresolved=int(diag_pb["unresolved"]), samples=C4B_SAMPLES,
+         max_rounding_frac=C4B_MAX_ROUNDING_FRAC,
+         winners_equal_frac=float((rec_b == pid_bp).all(dim=1).float()
+                                  .mean()), **vs_pallas_b)
+    check(vs_pallas_b["ok"], f"1.1M packet frame differs from PALLAS on the "
+          f"sampled pixels: {vs_pallas_b}")
+
+    # ---- 9d. main-cull: config 4's sweep rounds through B8 -----------------
+    culls = []          # each sweep round's search inputs, kept for 6e (b)
+
+    def keep_cull(scene_s, org, dir, **kw):
+        culls.append((scene_s, org, dir, kw))
+        return real_search(scene_s, org, dir, **kw)
+
+    rtl.SWEEP_LISTED, rtl.SWEEP_CULL = False, True
+    nh.nearest_hit_pallas = keep_cull
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hdr_c = rt.render_hdr(c4, c4_cam, cfg_c4, tables=tables4)
+        torch.cuda.synchronize()
+        cull_s = time.perf_counter() - t0
+        launches_c = launches_now()
+        nh.nearest_hit_pallas = real_search
+        img_c, diag_c, rec_c = rtl.render_frame_tiled(
+            c4, cfg_c4, c4_cam, tables=tables4, with_diag=True,
+            with_record=True)
+        torch.cuda.synchronize()
+    finally:
+        nh.nearest_hit_pallas = real_search
+        rtl.SWEEP_LISTED, rtl.SWEEP_CULL = True, False
+    rec_c_t = {"pid": rec_c.T.contiguous(), "org": torch.stack([org4, org1]),
+               "dir": torch.stack([dir4, dir1])}
+    vs_sweep = parity.compare(hdr_c, zeros4, hdr4, zeros4,
+                              prove=parity.flip_prover(c4, rec_c_t, rec4.T))
+    diff_c = torch.nonzero((rec_c != rec4).any(dim=1)).flatten()
+    flips_c = parity.flip_prover(c4, rec_c_t, rec4.T)(diff_c)
+    emit(phase="main-cull", seconds=cull_s, launches=launches_c,
+         rounds=diag_c["rounds"], unresolved=int(diag_c["unresolved"]),
+         winners_differ=int(diff_c.numel()),
+         winners_proven_flips=int(flips_c.sum()), vs_sweep=vs_sweep)
+    check(launches_c["culled"] == diag_c["rounds"] == len(culls) >= 1
+          and launches_c["listed"] == 0 and launches_c["dense"] == 0
+          and launches_c["tiled_frame"] == 1,
+          f"config 4 with SWEEP_CULL did not search with B8: {launches_c}")
+    check(int(diag_c["unresolved"]) == 0 and torch.equal(img_c, hdr_c),
+          "bad config-4 cull frame")
+    check(vs_sweep["ok"] and bool(flips_c.all()),
+          f"config 4 through B8 differs from the sweep frame: {vs_sweep}")
+
+    # B7-wave on config 4's first packet round, B8 on its first sweep round
+    sc, cols, tab, cnts, c_max, kw = waves_a[0]
+    b7w.insert(0, compare_wave("a_config4_first_packet_round", sc, cols, tab,
+                               cnts, c_max, **kw))
+    scene_c, org_c, dir_c, kw_c = culls[0]
+    n_live_c = int(kw_c["n_live"])
+    check(n_live_c < org_c.shape[0], "config 4's sweep slice is all live")
+    rep, tiles_c = compare_culled("b_config4_first_sweep_round", scene_c,
+                                  org_c, dir_c, kw_c["tile_bounds"], n_live_c)
+    b8.insert(1, rep)
 
     # ---- 10. times at the main paths' shapes -------------------------------
     tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
@@ -1351,6 +1741,85 @@ def main() -> int:
              frame_tables_host_ms=tables4_s * 1e3, card=name,
              nvidia_smi=smi)
 
+    # config 4 in packet mode and through B8, and the 1.1M-prim packet
+    # frame: the frames, B7-wave summed over a frame's packet rounds, B8 on
+    # the first sweep round, each against its plain version
+    def wave_sums(wave_list):
+        """Kernel and plain ms summed over a frame's wavefronts, and the
+        chunks each exit group scanned per launch."""
+        k_ms = p_ms = 0.0
+        works = []
+        for sc, cols, tab, cnts, c_max, kw in wave_list:
+            k_ms += cuda_median_ms(lambda: tt.launch_wave(
+                sc, cols, tab, cnts, c_max, **kw), warmup=1, timed=3)
+            p_ms += cuda_median_ms(lambda: tt.wave_bounce_plain(
+                sc, cols, tab, cnts, c_max, **kw), warmup=0, timed=1)
+            works.append(tt.launch_wave(sc, cols, tab, cnts, c_max, **kw,
+                                        work=True)["chunks"])
+        torch.cuda.synchronize()
+        return k_ms, p_ms, works
+
+    b7w_ms, b7w_plain_ms, works_a = wave_sums(waves_a)
+    b7w_b_ms, b7w_b_plain_ms, works_b = wave_sums(waves_b)
+    tb_c = kw_c["tile_bounds"]
+    nl_c = torch.tensor([n_live_c], dtype=torch.int32, device=dev)
+    tabs_c = nh.pack_tables(scene_c)
+    b8_ms = cuda_median_ms(lambda: nh.launch_culled(tabs_c, org_c, dir_c,
+                                                    tb_c, n_live=nl_c))
+    b8_plain_ms = cuda_median_ms(lambda: nh.nearest_hit_culled_plain(
+        scene_c, org_c, dir_c, tb_c, n_live_c), warmup=0, timed=1)
+
+    def packet_render_ms(scene, tables, threshold):
+        rtl.SWEEP_MAX_PRIMS = threshold
+        try:
+            return cuda_median_ms(lambda: rt.render_hdr(
+                scene, c4_cam, cfg_c4, tables=tables), warmup=1, timed=3)
+        finally:
+            rtl.SWEEP_MAX_PRIMS = SWEEP_MAX_PRIMS
+
+    pa_render_ms = packet_render_ms(c4, tables4, 0)
+    pb_render_ms = packet_render_ms(c4b, tables_b, SWEEP_MAX_PRIMS)
+    rtl.SWEEP_LISTED, rtl.SWEEP_CULL = False, True
+    try:
+        cull_render_ms = cuda_median_ms(lambda: rt.render_hdr(
+            c4, c4_cam, cfg_c4, tables=tables4), warmup=1, timed=3)
+    finally:
+        rtl.SWEEP_LISTED, rtl.SWEEP_CULL = True, False
+    for what, ms, prims, frames, extra in (
+            ("render_hdr TILED packet mode config 4 (tables cached)",
+             pa_render_ms, c4.n_prims, 3,
+             dict(packet_rounds=diag_pa["packet_rounds"],
+                  rescue_rounds=diag_pa["rounds"],
+                  wave_launches=len(waves_a),
+                  grid_host_ms=grid4_s * 1e3)),
+            ("B7-wave kernel, summed over the packet rounds (config 4)",
+             b7w_ms, c4.n_prims, 3, dict(wave_launches=len(waves_a))),
+            ("B7-wave plain, summed over the packet rounds (config 4)",
+             b7w_plain_ms, c4.n_prims, 1, dict(wave_launches=len(waves_a))),
+            ("render_hdr TILED packet mode 1.1M prims (tables cached)",
+             pb_render_ms, c4b.n_prims, 3,
+             dict(packet_rounds=diag_pb["packet_rounds"],
+                  rescue_rounds=diag_pb["rounds"],
+                  wave_launches=len(waves_b),
+                  frame_tables_host_ms=tables_b_s * 1e3,
+                  grid_host_ms=grid_b_s * 1e3)),
+            ("B7-wave kernel, summed over the packet rounds (1.1M prims)",
+             b7w_b_ms, c4b.n_prims, 3, dict(wave_launches=len(waves_b))),
+            ("B7-wave plain, summed over the packet rounds (1.1M prims)",
+             b7w_b_plain_ms, c4b.n_prims, 1,
+             dict(wave_launches=len(waves_b))),
+            ("render_hdr TILED config 4 through B8 (tables cached)",
+             cull_render_ms, c4.n_prims, 3,
+             dict(sweep_rounds=diag_c["rounds"])),
+            ("B8 kernel (first sweep round)", b8_ms, c4.n_prims, TIMED,
+             dict(sweep_slice_live=n_live_c)),
+            ("B8 plain (first sweep round)", b8_plain_ms, c4.n_prims, 1,
+             dict(sweep_slice_live=n_live_c))):
+        emit(phase="times", what=what, ms_per_frame=ms,
+             primary_rays_per_s=px4 / (ms * 1e-3), w=C4_W, h=C4_H,
+             refmax=cfg_c4.refmax, prims=prims, frames=frames, card=name,
+             nvidia_smi=smi, **extra)
+
     # ---- bounds: the tests these inputs need, the bytes in and out ----------
     n_head, n_c3 = org.shape[0], org3.shape[0]
     alive = sum(fused_alive(head, head_rec["pid"]))
@@ -1391,6 +1860,32 @@ def main() -> int:
                       if lst is not None)
     b6_bound = bound(b6_ops, 32 * org_s.shape[0] + lists_bytes + 4 * (
         4 * scene_s.n_spheres + 6 * scene_s.n_boxes + 9 * scene_s.n_tris))
+    # B7-wave over config 4's packet rounds: the tests of the chunks each
+    # exit group scanned; a packet's table rows read once (its most
+    # scanning group's), 11 planes in and 15 (or 18) out per ray
+    ops_per_class = torch.tensor([OPS["sphere_unit"], OPS["box"],
+                                  OPS["tri_edges"]], dtype=torch.float64,
+                                 device=dev)
+    w_ops = w_bytes = 0.0
+    for (sc, cols, tab, cnts, c_max, kw), ch in zip(waves_a, works_a):
+        gr = tt.group_rows(kw.get("wave_sub", tt.WAVE_SUB))
+        ch = ch.double()
+        w_ops += float((ch * ops_per_class).sum()) * tt.CHUNK * gr * tt.LANE
+        per_pk = ch.sum(1).reshape(cnts.shape[0], -1).max(1).values
+        n_out = 18 if tt._flags(sc)["want_normal"] else 15
+        w_bytes += (float(per_pk.sum()) * tt.CHUNK * 80
+                    + (11 + n_out) * 4 * cols[0].numel() + 32 * cnts.shape[0])
+    b7w_bound = bound(w_ops, w_bytes)
+    # B8 on config 4's first sweep round: the kept sphere tiles against
+    # the active rays of each block, boxes and triangles dense
+    blk_c = -(-n_live_c // nh.BLOCK_R)
+    act_c = torch.clamp(n_live_c - nh.BLOCK_R * torch.arange(
+        blk_c, device=dev), max=nh.BLOCK_R).double()
+    b8_ops = (float((tiles_c[:blk_c].double() * act_c).sum()) * nh.BLOCK_K
+              * OPS["sphere"] + n_live_c * (scene_c.n_boxes * OPS["box"]
+                                            + scene_c.n_tris * OPS["tri"]))
+    b8_bound = bound(b8_ops, 32 * org_c.shape[0] + 16 * tb_c.shape[0] + 4 * (
+        4 * scene_c.n_spheres + 6 * scene_c.n_boxes + 9 * scene_c.n_tris))
 
     # ---- kernels summary and the last line ------------------------------------
     def worst(reps, key="max_abs_err"):
@@ -1424,6 +1919,11 @@ def main() -> int:
         row("tiled_frame_kernel", TILED_SOURCE, src + "trace_tiled.py:468",
             c4_launches["tiled_frame"], worst(b7), b7_ms, b7_plain_ms,
             b7_bound),
+        row("tiled_wave_kernel", TILED_SOURCE, src + "trace_tiled.py:518",
+            launches_pa["tiled_wave"], worst(b7w), b7w_ms, b7w_plain_ms,
+            b7w_bound),
+        row("nh_culled_kernel", NH_SOURCE, src + "nearest_hit.py:113",
+            launches_c["culled"], worst(b8), b8_ms, b8_plain_ms, b8_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,6 +10,21 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: the card unless the caller asks
+    for another. ``None`` means CUDA; a machine without CUDA raises rather
+    than fall back to the CPU quietly (pass ``device="cpu"`` there)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this package runs on the card by "
+                           "default; pass device=\"cpu\" to run the plain "
+                           "PyTorch versions on the CPU")
+    return torch.device("cuda")
+
 
 class ResponseType(enum.IntEnum):
     """Material response taxonomy (reference material.ts:22-26)."""
@@ -59,9 +74,11 @@ class HitBackend(enum.Enum):
       route to BRUTE.
     * ``PALLAS`` — the wavefront loop with the nearest-hit CUDA kernels
       (``kernels/nearest_hit``): B3 up to 384 prims, B4 above.
-    * ``TILED`` — ``render_hdr`` sends scenes of at most 2048 prims, and
-      BOTH scenes, to PALLAS; larger scenes raise ``NotImplementedError``
-      (ROADMAP A12), and ``render_rays`` takes BRUTE, as in the reference.
+    * ``TILED`` — the big-scene path (``render_tiled``: kernel B7, then
+      sweep rounds up to ``SWEEP_MAX_PRIMS`` prims, packet rounds above);
+      ``render_hdr`` sends scenes of at most 2048 prims without cached
+      tables, and BOTH scenes, to PALLAS, and ``render_rays`` takes BRUTE,
+      as in the reference.
     * ``OCTREE`` — not ported yet; raises ``NotImplementedError`` (ROADMAP
       A11).
     """

@@ -1,6 +1,6 @@
 // Nearest-hit search kernels for the PALLAS and TILED backends (Hopper,
-// sm_90a). B6 (nh_listed_kernel, the TILED sweep rounds' search) is
-// described beside its code below.
+// sm_90a). B6 (nh_listed_kernel) and B8 (nh_culled_kernel), the TILED sweep
+// rounds' searches, are described beside their code below.
 //
 // What they replace (the reference package's TPU kernels):
 //   nh_scalar_kernel (B3) -> _nh_scalar_kernel
@@ -461,6 +461,130 @@ nh_listed_kernel(Tables T, const float* __restrict__ org,
   }
 }
 
+// ---- B8: the cone-culled dense nearest hit ---------------------------------
+// nh_culled_kernel -> _nearest_hit_kernel_culled (nearest_hit.py:113, body
+// _nearest_hit_block :236-267 and :415-431, entry
+// nearest_hit_pallas(tile_bounds=...) :898): B4's block of 128 rays, which
+// first bounds its live rays (the rows below min(n_live, n)) by an apex ball
+// (o0 = their mean origin, ro = the largest distance from it) and a cone
+// (axis = their normalized mean direction, cos_t = the worst alignment,
+// d / sqrt(a)), then skips every 128-sphere tile whose bounding sphere
+// (tb [T, 4]: center, radius) the ball-cone cannot reach; cos_t < 0.25
+// keeps every tile. The skip is block-uniform: every thread evaluates the
+// same predicate on the same values. Boxes and triangles stream dense. The
+// cull is conservative, so the result is B4's.
+//
+// What bounds it: the sphere tests of the tiles kept (an IEEE sqrt each)
+// plus the dense boxes and triangles; a per-tile predicate of ~25 float
+// operations a thread. Design: B4's staging and fold; the block's sums are
+// a shuffle-down tree per warp, then the four warp sums left to right (the
+// plain version, nearest_hit_culled_plain, sums in the same order), so the
+// predicate is bit-identical. No prefetch of the next kept tile yet.
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = red[0];
+  for (int w = 1; w < kBlock / 32; ++w) s = s + red[w];
+  return s;
+}
+
+__device__ __forceinline__ float block_min(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kBlock / 32; ++w) m = fminf(m, red[w]);
+  return m;
+}
+
+__global__ void __launch_bounds__(kBlock)
+nh_culled_kernel(Tables T, const float* __restrict__ org,
+                 const float* __restrict__ dir, long long n,
+                 const int* __restrict__ n_live,
+                 const float* __restrict__ tb, float* __restrict__ t_out,
+                 int* __restrict__ pid_out, int* __restrict__ work) {
+  __shared__ float tile[9][kTile];
+  __shared__ float red[kBlock / 32];
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long live = min(n, (long long)__ldg(n_live));
+  if ((long long)blockIdx.x * kBlock >= live) {
+    if (i < n) {
+      t_out[i] = kInf;
+      pid_out[i] = -1;
+    }
+    if (work != nullptr && threadIdx.x == 0) work[blockIdx.x] = 0;
+    return;
+  }
+  const bool active = i < live;
+  const Ray r = load_ray(org, dir, active ? i : 0);
+
+  // the block's cone over its live rays
+  const float r_inv = 1.0f / fmaxf(block_sum(active ? 1.0f : 0.0f, red),
+                                   1.0f);
+  const float o0x = block_sum(active ? r.ox : 0.0f, red) * r_inv;
+  const float o0y = block_sum(active ? r.oy : 0.0f, red) * r_inv;
+  const float o0z = block_sum(active ? r.oz : 0.0f, red) * r_inv;
+  const float ex = r.ox - o0x, ey = r.oy - o0y, ez = r.oz - o0z;
+  const float ro =
+      sqrtf(block_max(active ? ex * ex + ey * ey + ez * ez : 0.0f, red));
+  float axm = block_sum(active ? r.dx : 0.0f, red) * r_inv;
+  float aym = block_sum(active ? r.dy : 0.0f, red) * r_inv;
+  float azm = block_sum(active ? r.dz : 0.0f, red) * r_inv;
+  const float a_n =
+      1.0f / sqrtf(fmaxf(axm * axm + aym * aym + azm * azm, 1e-20f));
+  axm = axm * a_n;
+  aym = aym * a_n;
+  azm = azm * a_n;
+  const float d_inv = 1.0f / sqrtf(r.a);
+  const float cos_t = block_min(
+      active ? (r.dx * axm + r.dy * aym + r.dz * azm) * d_inv : 1.0f, red);
+  const bool use_cone = cos_t >= 0.25f;
+  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+
+  float t_best = kInf;
+  int pid = -1;
+  int streamed = 0;
+  for (int k0 = 0; k0 < T.n_sph; k0 += kTile) {
+    const float* b = tb + 4 * (k0 / kTile);
+    const float vx = __ldg(b + 0) - o0x;
+    const float vy = __ldg(b + 1) - o0y;
+    const float vz = __ldg(b + 2) - o0z;
+    const float dist = sqrtf(vx * vx + vy * vy + vz * vz);
+    const float rr = __ldg(b + 3) + ro;
+    const bool inside = dist <= rr * 1.00001f + 1e-7f;
+    const float sin_a = fminf(rr / fmaxf(dist, 1e-20f), 1.0f);
+    const float cos_a = sqrtf(fmaxf(1.0f - sin_a * sin_a, 0.0f));
+    const float cos_b = (vx * axm + vy * aym + vz * azm) / fmaxf(dist, 1e-20f);
+    const bool include =
+        inside || cos_b >= cos_a * cos_t - sin_a * sin_t - 1e-5f || !use_cone;
+    if (!include) continue;          // block-uniform
+    ++streamed;
+    __syncthreads();
+    stage(tile, T.sph, 4, T.s_stride, T.n_sph, k0);
+    __syncthreads();
+    if (active) {
+      const int m = min(kTile, T.n_sph - k0);
+      for (int j = 0; j < m; ++j)
+        fold(sphere_dense(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j]),
+             k0 + j, t_best, pid);
+    }
+  }
+  dense_class<K_BOX, 6>(tile, T.box, T.b_stride, T.n_box, T.n_sph, active, r,
+                        t_best, pid);
+  dense_class<K_TRI, 9>(tile, T.tri, T.t_stride, T.n_tri, T.n_sph + T.n_box,
+                        active, r, t_best, pid);
+  if (work != nullptr && threadIdx.x == 0) work[blockIdx.x] = streamed;
+  if (i < n) {
+    t_out[i] = active ? t_best : kInf;
+    pid_out[i] = active && t_best < kInf ? pid : -1;
+  }
+}
+
 Tables make_tables(const float* sph, int n_sph, int s_stride,
                    const float* box, int n_box, int b_stride,
                    const float* tri, int n_tri, int t_stride) {
@@ -552,5 +676,28 @@ extern "C" int rt_nearest_hit_listed(
   const long long grid = (n + kBlock - 1) / kBlock;
   nh_listed_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
       T, org, dir, n, n_live, bbox, ls, lt, t_out, pid_out, work);
+  return (int)cudaGetLastError();
+}
+
+// B8. tb holds one row (cx, cy, cz, r) per 128-sphere tile of the sphere
+// table, in its order. `work` may be null; else it receives the sphere
+// tiles each block streamed, [ceil(n / 128)].
+extern "C" int rt_nearest_hit_culled(const float* sph, int n_sph,
+                                     int s_stride, const float* box,
+                                     int n_box, int b_stride,
+                                     const float* tri, int n_tri,
+                                     int t_stride, const float* org,
+                                     const float* dir, long long n,
+                                     const int* n_live, const float* tb,
+                                     float* t_out, int* pid_out, int* work,
+                                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  const Tables T = make_tables(sph, n_sph, s_stride, box, n_box, b_stride,
+                               tri, n_tri, t_stride);
+  const long long grid = (n + kBlock - 1) / kBlock;
+  nh_culled_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
+      T, org, dir, n, n_live, tb, t_out, pid_out, work);
   return (int)cudaGetLastError();
 }

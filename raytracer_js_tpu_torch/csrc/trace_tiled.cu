@@ -1,6 +1,7 @@
-// Tiled candidate-list bounce kernel, frame entry (B7-frame; Hopper, sm_90a).
+// Tiled candidate-list bounce kernels, frame and wavefront entries (B7-frame
+// and B7-wave; Hopper, sm_90a).
 //
-// What it replaces (the reference package's TPU kernel):
+// What they replace (the reference package's TPU kernels):
 //   tiled_frame_kernel -> _frame_kernel (raytracer_js_tpu/kernels/
 //       trace_tiled.py:468, body _bounce_tile :85, entry frame_bounce0
 //       :661): bounce 0 of the TILED big-scene path. Rays are built in the
@@ -10,15 +11,28 @@
 //       type-segregated, each segment sorted by a lower-bound entry distance
 //       t_lo) with a chunked early exit, extracts the winner, takes its
 //       normal (and uv), shades, and respawns mirror continuations.
-// Its plain PyTorch twin is kernels/trace_tiled.bounce_tile_plain (entry
-// frame_bounce0_plain), which runs the same expressions in the same order.
+//   tiled_wave_kernel -> _wave_kernel (trace_tiled.py:518, entry
+//       wave_bounce :680): the same bounce for a packetized wavefront of
+//       divergent rays (the packet rounds of render_tiled). The 11 state
+//       planes come in from device memory; packet p (wave_sub rows of 128
+//       rays) scans its own table, built for its rays' bounding cone
+//       (accel/candidates.packet_candidates_grid), whose t_safe is finite
+//       when the table was truncated: a ray is resolved only if its hit
+//       precedes t_safe - d_c or it leaves the scene bounds first, and an
+//       unresolved ray passes through unchanged. Cell-grid tables put the
+//       box and triangle segments at fixed rows (static bases).
+// Their plain PyTorch twin is kernels/trace_tiled.bounce_tile_plain
+// (entries frame_bounce0_plain and wave_bounce_plain), which runs the same
+// expressions in the same order.
 //
 // What bounds it on this card: per-ray ALU work over the scanned candidates
 // (an IEEE sqrt per sphere candidate, a slab test per box, a Moeller-Trumbore
 // test with an IEEE divide per triangle). A tile's table is c_max x 80 bytes
 // (hundreds of KB at 100k prims), far past shared memory, but a tile stops
 // after the few chunks its rays need; device-memory traffic is the scanned
-// rows plus 15 (or 18) output planes of 4 bytes a ray.
+// rows plus 15 (or 18) output planes of 4 bytes a ray. The wavefront entry
+// adds 11 input planes a ray; its packets of divergent rays scan more of
+// their tables than camera tiles do, so it is ALU-bound too.
 //
 // What this first design does about it: one thread per ray, ray state in
 // registers. A 4096-ray tile is served by 16 blocks of 2 rows x 128 rays,
@@ -29,6 +43,10 @@
 // version exits per the same groups). The winner's attributes are a direct
 // read of its table row (the reference's chunked "pick by index match"
 // becomes one load). No wgmma, no TMA, no prefetch of the next chunk yet.
+// The wavefront entry runs the same blocks over packets: a packet of
+// wave_sub rows is served by wave_sub / 2 blocks of 256 rays, or by
+// wave_sub blocks of 128 rays when wave_sub is odd (the reference's
+// one-row straggler packets), so an exit group never spans two packets.
 //
 // Precision: built with --fmad=false and without fast math, so every
 // expression rounds operation for operation like the plain version; sqrtf,
@@ -44,6 +62,8 @@
 //   w h, scene bbox lo (3) hi (3), spare.
 // Output: [n_out, h_pad, w_pad] float32 planes ox oy oz dx dy dz cr cg cb
 //   path status t pid u v (+ nx ny nz); status and pid hold int32 bits.
+// Wavefront input: [11, rows, 128] float32 planes ox .. path status (status
+//   as int32 bits); output [n_out, rows, 128] as above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -171,12 +191,15 @@ __device__ void scan_segment(const float* __restrict__ tab, int c_max,
 
 // One traverse -> intersect -> shade -> respawn pass for this thread's ray
 // against its tile's table (the reference's _bounce_tile). Writes the
-// outputs of pixel `pix` and, if `work`, the block's chunk counts.
+// outputs of pixel `pix` and, if `work`, the block's chunk counts. The box
+// and triangle segments start at rows sb_b and sb_t, or (-1) after the
+// padded counts.
 __device__ void bounce_tile(const float* __restrict__ tab, int c_max,
                             const float* __restrict__ cnt_row,
                             const float* __restrict__ cam, Flags f, Ray r,
-                            float* __restrict__ out, size_t plane,
-                            size_t pix, int* __restrict__ work) {
+                            int sb_b, int sb_t, float* __restrict__ out,
+                            size_t plane, size_t pix,
+                            int* __restrict__ work) {
   __shared__ float chunk[kChunk][kAttr];
   const int cnt_s = (int)__ldg(cnt_row + 0);
   const int cnt_b = (int)__ldg(cnt_row + 1);
@@ -200,8 +223,10 @@ __device__ void bounce_tile(const float* __restrict__ tab, int c_max,
                            (__ldg(cam + 26) - r.oz) * iz);
   const float t_exit_bb = fminf(fminf(ex_x, ex_y), ex_z);
 
-  const int base_b = (cnt_s + kChunk - 1) / kChunk * kChunk;
-  const int base_t = base_b + (cnt_b + kChunk - 1) / kChunk * kChunk;
+  const int base_b =
+      sb_b >= 0 ? sb_b : (cnt_s + kChunk - 1) / kChunk * kChunk;
+  const int base_t =
+      sb_t >= 0 ? sb_t : base_b + (cnt_b + kChunk - 1) / kChunk * kChunk;
   float t_best = kInf;
   int jwin = -1;
   int chunks[3] = {0, 0, 0};
@@ -406,7 +431,35 @@ tiled_frame_kernel(const float* __restrict__ tab, int c_max,
   // padding pixels of partial edge tiles start as MISS
   r.status = (x >= __ldg(cam + 19) || y >= __ldg(cam + 20)) ? MISS : ALIVE;
   bounce_tile(tab + (size_t)tile * c_max * kAttr, c_max, cnts + 8 * tile,
-              cam, f, r, out, plane, (size_t)py * w_pad + px, work);
+              cam, f, r, -1, -1, out, plane, (size_t)py * w_pad + px, work);
+}
+
+// One bounce of a packetized wavefront: block b serves rays
+// [b * blockDim.x, (b + 1) * blockDim.x) of the [rows, 128] planes, a group
+// of blockDim.x / 128 rows inside packet b / groups_per_packet.
+__global__ void __launch_bounds__(kBlock)
+tiled_wave_kernel(const float* __restrict__ tab, int c_max,
+                  const float* __restrict__ cnts,
+                  const float* __restrict__ cam,
+                  const float* __restrict__ in, size_t plane,
+                  int groups_per_packet, int sb_b, int sb_t, Flags f,
+                  float* __restrict__ out, int* __restrict__ work) {
+  const int packet = blockIdx.x / groups_per_packet;
+  const size_t pix = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  Ray r;
+  r.ox = __ldg(in + 0 * plane + pix);
+  r.oy = __ldg(in + 1 * plane + pix);
+  r.oz = __ldg(in + 2 * plane + pix);
+  r.dx = __ldg(in + 3 * plane + pix);
+  r.dy = __ldg(in + 4 * plane + pix);
+  r.dz = __ldg(in + 5 * plane + pix);
+  r.cr = __ldg(in + 6 * plane + pix);
+  r.cg = __ldg(in + 7 * plane + pix);
+  r.cb = __ldg(in + 8 * plane + pix);
+  r.path = __ldg(in + 9 * plane + pix);
+  r.status = __float_as_int(__ldg(in + 10 * plane + pix));
+  bounce_tile(tab + (size_t)packet * c_max * kAttr, c_max, cnts + 8 * packet,
+              cam, f, r, sb_b, sb_t, out, plane, pix, work);
 }
 
 }  // namespace
@@ -434,5 +487,36 @@ extern "C" int rt_tiled_frame(const float* tab, int c_max, const float* cnts,
   tiled_frame_kernel<<<(unsigned int)blocks, kBlock, 0,
                        (cudaStream_t)stream>>>(tab, c_max, cnts, cam, nbx,
                                                w_pad, plane, f, out, work);
+  return (int)cudaGetLastError();
+}
+
+// The wavefront entry: `in` holds the 11 state planes [11, rows, 128], tab
+// and cnts one table and one counts row per packet of wave_sub rows,
+// served by blocks of group_rows rows (group_rows divides wave_sub).
+// sb_b/sb_t are the static segment bases, -1 to follow the counts. `work`
+// may be null; else it receives the chunks each block scanned per class,
+// [rows / group_rows, 3].
+extern "C" int rt_tiled_wave(const float* tab, int c_max, const float* cnts,
+                             const float* cam, const float* in, int rows,
+                             int wave_sub, int group_rows, int sb_b, int sb_t,
+                             int want_uv, int sky_solid, int has_trans,
+                             int want_normal, float* out, int* work,
+                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return 0;
+  if (group_rows <= 0 || group_rows * kLane > kBlock ||
+      wave_sub % group_rows != 0 || rows % wave_sub != 0)
+    return (int)cudaErrorInvalidValue;
+  Flags f;
+  f.want_uv = want_uv != 0;
+  f.sky_solid = sky_solid != 0;
+  f.has_trans = has_trans != 0;
+  f.want_normal = want_normal != 0;
+  const size_t plane = (size_t)rows * kLane;
+  tiled_wave_kernel<<<(unsigned int)(rows / group_rows), group_rows * kLane,
+                      0, (cudaStream_t)stream>>>(
+      tab, c_max, cnts, cam, in, plane, wave_sub / group_rows, sb_b, sb_t, f,
+      out, work);
   return (int)cudaGetLastError();
 }

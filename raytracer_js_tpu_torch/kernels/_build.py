@@ -128,9 +128,16 @@ SIGNATURES = {
     "rt_nearest_hit_listed": (_HIT_TABLES + [
         _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
         _P], _I),
+    # org, dir, n, n_live, tile bounds, t, pid, work, device, stream
+    "rt_nearest_hit_culled": (_HIT_TABLES + [
+        _P, _P, _LL, _P, _P, _P, _P, _P, _I, _P], _I),
     # tab, c_max, cnts, cam, nby, nbx, 4 flags, out, work, device, stream
     "rt_tiled_frame": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                         _P], _I),
+    # tab, c_max, cnts, cam, state, rows, wave_sub, group_rows, 2 static
+    # bases, 4 flags, out, work, device, stream
+    "rt_tiled_wave": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P, _P, _I, _P], _I),
     "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
     "rt_replay_bwd": (_REPLAY_ARGS + [
         _F, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I),

@@ -16,6 +16,10 @@ to the lowest pid — the contract of ``ops/trace.nearest_hit_brute``.
   ``nh_listed_kernel``) — the listed search of the TILED sweep rounds: each
   128-ray block streams its own list of 128-prim (super)tiles in ascending
   entry bound and stops early (:func:`nearest_hit_listed_plain`).
+- :func:`nearest_hit_pallas` with ``tile_bounds`` (B8,
+  ``nh_culled_kernel``) — B4 with an in-kernel cone cull: each 128-ray
+  block bounds its live rays by a cone and skips every 128-sphere tile the
+  cone cannot reach (:func:`nearest_hit_culled_plain`).
 
 The kernels live in ``csrc/nearest_hit.cu``. Each has a plain PyTorch
 version (``*_plain``) with the kernel's expressions in the kernel's order,
@@ -41,7 +45,7 @@ Tensor = torch.Tensor
 
 #: kernel launches per kernel since the last reset (the plain versions and
 #: the empty cases answered on the host do not count)
-LAUNCHES = {"scalar": 0, "dense": 0, "listed": 0}
+LAUNCHES = {"scalar": 0, "dense": 0, "listed": 0, "culled": 0}
 
 #: the reference sends scenes of 1..SCALAR_MAX_PRIMS prims to B3
 SCALAR_MAX_PRIMS = 384
@@ -209,10 +213,13 @@ def _tri(r: _Rays, tr: Tensor) -> Tensor:
 
 
 def _search_plain(tabs: HitTables, org: Tensor, dir: Tensor,
-                  sphere: Callable) -> Tuple[Tensor, Tensor]:
+                  sphere: Callable,
+                  sph_mask: Optional[Callable] = None) -> Tuple[Tensor,
+                                                                Tensor]:
     """Nearest forward hit, class by class in pid order, folding each
     class's first minimum with a strict ``<`` (the kernels' running min),
-    in chunks of rays."""
+    in chunks of rays. ``sph_mask(lo, hi)`` -> [hi - lo, n_sph] bool drops
+    the spheres it is False for (B8's culled tiles)."""
     n = org.shape[0]
     t_out = torch.full((n,), _INF, dtype=torch.float32, device=org.device)
     pid_out = torch.full((n,), -1, dtype=torch.int32, device=org.device)
@@ -228,7 +235,10 @@ def _search_plain(tabs: HitTables, org: Tensor, dir: Tensor,
         for count, tab, test, base in classes:
             if count == 0:
                 continue
-            t, idx = test(r, tab[:, :count]).min(dim=1)
+            t = test(r, tab[:, :count])
+            if base == 0 and sph_mask is not None:
+                t = torch.where(sph_mask(lo, lo + t.shape[0]), t, _INF)
+            t, idx = t.min(dim=1)
             upd = t < t_best
             t_best = torch.where(upd, t, t_best)
             pid = torch.where(upd, idx + base, pid)
@@ -254,6 +264,117 @@ def nearest_hit_pallas_plain(scene: Scene, org: Tensor, dir: Tensor,
     live = (torch.arange(org.shape[0], device=org.device)
             < torch.as_tensor(n_live, device=org.device))
     return torch.where(live, t, _INF), torch.where(live, pid, -1)
+
+
+def _block_sum(x: Tensor) -> Tensor:
+    """Sum of each 128-row block [B, 128] in the kernel's order: a
+    shuffle-down tree in each warp of 32 rows, then the four warp sums left
+    to right."""
+    x = x.reshape(x.shape[0], BLOCK_R // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    w = x[..., 0]
+    s = w[:, 0]
+    for k in range(1, w.shape[1]):
+        s = s + w[:, k]
+    return s
+
+
+def culled_tiles(org: Tensor, dir: Tensor, live: int,
+                 tile_bounds: Tensor, n_sph: int) -> Tensor:
+    """B8's cull -> include [B, T] bool: block b's rays below ``live`` (the
+    kernel's prologue, over the rows below min(n_live, N)) are bounded by
+    an apex ball (o0 = their mean origin, ro = the largest distance from
+    it) and a cone (axis = their mean direction, cos_t = the worst
+    alignment); sphere tile k (bounds ``tile_bounds[k]`` = center, radius)
+    is kept iff the ball-cone can reach it or ``cos_t < 0.25``, the
+    predicate of ``accel/candidates.cone_include_np``. The kernel's
+    expressions, in its order."""
+    n = org.shape[0]
+    nb = -(-n // BLOCK_R)
+    n_t = -(-n_sph // BLOCK_K)
+    pad = nb * BLOCK_R - n
+    o = torch.cat([org, org.new_zeros((pad, 3))]) if pad else org
+    d = torch.cat([dir, dir.new_ones((pad, 3))]) if pad else dir
+    lv = (torch.arange(nb * BLOCK_R, device=org.device) < live).reshape(
+        nb, BLOCK_R)
+    ox, oy, oz = (o[:, k].reshape(nb, BLOCK_R) for k in range(3))
+    dx, dy, dz = (d[:, k].reshape(nb, BLOCK_R) for k in range(3))
+    zero = torch.zeros_like(ox)
+    r_inv = 1.0 / torch.clamp(_block_sum(lv.to(torch.float32)), min=1.0)
+    o0x = _block_sum(torch.where(lv, ox, zero)) * r_inv
+    o0y = _block_sum(torch.where(lv, oy, zero)) * r_inv
+    o0z = _block_sum(torch.where(lv, oz, zero)) * r_inv
+    ex, ey, ez = ox - o0x[:, None], oy - o0y[:, None], oz - o0z[:, None]
+    ro = torch.sqrt(torch.where(lv, ex * ex + ey * ey + ez * ez,
+                                zero).max(dim=1).values)
+    axm = _block_sum(torch.where(lv, dx, zero)) * r_inv
+    aym = _block_sum(torch.where(lv, dy, zero)) * r_inv
+    azm = _block_sum(torch.where(lv, dz, zero)) * r_inv
+    a_n = 1.0 / torch.sqrt(torch.clamp(axm * axm + aym * aym + azm * azm,
+                                       min=1e-20))
+    axm, aym, azm = axm * a_n, aym * a_n, azm * a_n
+    d_inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    cos_t = torch.where(lv, (dx * axm[:, None] + dy * aym[:, None]
+                             + dz * azm[:, None]) * d_inv,
+                        1.0).min(dim=1).values
+    use_cone = cos_t >= 0.25
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    tb = tile_bounds[:n_t]
+    vx = tb[None, :, 0] - o0x[:, None]
+    vy = tb[None, :, 1] - o0y[:, None]
+    vz = tb[None, :, 2] - o0z[:, None]
+    dist = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    rr = tb[None, :, 3] + ro[:, None]
+    inside = dist <= rr * (1.0 + 1e-5) + 1e-7
+    sin_a = torch.clamp(rr / torch.clamp(dist, min=1e-20), max=1.0)
+    cos_a = torch.sqrt(torch.clamp(1.0 - sin_a * sin_a, min=0.0))
+    cos_b = ((vx * axm[:, None] + vy * aym[:, None] + vz * azm[:, None])
+             / torch.clamp(dist, min=1e-20))
+    return (inside | (cos_b >= cos_a * cos_t[:, None]
+                      - sin_a * sin_t[:, None] - 1e-5)
+            | ~use_cone[:, None])
+
+
+def nearest_hit_culled_plain(scene: Scene, org: Tensor, dir: Tensor,
+                             tile_bounds: Tensor, n_live=None,
+                             work: bool = False):
+    """Plain version of B8 -> (t [N], pid [N]) (+ ``tiles`` [B] i32, the
+    sphere tiles each 128-ray block streamed, when ``work``).
+
+    B4's search (boxes and triangles dense), each block skipping the
+    sphere tiles :func:`culled_tiles` excludes; the spheres must be in the
+    tile order of ``tile_bounds`` [T >= ceil(S / 128), 4]. Rows at or past
+    ``n_live`` report (+inf, -1), and blocks wholly past it stream
+    nothing. The cull is conservative, so the result is B4's."""
+    return culled_plain(pack_tables(scene), org, dir, tile_bounds, n_live,
+                        work)
+
+
+def culled_plain(tabs: HitTables, org: Tensor, dir: Tensor,
+                 tile_bounds: Tensor, n_live=None, work: bool = False):
+    """:func:`nearest_hit_culled_plain` on packed tables."""
+    n = org.shape[0]
+    live = n if n_live is None else min(int(n_live), n)
+    if tile_bounds.shape[0] * BLOCK_K < tabs.n_sph:
+        raise ValueError(f"{tile_bounds.shape[0]} tile bounds cover fewer "
+                         f"than {tabs.n_sph} spheres")
+    include = culled_tiles(org, dir, live, tile_bounds, tabs.n_sph)
+    tile_of = torch.arange(tabs.n_sph, device=org.device) // BLOCK_K
+
+    def mask(lo, hi):
+        blk = torch.arange(lo, hi, device=org.device) // BLOCK_R
+        return include[blk][:, tile_of]
+
+    t, pid = _search_plain(tabs, org, dir, _sphere_dense, sph_mask=mask)
+    rows = torch.arange(n, device=org.device) < live
+    t, pid = torch.where(rows, t, _INF), torch.where(rows, pid, -1)
+    if not work:
+        return t, pid
+    blocks = torch.arange(include.shape[0], device=org.device) * BLOCK_R
+    tiles = torch.where(blocks < live, include.sum(dim=1), 0).to(
+        torch.int32)
+    return t, pid, tiles
 
 
 # ---------------------------------------------------------------------------
@@ -589,6 +710,38 @@ def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
     return (t, pid, slots) if work else (t, pid)
 
 
+def launch_culled(tabs: HitTables, org: Tensor, dir: Tensor,
+                  tile_bounds: Tensor, n_live: Optional[Tensor] = None,
+                  work: bool = False):
+    """Launch B8 on the current stream -> (t [N], pid [N]) (+ ``tiles``
+    [B] i32 when ``work``); ``n_live`` as for :func:`launch_dense`. Does
+    not synchronize."""
+    args, t, pid = _launch_args(tabs, org, dir)
+    n = org.shape[0]
+    dev = org.device
+    n_t = -(-tabs.n_sph // BLOCK_K)
+    if tile_bounds.shape[0] < n_t:
+        raise ValueError(f"{tile_bounds.shape[0]} tile bounds cover fewer "
+                         f"than {tabs.n_sph} spheres")
+    tb = _build.need(tile_bounds[:max(n_t, 1)].contiguous(), "tile bounds",
+                     torch.float32, (max(n_t, 1), 4), dev)
+    tiles = (torch.zeros((-(-n // BLOCK_R),), dtype=torch.int32, device=dev)
+             if work else None)
+    if n == 0 or tabs.n_prims == 0:
+        return (t, pid, tiles) if work else (t, pid)
+    if n_live is None:
+        n_live = torch.full((1,), n, dtype=torch.int32, device=dev)
+    _build.need(n_live, "n_live", torch.int32, (1,), dev)
+    lib = _build.load()
+    err = lib.rt_nearest_hit_culled(*args, _build.ptr(n_live), _build.ptr(tb),
+                                    _build.ptr(t), _build.ptr(pid),
+                                    _build.ptr(tiles), dev.index,
+                                    _build.stream(dev))
+    _build.check(lib, err, "nh_culled_kernel")
+    LAUNCHES["culled"] += 1
+    return (t, pid, tiles) if work else (t, pid)
+
+
 def nearest_hit_pallas(scene: Scene, org: Tensor, dir: Tensor,
                        n_live: Union[int, Tensor, None] = None,
                        tile_bounds: Optional[Tensor] = None,
@@ -601,15 +754,12 @@ def nearest_hit_pallas(scene: Scene, org: Tensor, dir: Tensor,
     triangles must be in the tile order the ids index, ``B >= ceil(N /
     128)``, and each list row sorted by a conservative t_lo; ``sph_fan``/
     ``tri_fan`` make the ids supertiles of ``fan`` consecutive 128-prim
-    tiles). ``n_live`` (an int or a scalar tensor) declares that only the
-    first ``n_live`` rays matter: rows at or past it report (+inf, -1).
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
-
-    The cone-culled variant (``tile_bounds``, kernel B8) is not ported yet.
+    tiles), or B8 (culled) when ``tile_bounds`` [T, 4] is given (see
+    :func:`nearest_hit_culled_plain`). ``n_live`` (an int or a scalar
+    tensor) declares that only the first ``n_live`` rays matter: rows at or
+    past it report (+inf, -1). CUDA tensors launch the kernel; CPU tensors
+    run the plain version.
     """
-    if tile_bounds is not None:
-        raise NotImplementedError("the cone-culled nearest-hit kernel is not "
-                                  "ported yet (ROADMAP B8)")
     on_cpu = _build.on_cpu(org.device)
     nl = None
     if n_live is not None and not on_cpu:
@@ -622,6 +772,12 @@ def nearest_hit_pallas(scene: Scene, org: Tensor, dir: Tensor,
         li = listed_inputs(scene, org.shape[0], tile_ids, tri_tile_ids,
                            sph_fan, tri_fan)
         return launch_listed(li, org, dir, n_live=nl)
+    if tile_bounds is not None:
+        if on_cpu:
+            return nearest_hit_culled_plain(scene, org, dir, tile_bounds,
+                                            n_live)
+        return launch_culled(pack_tables(scene), org, dir, tile_bounds,
+                             n_live=nl)
     if on_cpu:
         return nearest_hit_pallas_plain(scene, org, dir, n_live=n_live)
     return launch_dense(pack_tables(scene), org, dir, n_live=nl)

@@ -1,4 +1,5 @@
-"""Tiled candidate-list bounce kernel B7 (frame entry) and its plain version.
+"""Tiled candidate-list bounce kernels B7 (frame and wavefront entries) and
+their plain version.
 
 Port of ``raytracer_js_tpu.kernels.trace_tiled``: the big-scene (100k+
 prim) path. Per ray tile of ``TILE_SUB`` x ``LANE`` pixels, the kernel scans
@@ -23,8 +24,12 @@ so the kernel and the plain version agree bit for bit.
   CUDA tensors launch ``tiled_frame_kernel`` (``csrc/trace_tiled.cu``); CPU
   tensors run :func:`frame_bounce0_plain`. ``LAUNCHES["frame"]`` counts
   launches.
-- :func:`wave_bounce` — the wavefront entry over packetized state; it
-  belongs to the packet-mode slice and raises here.
+- :func:`wave_bounce` — one bounce of a packetized wavefront (the packet
+  rounds of ``render_tiled``): 11 state planes [rows, LANE] in, every
+  packet of ``wave_sub`` rows scanning its own table. CUDA tensors launch
+  ``tiled_wave_kernel``; CPU tensors run :func:`wave_bounce_plain`.
+  ``LAUNCHES["wave"]`` counts launches. An exit group never spans two
+  packets: groups are ``GROUP_SUB`` rows, or one row for odd ``wave_sub``.
 
 The shading is ``ops/trace._bounce``'s for this path's in-kernel part:
 solid colors modulate, emissive hits end LIGHT, mirrors reflect and
@@ -35,7 +40,6 @@ textures, image skies, rough scatter and refraction are applied by
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -49,7 +53,7 @@ from ._build import need as _need, ptr as _ptr
 Tensor = torch.Tensor
 
 #: kernel launches since the last reset (the plain version does not count)
-LAUNCHES = {"frame": 0}
+LAUNCHES = {"frame": 0, "wave": 0}
 
 #: ray-tile sublanes (rays per tile = TILE_SUB * LANE)
 TILE_SUB = 32
@@ -58,6 +62,9 @@ LANE = 128
 CHUNK = SEG_ALIGN
 #: rows of LANE rays per exit group (one CUDA block of 256 threads)
 GROUP_SUB = 2
+#: wavefront packet height in rows (packet = WAVE_SUB * LANE rays): smaller
+#: than a frame tile, since packets of divergent rays need tight cones
+WAVE_SUB = 8
 GROUPS_PER_TILE = TILE_SUB // GROUP_SUB
 
 # camera/constants layout (f32): 0-2 pos, 3-5 front, 6-8 left, 9-11 up,
@@ -201,7 +208,8 @@ def _tri_t(blk, ox, oy, oz, dx, dy, dz):
 def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
                       cnts: Tensor, bb_lo: Tensor, bb_hi: Tensor,
                       sky: Tensor, state: dict, *, want_uv: bool,
-                      sky_solid: bool, has_trans: bool, want_normal: bool):
+                      sky_solid: bool, has_trans: bool, want_normal: bool,
+                      static_bases=None):
     """One traverse -> intersect -> shade -> respawn pass over exit groups:
     the plain version of the kernel's ``bounce_tile``.
 
@@ -215,6 +223,8 @@ def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
     Resolution: a hit is final iff it precedes ``t_safe - d_c`` (d_c: the
     ray's distance from the table's cone apex), a miss iff the ray leaves
     the scene bounds first; unresolved rays pass through unchanged.
+    ``static_bases = (base_b, base_t)`` puts the box and triangle segments
+    at fixed rows (cell-grid tables); else they follow the counts.
     """
     ox, oy, oz = state["ox"], state["oy"], state["oz"]
     dx, dy, dz = state["dx"], state["dy"], state["dz"]
@@ -238,8 +248,12 @@ def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
     def pad_chunk(x):
         return (x + CHUNK - 1) // CHUNK * CHUNK
 
-    base_b = pad_chunk(cnt[:, 0])
-    base_t = base_b + pad_chunk(cnt[:, 1])
+    if static_bases is None:
+        base_b = pad_chunk(cnt[:, 0])
+        base_t = base_b + pad_chunk(cnt[:, 1])
+    else:
+        base_b = torch.full_like(cnt[:, 0], int(static_bases[0]))
+        base_t = torch.full_like(cnt[:, 0], int(static_bases[1]))
     t_best = torch.full_like(ox, _INF)
     jwin = torch.full(ox.shape, -1, dtype=torch.int64, device=dev)
     chunks = torch.zeros((n_g, 3), dtype=torch.int32, device=dev)
@@ -543,10 +557,120 @@ def frame_bounce0(scene: Scene, cam: Camera, tab: Tensor, cnts: Tensor,
                         **_flags(scene))
 
 
+# ---------------------------------------------------------------------------
+# The wavefront entry
+# ---------------------------------------------------------------------------
+
+def group_rows(wave_sub: int) -> int:
+    """Rows per exit group for packets of ``wave_sub`` rows: GROUP_SUB
+    when it divides the packet, else one (a group never spans packets)."""
+    return GROUP_SUB if wave_sub % GROUP_SUB == 0 else 1
+
+
+def _wave_inputs(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
+                 wave_sub: int):
+    """Check the wavefront's shapes -> (wave array [TCAM_SLOTS], rows)."""
+    rows = cols[0].shape[0]
+    dev = scene.device
+    if len(cols) != 11 or rows % wave_sub:
+        raise ValueError(f"a wavefront is 11 planes of a multiple of "
+                         f"{wave_sub} rows, got {len(cols)} of {rows}")
+    if c_max % CHUNK:
+        raise ValueError(f"c_max {c_max} is not a multiple of {CHUNK}")
+    n_pk = rows // wave_sub
+    _need(tab, "candidate table", torch.float32, (n_pk * c_max, N_ATTR), dev)
+    _need(cnts, "candidate counts", torch.float32, (n_pk, 8), dev)
+    for c in cols:
+        if tuple(c.shape) != (rows, LANE) or c.device != dev:
+            raise ValueError(f"a state plane is {tuple(c.shape)} on "
+                             f"{c.device}, expected {(rows, LANE)} on {dev}")
+    sky_rgb = scene.textures.solid_rgb[scene.sky_tex]
+    bb_lo, bb_hi = _scene_bbox(scene)
+    f32 = torch.float32
+    # the camera pose slots are unused here; sky and scene bounds are read
+    arr = torch.cat([torch.zeros((16,), dtype=f32, device=dev),
+                     sky_rgb.to(f32).reshape(3),
+                     torch.zeros((2,), dtype=f32, device=dev),
+                     bb_lo.to(f32).reshape(3), bb_hi.to(f32).reshape(3),
+                     torch.zeros((TCAM_SLOTS - 27,), dtype=f32, device=dev)])
+    return arr.contiguous(), rows
+
+
+def wave_bounce_plain(scene: Scene, cols, tab: Tensor, cnts: Tensor,
+                      c_max: int, wave_sub: int = WAVE_SUB,
+                      static_bases=None, work: bool = False):
+    """Plain version of the wavefront kernel -> dict of [rows, LANE] planes
+    (``STATE_NAMES``; 15, or 18 with normals), plus ``"chunks"`` [groups,
+    3] when ``work``. ``cols`` holds the 11 input planes (ox .. path,
+    status), packet p = rows [p * wave_sub, (p + 1) * wave_sub) with table
+    p and counts row p."""
+    arr, rows = _wave_inputs(scene, cols, tab, cnts, c_max, wave_sub)
+    gr = group_rows(wave_sub)
+    n_g = rows // gr
+    dev = arr.device
+    g_tile = torch.arange(n_g, device=dev) // (wave_sub // gr)
+    state = {k: c.reshape(n_g, gr * LANE)
+             for k, c in zip(STATE_NAMES[:11], cols)}
+    out, chunks = bounce_tile_plain(
+        tab, c_max, g_tile, cnts[g_tile], arr[21:24], arr[24:27], arr[16:19],
+        state, static_bases=static_bases, **_flags(scene))
+    res = {k: v.reshape(rows, LANE) for k, v in out.items()}
+    if work:
+        res["chunks"] = chunks
+    return res
+
+
+def launch_wave(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
+                wave_sub: int = WAVE_SUB, static_bases=None,
+                work: bool = False):
+    """Launch ``tiled_wave_kernel`` (B7-wave) on the current stream -> the
+    planes of :func:`wave_bounce_plain` (status and pid are int32 views).
+    Does not synchronize."""
+    dev = scene.device
+    if dev.type != "cuda":
+        raise ValueError(f"the tiled wavefront kernel needs CUDA tensors, "
+                         f"got {dev}")
+    arr, rows = _wave_inputs(scene, cols, tab, cnts, c_max, wave_sub)
+    f32 = torch.float32
+    state = torch.stack([c if c.dtype == f32 else c.to(torch.int32).view(f32)
+                         for c in cols]).contiguous()
+    flags = _flags(scene)
+    n_out = 18 if flags["want_normal"] else 15
+    out = torch.empty((n_out, rows, LANE), dtype=f32, device=dev)
+    gr = group_rows(wave_sub)
+    chunks = (torch.zeros((rows // gr, 3), dtype=torch.int32, device=dev)
+              if work else None)
+    sb = (-1, -1) if static_bases is None else tuple(int(b)
+                                                     for b in static_bases)
+    lib = _build.load()
+    err = lib.rt_tiled_wave(
+        _ptr(tab), c_max, _ptr(cnts), _ptr(arr), _ptr(state), rows, wave_sub,
+        gr, sb[0], sb[1], int(flags["want_uv"]), int(flags["sky_solid"]),
+        int(flags["has_trans"]), int(flags["want_normal"]), _ptr(out),
+        _ptr(chunks), dev.index, _build.stream(dev))
+    _build.check(lib, err, "tiled_wave_kernel")
+    LAUNCHES["wave"] += 1
+    res = {}
+    for i, name in enumerate(STATE_NAMES[:n_out]):
+        res[name] = out[i].view(torch.int32) if name in _INT_PLANES else out[i]
+    if work:
+        res["chunks"] = chunks
+    return res
+
+
 def wave_bounce(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
-                wave_sub: Optional[int] = None, static_bases=None):
-    """One bounce of a packetized wavefront: the packet-mode entry of the
-    tiled kernel, not ported yet."""
-    raise NotImplementedError("the tiled wavefront entry (packet mode, "
-                              "kernel B7-wave) is not ported yet (ROADMAP "
-                              "A14)")
+                wave_sub: int = WAVE_SUB, static_bases=None,
+                work: bool = False):
+    """One bounce of a packetized wavefront -> dict of [rows, LANE] planes.
+
+    ``cols`` = the 11 planes (ox oy oz dx dy dz cr cg cb path status) of
+    [rows, LANE]; ``tab``/``cnts`` the per-packet tables ([packets * c_max,
+    N_ATTR], [packets, 8]) of ``accel/candidates.packet_candidates_grid``
+    (with ``static_bases = grid.base[1:]``) or ``packet_candidates``.
+    A finite t_safe leaves unresolved rays unchanged. CUDA scenes launch
+    the kernel; CPU scenes run :func:`wave_bounce_plain`."""
+    if _build.on_cpu(scene.device):
+        return wave_bounce_plain(scene, cols, tab, cnts, c_max, wave_sub,
+                                 static_bases, work)
+    return launch_wave(scene, cols, tab, cnts, c_max, wave_sub, static_bases,
+                       work)

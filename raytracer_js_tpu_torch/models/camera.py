@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..ops import vecmath as vm
 
 Tensor = torch.Tensor
@@ -52,7 +53,10 @@ class Camera:
 def camera_from_numpy(arrays: dict, *, fov_h: float, fov_v: float, w: int,
                       h: int, device=None) -> Camera:
     """Build a :class:`Camera` from numpy ``pos``, ``front``, ``left`` and
-    ``up`` arrays (the reference package's ``Camera`` fields)."""
+    ``up`` arrays (the reference package's ``Camera`` fields), on the card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
+
     def vec(k):
         return torch.as_tensor(np.array(arrays[k], np.float32),
                                device=device).reshape(3)
@@ -66,7 +70,10 @@ def make_camera(pos, w: int, h: int, fov_h: float, fov_v: float,
                 rot_h: float = 0.0, rot_v: float = 0.0,
                 device=None) -> Camera:
     """Identity triad front=(1,0,0), left=(0,1,0), up=(0,0,1)
-    (camera.ts:64-66), then optional rotations (camera.ts:70-74)."""
+    (camera.ts:64-66), then optional rotations (camera.ts:70-74). On the
+    card unless ``device`` says otherwise."""
+    device = resolve_device(device)
+
     def vec(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
 

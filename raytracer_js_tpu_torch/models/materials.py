@@ -9,7 +9,7 @@ import dataclasses
 
 import torch
 
-from ..config import ResponseType
+from ..config import ResponseType, resolve_device
 
 Tensor = torch.Tensor
 
@@ -35,7 +35,9 @@ SIMPLE_TRANSPARENT = (ResponseType.TRANSMISSION, False, False, 0.0)
 
 
 def make_material_table(rows, device=None) -> MaterialTable:
-    """Build from a list of (response, light, mirror, roughness) tuples."""
+    """Build from a list of (response, light, mirror, roughness) tuples, on
+    the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     rows = list(rows)
     if not rows:
         rows = [SIMPLE_SMOOTH]

@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import ResponseType, TextureKind
+from ..config import ResponseType, TextureKind, resolve_device
 from .materials import MaterialTable, make_material_table
 from .textures import TextureTable
 
@@ -139,8 +139,11 @@ def scene_from_numpy(arrays: dict, *, sky_tex: int, has_transmission: bool,
     ``materials.response``, ``materials.light``, ``materials.mirror``,
     ``materials.roughness``, ``textures.kind``, ``textures.ref``,
     ``textures.solid_rgb``, ``textures.atlas``, ``textures.img_h``,
-    ``textures.img_w``, and ``sub_refr`` and ``default_refr``.
+    ``textures.img_w``, and ``sub_refr`` and ``default_refr``. ``device``
+    defaults to the card (``config.resolve_device``).
     """
+    device = resolve_device(device)
+
     def t(name, dtype):
         return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
                                device=device)
@@ -181,7 +184,8 @@ class SceneBuilder:
     """Host-side scene assembly (reference main.ts:341-433 scene setup).
 
     All adders return integer ids; :meth:`build` freezes everything into a
-    :class:`Scene` on the requested device.
+    :class:`Scene` on the requested device, the card by default
+    (``build(device="cpu")`` for the CPU).
     """
 
     def __init__(self, atlas_hw: Optional[Tuple[int, int]] = None):
@@ -310,7 +314,7 @@ class SceneBuilder:
                + [b[2:] for b in self._boxes]
                + [t[3:] for t in self._tris])
         responses = [int(self._materials[i[0]][0]) for i in ids]
-        mats = make_material_table(self._materials)
+        mats = make_material_table(self._materials, device="cpu")
         # pad every image into a max-size atlas, keeping each native (h, w)
         if self._images:
             ah = max(im.shape[0] for im in self._images)

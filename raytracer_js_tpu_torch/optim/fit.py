@@ -209,7 +209,8 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     if fit_cfg.ckpt_dir:
         newest = ckpt.latest(fit_cfg.ckpt_dir)
         if newest is not None:
-            (saved, opt_state), start_step, _ = ckpt.restore(newest)
+            (saved, opt_state), start_step, _ = ckpt.restore(
+                newest, device=params[0].device)
             with torch.no_grad():
                 for p, q in zip(params, saved, strict=True):
                     p.copy_(q)

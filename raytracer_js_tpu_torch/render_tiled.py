@@ -1,27 +1,35 @@
-"""Big-scene frame renderer: the TILED backend in sweep mode.
+"""Big-scene frame renderer: the TILED backend.
 
-Port of ``raytracer_js_tpu.render_tiled`` for scenes of at most
-``SWEEP_MAX_PRIMS`` primitives (BASELINE configs 4 and 5):
+Port of ``raytracer_js_tpu.render_tiled`` (BASELINE configs 4 and 5):
 
 * bounce 0 — kernel B7 (``kernels/trace_tiled.frame_bounce0``) builds the
   rays from the camera and scans per-tile candidate tables
   (``accel/candidates.frame_candidates``, host-built once per camera pose);
-* bounces >= 1 — sweep rounds (:func:`_rescue_round`): the still-working
-  rays are sorted by (position cell, direction bin) and compacted to the
-  front, each 128-ray block gets a conservative list of Morton-ordered
-  128-sphere (and 128-triangle) tiles (:func:`_block_tile_select`), kernel
-  B6 (``kernels/nearest_hit``, listed) finds the winners, and
-  ``ops/trace._bounce`` shades and respawns with ``pid_override``.
+* bounces >= 1, scenes of at most ``SWEEP_MAX_PRIMS`` prims — sweep rounds
+  (:func:`_rescue_round`): the still-working rays are sorted by (position
+  cell, direction bin) and compacted to the front; with ``SWEEP_LISTED``
+  each 128-ray block gets a conservative list of Morton-ordered 128-sphere
+  (and 128-triangle) tiles (:func:`_block_tile_select`) and kernel B6
+  (``kernels/nearest_hit``, listed) finds the winners; with ``SWEEP_CULL``
+  instead kernel B8 culls sphere tiles by each block's cone; else B4
+  searches the whole table. ``ops/trace._bounce`` shades and respawns
+  with ``pid_override``;
+* bounces >= 1, larger scenes — packet rounds (:func:`packet_bounce`): the
+  working rays are sorted into coherent packets, each packet gets its own
+  candidate table from the cell grid of :func:`frame_tables`
+  (``accel/candidates.packet_candidates_grid``), kernel B7-wave
+  (``kernels/trace_tiled.wave_bounce``) advances every ray its table
+  resolves, and unresolved rays march through their proven-empty horizon;
+  ``EXTRA_ROUNDS`` retries bin finer, and whole-table rescue rounds (B4)
+  finish what is left.
 
 The terminal semantics (EXHAUST blackout, light-hit inverse-square
 attenuation) are applied at the end (:func:`_epilogue`). Image textures,
 image and cube-map skies (:func:`_apply_images`), rough scatter and
 refraction (:func:`_respawn_glue`) ride the glue between the kernels.
 
-What raises, naming its ROADMAP item: packet mode (scenes above
-``SWEEP_MAX_PRIMS``, kernel B7-wave), the octree ``accel=`` and the in-kernel
-cone cull ``SWEEP_CULL`` (kernel B8). The reference's ``RT_*`` environment
-knobs are module constants here.
+What raises, naming its ROADMAP item: the octree ``accel=``. The
+reference's ``RT_*`` environment knobs are module constants here.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from .ops import sampling
 Tensor = torch.Tensor
 
 #: scenes at or below this primitive count run sweep rounds for bounces
-#: >= 1; above it the reference runs packet rounds (not ported)
+#: >= 1; above it, packet rounds
 SWEEP_MAX_PRIMS = 1048576
 #: the compacted live prefix one sweep round processes; overflow live rays
 #: take another round
@@ -48,11 +56,28 @@ SWEEP_SLICE = 655360
 #: listed id-table width cap: classes with more 128-prim tiles get a
 #: supertile fan
 LISTED_MAX_TILES = 2048
-#: the in-kernel cone cull (kernel B8, rejected as the reference's default)
+#: sweep rounds search with per-block tile lists (kernel B6)
+SWEEP_LISTED = True
+#: sweep rounds cull sphere tiles in the kernel by each block's cone (kernel
+#: B8) where nothing was listed (the reference measured it slower than the
+#: lists and keeps it opt-in)
 SWEEP_CULL = False
 #: a class is listed only with at least this many (super)tiles: below it
 #: the per-chunk exits cost more than the dense stream saves
 LISTED_MIN_TILES = 64
+
+#: packet rounds: retry rounds beyond refmax - 1 for rays their truncated
+#: tables left unresolved
+EXTRA_ROUNDS = 10
+#: ceiling on the rowwise packet tables' candidate budget
+ESC_MAX = 1 << 14
+#: rays a whole-table rescue round resolves (B4 over the compacted slice)
+RESCUE_CAP = 65536
+#: packets per segment: a packet round works on the segments that hold a
+#: live ray (live rays sort to the front)
+SEG_PACKETS = 128
+#: packet height in rows of 128 rays
+WAVE_SUB = tt.WAVE_SUB
 
 #: internal status marking rays at the bounce cap, so the shading pass
 #: leaves them alone without losing their ALIVE-ness
@@ -63,14 +88,22 @@ _NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "cr", "cg", "cb", "path",
           "status")
 
 
-def frame_tables(scene: Scene, cam):
-    """Host-side bounce-0 candidate tables (cache them across frames while
-    the camera pose and the geometry are unchanged) -> ``(tab, cnts, c_max,
-    grid)``; ``grid``, the packet rounds' cell grid, is None until packet
-    mode is ported."""
+def supports(scene: Scene) -> bool:
+    """The full shading model rides this path: image textures and skies
+    (uv from the kernels, the atlas sampled in the glue), roughness and
+    transmission (the glue)."""
+    return True
+
+
+def frame_tables(scene: Scene, cam, packet_c_max: int = 4096):
+    """Host-side bounce-0 candidate tables and the packet rounds' cell grid
+    (cache them across frames while the camera pose and the geometry are
+    unchanged) -> ``(tab, cnts, c_max, grid)``; ``packet_c_max`` sizes the
+    grid's per-packet row budget."""
     tab, cnts, c_max = cand.frame_candidates(scene, cam, tt.TILE_SUB,
                                              tt.LANE)
-    return tab, cnts, c_max, None
+    grid = cand.build_cell_grid(scene, c_sel=packet_c_max)
+    return tab, cnts, c_max, grid
 
 
 def _dir_bin(d: Tensor) -> Tensor:
@@ -331,11 +364,13 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
                   rid, prows, cap: int, sweep_tab=None, rec=None):
     """One sweep round: sort the still-working rays to the front in
     (position cell, direction bin) order, search the first ``cap`` of them
-(B6 listed per 128-ray block for each class of ``sweep_tab``, the
-    :func:`_sweep_perm` tables, with ``LISTED_MIN_TILES`` tiles; B4
-    whole-table otherwise), shade and respawn through ``ops/trace._bounce``
-    with ``pid_override``, and scatter the state back. Each round fully resolves up to ``cap`` working rays (hit,
-    miss or continuation).
+    (with ``sweep_tab``, the :func:`_sweep_perm` tables: B6 listed per
+    128-ray block for each class with ``LISTED_MIN_TILES`` tiles when
+    ``SWEEP_LISTED``, else B8 culling the sphere tiles when ``SWEEP_CULL``;
+    B4 whole-table otherwise), shade and respawn through
+    ``ops/trace._bounce`` with ``pid_override``, and scatter the state
+    back. Each round fully resolves up to ``cap`` working rays (hit, miss
+    or continuation).
 
     ``flat`` holds the 11 state columns [n]; ``bounce``/``refr`` [n];
     ``rec`` ([n, refmax] i32, -1-initialized) switches on path recording:
@@ -369,13 +404,19 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
     if sweep_tab is not None:
         scene_s, sph_e, tri_e = sweep_tab
         kw = {}
-        if sph_e is not None and sph_e[1].shape[0] >= LISTED_MIN_TILES:
-            kw["tile_ids"] = _block_tile_select(org, dirs, work_sl, sph_e[1])
-            kw["sph_fan"] = sph_e[2]
-        if tri_e is not None and tri_e[1].shape[0] >= LISTED_MIN_TILES:
-            kw["tri_tile_ids"] = _block_tile_select(org, dirs, work_sl,
-                                                    tri_e[1])
-            kw["tri_fan"] = tri_e[2]
+        if SWEEP_LISTED:
+            if sph_e is not None and sph_e[1].shape[0] >= LISTED_MIN_TILES:
+                kw["tile_ids"] = _block_tile_select(org, dirs, work_sl,
+                                                    sph_e[1])
+                kw["sph_fan"] = sph_e[2]
+            if tri_e is not None and tri_e[1].shape[0] >= LISTED_MIN_TILES:
+                kw["tri_tile_ids"] = _block_tile_select(org, dirs, work_sl,
+                                                        tri_e[1])
+                kw["tri_fan"] = tri_e[2]
+        if (not kw and SWEEP_CULL and sph_e is not None and sph_e[2] == 1
+                and sph_e[1].shape[0] <= LISTED_MAX_TILES):
+            # the in-kernel block-cone cull of sphere tiles (B8)
+            kw["tile_bounds"] = sph_e[1]
         _t, pid = nearest_hit_pallas(scene_s, org, dirs, n_live=nl, **kw)
         # winners map back from permuted-class to global ids
         pid = pid.long()
@@ -427,48 +468,170 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
     return flat_n, bounce_n, refr_n, rec
 
 
-def _check_ported(scene: Scene, cfg: RenderConfig, accel) -> None:
-    if accel is not None:
-        raise NotImplementedError("the octree accel= is not ported yet "
-                                  "(ROADMAP A11)")
-    if SWEEP_CULL:
-        raise NotImplementedError("the in-kernel cone cull SWEEP_CULL "
-                                  "(kernel B8) is not ported yet (ROADMAP B8)")
-    if cfg.refmax > 1 and scene.n_prims > SWEEP_MAX_PRIMS:
-        raise NotImplementedError(
-            f"TILED packet mode (scenes above SWEEP_MAX_PRIMS = "
-            f"{SWEEP_MAX_PRIMS} prims, kernel B7-wave) is not ported yet "
-            f"(ROADMAP A14)")
+def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
+                  rng=None, fine_key: bool = False, grid=None):
+    """One packet round: sort the live rays into coherent packets, build
+    each packet's candidate table, advance every ray its table resolves
+    (B7-wave), march the unresolved ones, and un-sort.
+
+    ``cols`` = the 11 state columns [n] (status may hold the ``_CAP``
+    mark: such rays pass through). ``t_done`` [n] is each ray's proven
+    clear horizon. ``rng`` = (seed, rid, bounce, refr) for rough or
+    transmission scenes. ``fine_key`` bins by fine Morton position first
+    (retry rounds). ``grid`` is :func:`frame_tables`' cell grid (None: the
+    rowwise tables of ``c_max`` rows). Only the segments of
+    ``SEG_PACKETS`` packets that hold a live ray are worked (live rays sort
+    to the front): the reference's per-segment ``lax.cond`` as a host loop
+    over the live prefix, one sync a round. Returns (cols, t_done,
+    resolved hit [n] bool, refr [n], winner [n] i32: global ids, -1 for a
+    miss or an unresolved ray).
+    """
+    lane = tt.LANE
+    packet = WAVE_SUB * lane
+    n = cols[0].shape[0]
+    dev = scene.device
+    org = torch.stack(cols[0:3], -1)
+    dirs = torch.stack(cols[3:6], -1)
+    alive = cols[10] == _ALIVE
+    # primary key: the quantized cleared horizon, so stuck rays cluster
+    # apart from fresh ones
+    s_lo, s_hi = _robust_extent(scene)
+    diag = cand._norm3(s_hi - s_lo) + 1e-6
+    qt = torch.clamp((t_done / (diag / 16.0)).to(torch.int32), 0, 63)
+    if fine_key:
+        # Morton-major: spatially compact packets keep d_c below the
+        # resolution radius; direction only orders within a cell
+        key = ((((qt << 18) + _morton_key(scene, org, bits=6)) << 6)
+               + _dir_bin(dirs))
+    else:
+        key = (qt * 4096 + _pos_cell(scene, org)) * 64 + _dir_bin(dirs)
+    key = torch.where(alive, key.to(torch.int32), 1 << 30)
+    perm = torch.sort(key, stable=True).indices
+    need_glue = scene.has_rough or scene.has_transmission
+    flat_s = [c[perm] for c in cols]
+    t_done_s = t_done[perm]
+    if need_glue:
+        seed, rid, bounce, refr = rng
+        rid_s, bounce_s, refr_s = rid[perm], bounce[perm], refr[perm]
+    else:
+        refr_s = torch.zeros((n,), dtype=torch.float32, device=dev)
+    alive_s = alive[perm]
+    org_s, dir_s = org[perm], dirs[perm]
+
+    n_packets = n // packet
+    seg_n = min(SEG_PACKETS, n_packets) * packet
+    n_live = int(alive_s.sum())
+    new_flat = [f.clone() for f in flat_s]
+    pid_o = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u_o = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v_o = torch.zeros_like(u_o)
+    t_safe_ray = torch.zeros_like(u_o)
+    refr_o = refr_s.clone()
+    table = cand.prim_attr_table(scene) if grid is not None else None
+    for i0 in range(0, -(-n_live // seg_n) * seg_n, seg_n):
+        i1 = min(i0 + seg_n, n)
+        s_org = org_s[i0:i1]
+        if grid is not None:
+            tab, cnts, t_safe = cand.packet_candidates_grid(
+                scene, grid, s_org, dir_s[i0:i1], alive_s[i0:i1], packet,
+                t_done=t_done_s[i0:i1], table=table)
+            kc_max, bases = grid.c_max, grid.base[1:]
+        else:
+            tab, cnts, t_safe = cand.packet_candidates(
+                scene, s_org, dir_s[i0:i1], alive_s[i0:i1], packet, c_max,
+                t_done=t_done_s[i0:i1])
+            kc_max, bases = c_max, None
+        outs = tt.wave_bounce(
+            scene, [f[i0:i1].reshape(-1, lane) for f in flat_s], tab, cnts,
+            kc_max, wave_sub=WAVE_SUB, static_bases=bases)
+        fl = [outs[k].reshape(-1) for k in _NAMES]
+        pid_seg = outs["pid"].reshape(-1)
+        d_c = cand._norm3(s_org - torch.repeat_interleave(cnts[:, 4:7],
+                                                          packet, dim=0))
+        t_safe_ray[i0:i1] = torch.repeat_interleave(t_safe, packet) - d_c
+        if need_glue:
+            nrm = torch.stack([outs[k].reshape(-1)
+                               for k in ("nx", "ny", "nz")], -1)
+            org2, dir2, refr_o[i0:i1] = _respawn_glue(
+                scene, seed, rid_s[i0:i1], bounce_s[i0:i1], refr_s[i0:i1],
+                torch.stack(fl[0:3], -1), torch.stack(fl[3:6], -1), fl[10],
+                pid_seg, outs["t"].reshape(-1), nrm)
+            fl[0:3] = [org2[:, 0], org2[:, 1], org2[:, 2]]
+            fl[3:6] = [dir2[:, 0], dir2[:, 1], dir2[:, 2]]
+        for f, a in zip(new_flat, fl):
+            f[i0:i1] = a
+        pid_o[i0:i1] = pid_seg
+        u_o[i0:i1] = outs["u"].reshape(-1)
+        v_o[i0:i1] = outs["v"].reshape(-1)
+
+    if scene.textures.has_images or scene.sky_box is not None:
+        colors = _apply_images(scene, torch.stack(new_flat[6:9], -1),
+                               torch.stack(new_flat[3:6], -1), new_flat[10],
+                               alive_s, pid_o, u_o, v_o)
+        new_flat[6:9] = [colors[:, 0], colors[:, 1], colors[:, 2]]
+    # march the unresolved rays: the round proved no hit in [0,
+    # t_safe_ray), so advancing the origin through it is exact (the path
+    # takes the advance); the margin guards the f32 error of t_safe
+    res_hit = pid_o >= 0
+    unres = alive_s & ~res_hit & (new_flat[10] == _ALIVE)
+    t_adv = torch.where(unres, torch.clamp(t_safe_ray - 1e-4 * diag,
+                                           min=0.0), 0.0)
+    for i in range(3):
+        new_flat[i] = new_flat[i] + t_adv * new_flat[3 + i]
+    new_flat[9] = new_flat[9] + t_adv
+    # what stays proven clear ahead of the new origin
+    t_done_s = torch.where(
+        unres, torch.clamp(torch.maximum(t_done_s, t_safe_ray) - t_adv,
+                           min=0.0), t_done_s)
+
+    def unsort(x):
+        out = torch.empty_like(x)
+        out[perm] = x
+        return out
+
+    return ([unsort(f) for f in new_flat], unsort(t_done_s),
+            unsort(res_hit), unsort(refr_o), unsort(pid_o))
+
 
 
 def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
                        seed: Optional[int] = None, sample: int = 0,
                        accel=None, with_diag: bool = False,
-                       with_record: bool = False):
+                       with_record: bool = False, packet_c_max: int = 4096):
     """Full-frame HDR render via the tiled kernels -> [h, w, 3].
 
     Bounce 0 runs kernel B7 over the exact (untruncated) frustum candidate
-    tables; later bounces run sweep rounds (:func:`_rescue_round`) until no
-    ray is working, at most ``(refmax + 3) * ceil(n / SWEEP_SLICE)``.
-    ``with_diag`` adds ``{"unresolved": rays still working when the rounds
-    ran out (0 == the frame is exact), "rounds": sweep rounds run}``;
+    tables. Later bounces, on scenes of at most ``SWEEP_MAX_PRIMS`` prims,
+    run sweep rounds (:func:`_rescue_round`) until no ray is working, at
+    most ``(refmax + 3) * ceil(n / SWEEP_SLICE)``; on larger scenes,
+    ``refmax - 1`` packet rounds (:func:`packet_bounce`), up to
+    ``EXTRA_ROUNDS`` retry rounds binned by fine position, then whole-table
+    rescue rounds of ``RESCUE_CAP`` rays (B4), at most ``(refmax + 3) *
+    ceil(n / RESCUE_CAP)``. ``with_diag`` adds ``{"unresolved": rays still
+    working when the rounds ran out (0 == the frame is exact), "rounds":
+    sweep or rescue rounds run}`` (packet mode adds ``"packet_rounds"``);
     ``with_record`` adds ``pid_seq [h*w, refmax]`` i32, the winner of every
     pixel ray per bounce (-1 = miss), which ``ops/trace.trace_rays``
     replays (``pid_seq=``). Return orders: img | (img, diag) | (img, rec) |
     (img, diag, rec).
 
-    ``tables`` — an optional cached :func:`frame_tables` result (or its
-    first three entries). ``seed``/``sample`` key the counter-RNG streams of
-    rough scenes (rid = (y*w + x)*spp + sample, as every backend).
+    ``tables`` — an optional cached :func:`frame_tables` result (a legacy
+    3-tuple without the cell grid makes packet rounds select rowwise,
+    ``packet_c_max`` rows a packet). ``seed``/``sample`` key the
+    counter-RNG streams of rough scenes (rid = (y*w + x)*spp + sample, as
+    every backend).
     """
     from .render import start_substance
 
-    _check_ported(scene, cfg, accel)
+    if accel is not None:
+        raise NotImplementedError("the octree accel= is not ported yet "
+                                  "(ROADMAP A11)")
     if seed is None:
         seed = sampling.DEFAULT_SEED
     if tables is None:
-        tables = frame_tables(scene, cam)
+        tables = frame_tables(scene, cam, packet_c_max=packet_c_max)
     tab, cnts, c_max = tables[:3]
+    grid = tables[3] if len(tables) > 3 else None
     dev = scene.device
     need_glue = scene.has_rough or scene.has_transmission
     st = tt.frame_bounce0(scene, cam, tab, cnts, c_max)
@@ -505,33 +668,67 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
 
     cols = [flat[k] for k in _NAMES]
     unresolved = torch.zeros((), dtype=torch.int32, device=dev)
-    rounds = 0
+    rounds = packet_rounds = 0
     rec = None
     if with_record:
         rec = torch.full((n, cfg.refmax), -1, dtype=torch.int32, device=dev)
         rec[:, 0] = torch.where(valid, flat["pid"], -1)
+
+    def working(cols, bounce):
+        return (cols[10] == _ALIVE) & (bounce < cfg.refmax)
+
     if cfg.refmax > 1:
         from .ops.trace import prim_rows
 
         # rays continuing out of bounce 0 have spent one bounce
         bounce = (cols[10] == _ALIVE).to(torch.int32)
-        sw_cap = min(n, SWEEP_SLICE)
-        sw_rounds = (cfg.refmax + 3) * (-(-n // sw_cap))
-        sweep_tab = _sweep_perm(scene)
         prows = prim_rows(scene)
-        while rounds < sw_rounds and bool(
-                ((cols[10] == _ALIVE) & (bounce < cfg.refmax)).any()):
+        if scene.n_prims <= SWEEP_MAX_PRIMS:
+            cap = min(n, SWEEP_SLICE)
+            sweep_tab = (_sweep_perm(scene) if SWEEP_LISTED or SWEEP_CULL
+                         else None)
+        else:
+            t_done = torch.zeros((n,), dtype=torch.float32, device=dev)
+            c_round = min(packet_c_max, ESC_MAX)
+            for fine in [False] * (cfg.refmax - 1) + [True] * EXTRA_ROUNDS:
+                if not bool(working(cols, bounce).any()):
+                    break
+                # rays at the bounce cap pass through the packet round
+                capped = (cols[10] == _ALIVE) & (bounce >= cfg.refmax)
+                cols[10] = torch.where(capped, _CAP, cols[10]).to(
+                    torch.int32)
+                rng = (seed, rid, bounce, refr) if need_glue else None
+                cols, t_done, res_hit, refr, pid_o = packet_bounce(
+                    scene, cols, c_round, t_done, rng=rng, fine_key=fine,
+                    grid=grid)
+                if rec is not None:
+                    # the winner goes to the pre-increment bounce column
+                    col = torch.arange(cfg.refmax, device=dev)
+                    rec = torch.where(res_hit[:, None]
+                                      & (bounce[:, None] == col),
+                                      pid_o[:, None], rec)
+                bounce = bounce + (res_hit & (cols[10] == _ALIVE)).to(
+                    torch.int32)
+                cols[10] = torch.where(cols[10] == _CAP, _ALIVE,
+                                       cols[10]).to(torch.int32)
+                packet_rounds += 1
+            # whole-table rescue rounds (B4) finish the stragglers
+            cap = min(n, RESCUE_CAP)
+            sweep_tab = None
+        max_rounds = (cfg.refmax + 3) * (-(-n // cap))
+        while rounds < max_rounds and bool(working(cols, bounce).any()):
             cols, bounce, refr, rec = _rescue_round(
-                scene, cfg, cols, bounce, refr, seed, rid, prows,
-                cap=sw_cap, sweep_tab=sweep_tab, rec=rec)
+                scene, cfg, cols, bounce, refr, seed, rid, prows, cap=cap,
+                sweep_tab=sweep_tab, rec=rec)
             rounds += 1
-        unresolved = ((cols[10] == _ALIVE) & (bounce < cfg.refmax)).sum().to(
-            torch.int32)
+        unresolved = working(cols, bounce).sum().to(torch.int32)
     cr, cg, cb, _ = _epilogue(cols[6], cols[7], cols[8], cols[9], cols[10],
                               float(cfg.distance_attenuation_factor))
     img = torch.stack([cr, cg, cb], -1).reshape(hp, wp, 3)[:cam.h, :cam.w]
     return _rtl_outs(img, unresolved, rec, cam, hp, wp, cfg, with_diag,
-                     with_record, rounds=rounds)
+                     with_record, rounds=rounds, packet_rounds=(packet_rounds
+                                    if scene.n_prims > SWEEP_MAX_PRIMS
+                                    and cfg.refmax > 1 else None))
 
 
 def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
@@ -573,13 +770,15 @@ def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
 
 
 def _rtl_outs(img, unresolved, rec, cam, hp, wp, cfg, with_diag,
-              with_record, rounds=None):
+              with_record, rounds=None, packet_rounds=None):
     """Assemble render_frame_tiled's return tuple (img | +diag | +rec)."""
     outs = (img,)
     if with_diag:
         diag = {"unresolved": unresolved}
         if rounds is not None:
             diag["rounds"] = rounds
+        if packet_rounds is not None:
+            diag["packet_rounds"] = packet_rounds
         outs = outs + (diag,)
     if with_record:
         rec = rec.reshape(hp, wp, cfg.refmax)[:cam.h, :cam.w]

@@ -15,6 +15,8 @@ from typing import Any, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 PathLike = Union[str, pathlib.Path]
 
 
@@ -103,12 +105,14 @@ def restore(path: PathLike, like: Any = None,
     With ``like``, the stored structure must equal ``like``'s (else
     ``ValueError``) and each leaf takes the shape, dtype and device of
     ``like``'s leaf; without it, tensors come back with their stored dtype
-    on ``device`` (default the CPU).
+    on ``device`` (default the card, ``config.resolve_device``).
     """
     path = pathlib.Path(path).with_suffix(".npz")
     info = json.loads(path.with_suffix(".json").read_text())
     like_leaves = None
-    if like is not None:
+    if like is None:
+        device = resolve_device(device)
+    else:
         like_leaves = []
         like_skel = _encode(like, like_leaves)
         if _shape_of(like_skel) != _shape_of(info["tree"]):

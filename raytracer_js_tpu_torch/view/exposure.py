@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from ..config import resolve_device
+
 Tensor = torch.Tensor
 
 # BT.601 luma weights (exposure_buffer.ts:161-173).
@@ -29,6 +31,8 @@ class ExposureBuffer:
 
 def new_exposure_buffer(h: int, w: int, max_frames: int = -1,
                         device=None) -> ExposureBuffer:
+    """An empty buffer, on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return ExposureBuffer(
         pixels=torch.zeros((h, w, 3), dtype=torch.float32, device=device),
         frame_count=torch.zeros((), dtype=torch.int32, device=device),

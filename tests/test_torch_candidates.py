@@ -96,10 +96,13 @@ def test_frame_tables_and_overflow():
     jc = make_camera((0.1, 0.2, 0.5), 131, 37, 1.5, 1.1)
     ps, pc = to_port_scene(js), to_port_camera(jc)
     tab, cnts, c_max, grid = prtl.frame_tables(ps, pc)
-    assert grid is None
-    j_tab, j_cnt, j_cmax, _ = j_frame_tables(js, jc)
+    j_tab, j_cnt, j_cmax, j_grid = j_frame_tables(js, jc)
     np.testing.assert_array_equal(tab.numpy(), np.asarray(j_tab))
     assert c_max == j_cmax
+    # the packet rounds' cell grid, at the default row budget
+    assert isinstance(grid, pcand.CellGrid)
+    assert (grid.c_max, grid.budget, grid.base) == (
+        j_grid.c_max, j_grid.budget, j_grid.base)
     # the candidate counts cover all three classes
     assert (cnts[:, 0:3].sum(dim=0) > 0).all()
     with pytest.raises(ValueError, match="overflow"):
@@ -158,11 +161,11 @@ def test_chip_smoke_config4_scene_is_bench_config4(monkeypatch):
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     bench = load_by_path("bench", ROOT / "bench.py")
     smoke = load_by_path("chip_smoke", ROOT / "chip_smoke.py")
-    port, ref = smoke.config4_scene(2000), bench.build_config4_scene(2000)
+    port, ref = smoke.config4_scene(2000, device="cpu"), bench.build_config4_scene(2000)
     assert_same_scene(port, ref)
     assert (port.n_prims, port.n_spheres, port.n_boxes) == (2000, 1999, 1)
     assert inspect.signature(smoke.config4_scene).parameters[
         "n_prims"].default == 100_000
-    cam = smoke.config4_camera()
+    cam = smoke.config4_camera("cpu")
     assert (cam.w, cam.h) == (1920, 1088)
     assert cam.fov_v == pytest.approx(np.pi / 2 * 1088 / 1920)

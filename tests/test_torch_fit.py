@@ -184,7 +184,7 @@ def test_checkpoint_roundtrip(tmp_path):
                                                        "flag": None}}
     p = ckpt.save(tmp_path / "x", tree, step=7, meta={"k": "v"})
     assert p.suffix == ".npz" and p.with_suffix(".json").exists()
-    out, step, meta = ckpt.restore(p)
+    out, step, meta = ckpt.restore(p, device="cpu")
     assert step == 7 and meta == {"k": "v"}
     assert out[7] == {"lr": 0.01, "betas": (0.9, 0.999), "flag": None}
     assert out["b"][0].dtype == torch.int32 and isinstance(out["b"], tuple)

@@ -25,11 +25,12 @@ b = rt.SceneBuilder()
 b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
 m = b.add_material(rt.ResponseType.REFLECTION, mirror=True)
 b.add_sphere((4, 0, 0), 1.0, m, b.add_solid_texture((0.9, 0.2, 0.1)))
-scene = b.build()
-cam = rt.make_camera((0, 0, 0.5), 8, 8, np.pi / 2, np.pi / 2)
+scene = b.build(device="cpu")
+cam = rt.make_camera((0, 0, 0.5), 8, 8, np.pi / 2, np.pi / 2,
+                     device="cpu")
 hdr = rt.render_hdr(scene, cam, rt.RenderConfig(
     refmax=3, backend=rt.HitBackend.FUSED))
-ldr = view.draw(exposure.accumulate(exposure.new_exposure_buffer(8, 8), hdr),
+ldr = view.draw(exposure.accumulate(exposure.new_exposure_buffer(8, 8, device="cpu"), hdr),
                 rt.ToneMapConfig())
 assert tuple(hdr.shape) == (8, 8, 3) and bool(torch.isfinite(hdr).all())
 from raytracer_js_tpu_torch.kernels import nearest_hit
@@ -39,7 +40,7 @@ b.set_sky_box([b.add_image_texture(np.full((8, 8, 3), k / 6, np.float32))
 b.add_sphere((4, 0, 0), 1.0, b.add_material(rt.ResponseType.REFLECTION,
                                             mirror=True), b.add_image_texture(
     np.random.default_rng(0).uniform(0, 1, (8, 8, 3)), bilinear=True))
-img = rt.render_hdr(b.build(), cam, rt.RenderConfig(
+img = rt.render_hdr(b.build(device="cpu"), cam, rt.RenderConfig(
     refmax=2, backend=rt.HitBackend.PALLAS))
 assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
 from raytracer_js_tpu_torch.kernels import replay_grad
@@ -50,7 +51,7 @@ b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
 b.add_sphere((4, 0, 0), 1.0, b.add_material(rt.ResponseType.REFLECTION,
                                             mirror=True),
              b.add_solid_texture((.9, .2, .1)))
-res = fit(b.build(), rt.RenderConfig(refmax=2, backend=rt.HitBackend.PALLAS),
+res = fit(b.build(device="cpu"), rt.RenderConfig(refmax=2, backend=rt.HitBackend.PALLAS),
           [cam], torch.zeros((1, 64, 3)), FitConfig(steps=2, replay_every=1))
 assert len(res.losses) == 2 and res.losses[1] < res.losses[0]
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
@@ -66,7 +67,7 @@ def test_imports_and_renders_with_jax_and_flax_blocked():
     assert "rendered" in out.stdout
     # CPU tensors take the plain versions: no kernel was launched
     assert ("{'frame': 0, 'rays': 0} {'scalar': 0, 'dense': 0, "
-            "'listed': 0} {'fwd': 0, 'bwd': 0}") in out.stdout
+            "'listed': 0, 'culled': 0} {'fwd': 0, 'bwd': 0}") in out.stdout
 
 
 def test_no_module_imports_jax_or_flax():

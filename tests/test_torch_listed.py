@@ -173,7 +173,8 @@ def test_sweep_keys_match_reference():
 def test_listed_dispatch_padding_and_refusals():
     """``nearest_hit_pallas`` with lists on CPU tensors runs the plain
     version; the lists are padded as the reference pads them; the launcher
-    refuses CPU tensors; the cone-culled variant (B8) still raises."""
+    refuses CPU tensors; ``tile_bounds`` dispatches to B8's plain version,
+    whose launcher refuses CPU tensors too."""
     ps = to_port_scene(sphere_field())
     sw = prtl._sweep_perm(ps)
     org, d = map(torch.as_tensor, field_rays(300, seed=2))
@@ -193,9 +194,13 @@ def test_listed_dispatch_padding_and_refusals():
         nh.launch_listed(li, org, d)
     with pytest.raises(ValueError, match="rows"):
         nh.listed_inputs(sw[0], 1000, tile_ids=ids)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        nh.nearest_hit_pallas(sw[0], org, d, tile_bounds=sw[1][1])
-    assert nh.LAUNCHES == {"scalar": 0, "dense": 0, "listed": 0}
+    t3, pid3 = nh.nearest_hit_pallas(sw[0], org, d, tile_bounds=sw[1][1])
+    t4, pid4 = nh.nearest_hit_culled_plain(sw[0], org, d, sw[1][1])
+    assert torch.equal(t3, t4) and torch.equal(pid3, pid4)
+    with pytest.raises(ValueError, match="CUDA"):
+        nh.launch_culled(nh.pack_tables(sw[0]), org, d, sw[1][1])
+    assert nh.LAUNCHES == {"scalar": 0, "dense": 0, "listed": 0,
+                           "culled": 0}
 
 
 def test_sweep_frame_reaches_listed_plain(monkeypatch):

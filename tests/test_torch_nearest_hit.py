@@ -195,7 +195,8 @@ def test_cpu_wrappers_take_the_plain_versions():
                         (nh.nearest_hit_pallas, nh.nearest_hit_pallas_plain)):
         (t, pid), (wt, wp) = wrap(ps, org, d), plain(ps, org, d)
         assert torch.equal(t, wt) and torch.equal(pid, wp)
-    assert nh.LAUNCHES == before == {"scalar": 0, "dense": 0, "listed": 0}
+    assert nh.LAUNCHES == before == {"scalar": 0, "dense": 0, "listed": 0,
+                                   "culled": 0}
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -206,7 +207,8 @@ def test_launchers_refuse_cpu_tensors():
         nh.launch_scalar(tabs, org, d)
     with pytest.raises(ValueError, match="CUDA"):
         nh.launch_dense(tabs, org, d)
-    assert nh.LAUNCHES == {"scalar": 0, "dense": 0, "listed": 0}
+    assert nh.LAUNCHES == {"scalar": 0, "dense": 0, "listed": 0,
+                           "culled": 0}
 
 
 def test_pack_tables_layout():
@@ -230,15 +232,12 @@ def test_pack_tables_layout():
     ({"tri_tile_ids": (torch.zeros((1, 1)), torch.zeros((1, 1)))}, "B6"),
     ({"sph_fan": 4}, "B6")])
 def test_listed_and_culled_variants_raise(arg, item):
-    """The cone-culled variant (B8) still raises; the listed variant (B6)
-    runs: a list naming every (one-tile) class streams the whole scene, and
-    a fan without a list is the dense search, as in the reference."""
+    """Both variants run and give B4's result: the cone-culled one (B8) on
+    rays of every direction keeps every tile (cos_t < 0.25), a list naming
+    every (one-tile) class streams the whole scene (B6), and a fan without
+    a list is the dense search, as in the reference."""
     ps = to_port_scene(config1_scene(with_glass=True, with_tri=True))
     org, d = map(torch.as_tensor, rand_rays(100, seed=4))
-    if item == "B8":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            nh.nearest_hit_pallas(ps, org, d, **arg)
-        return
     t, pid = nh.nearest_hit_pallas(ps, org, d, **arg)
     want_t, want_pid = nh.nearest_hit_pallas_plain(ps, org, d)
     assert torch.equal(pid, want_pid) and torch.equal(t, want_t)

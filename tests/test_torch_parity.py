@@ -47,6 +47,16 @@ def to_torch(x):
     return torch.as_tensor(np.array(x))
 
 
+def build_cpu(builder):
+    """``builder.build()``, on the CPU for the port's builder (whose default
+    device is the card)."""
+    import raytracer_js_tpu_torch as prt
+
+    if isinstance(builder, prt.SceneBuilder):
+        return builder.build(device="cpu")
+    return builder.build()
+
+
 def to_port_scene(scene):
     return scene_from_numpy(jax_scene_arrays(scene), sky_tex=scene.sky_tex,
                             sky_box=scene.sky_box,
@@ -54,14 +64,15 @@ def to_port_scene(scene):
                             has_rough=scene.has_rough,
                             has_both=scene.has_both,
                             has_images=scene.textures.has_images,
-                            has_bilinear=scene.textures.has_bilinear)
+                            has_bilinear=scene.textures.has_bilinear,
+                            device="cpu")
 
 
 def to_port_camera(cam):
     return camera_from_numpy(
         {k: np.asarray(getattr(cam, k)) for k in ("pos", "front", "left",
                                                   "up")},
-        fov_h=cam.fov_h, fov_v=cam.fov_v, w=cam.w, h=cam.h)
+        fov_h=cam.fov_h, fov_v=cam.fov_v, w=cam.w, h=cam.h, device="cpu")
 
 
 def to_port_cfg(cfg):

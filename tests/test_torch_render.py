@@ -103,16 +103,15 @@ def _many_spheres(n):
     rng = np.random.default_rng(0)
     for c in rng.uniform(-5.0, 5.0, (n, 3)):
         b.add_sphere(c + [10.0, 0.0, 0.0], 0.1, m, tex)
-    return b.build()
+    return b.build(device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["PALLAS", "OCTREE", "TILED"])
 def test_unported_backends_raise(backend):
     """What each backend does not port yet raises, naming its ROADMAP item
-    (PALLAS's cone-culled kernel variant B8, OCTREE), and what was ported
-    since runs: PALLAS's listed variant (B6) and TILED on scenes above
-    ``TILED_MIN_PRIMS`` (kernels B7 and B6; smaller ones render on
-    PALLAS)."""
+    (OCTREE), and what was ported since runs: PALLAS's listed and culled
+    variants (B6, B8) and TILED on scenes above ``TILED_MIN_PRIMS``
+    (kernels B7 and B6; smaller ones render on PALLAS)."""
     from raytracer_js_tpu_torch.kernels import nearest_hit as nh
     from raytracer_js_tpu_torch.render import TILED_MIN_PRIMS
 
@@ -121,8 +120,11 @@ def test_unported_backends_raise(backend):
     cfg = rt.RenderConfig(refmax=2, backend=rt.HitBackend[backend])
     if backend == "PALLAS":
         org, d = torch.zeros((2, 3)), torch.ones((2, 3))
-        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-            nh.nearest_hit_pallas(ps, org, d, tile_bounds=torch.zeros(1, 4))
+        # a tile bound that reaches everything: B8 is B4
+        tb = torch.tensor([[0.0, 0.0, 0.0, 1e3]])
+        assert all(torch.equal(a, b) for a, b in zip(
+            nh.nearest_hit_pallas(ps, org, d, tile_bounds=tb),
+            nh.nearest_hit_pallas_plain(ps, org, d)))
         ids = (torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1)))
         assert all(torch.equal(a, b) for a, b in zip(
             nh.nearest_hit_pallas(ps, org, d, tile_ids=ids),
@@ -192,7 +194,8 @@ def _hdr(seed=0, h=16, w=20):
 
 
 def test_exposure_accumulate_and_luma():
-    jb, pb = jex.new_exposure_buffer(16, 20), pex.new_exposure_buffer(16, 20)
+    jb, pb = jex.new_exposure_buffer(16, 20), pex.new_exposure_buffer(
+        16, 20, device="cpu")
     for s in range(3):
         f = _hdr(s)
         jb = jex.accumulate(jb, jnp.asarray(f))
@@ -202,7 +205,7 @@ def test_exposure_accumulate_and_luma():
     assert int(pb.frame_count) == int(jb.frame_count) == 3
     np.testing.assert_allclose(pex.luma(pb.pixels).numpy(),
                                np.asarray(jex.luma(jb.pixels)), rtol=1e-6)
-    capped = pex.new_exposure_buffer(16, 20, max_frames=1)
+    capped = pex.new_exposure_buffer(16, 20, max_frames=1, device="cpu")
     capped = pex.accumulate(pex.accumulate(capped, torch.ones(16, 20, 3)),
                             torch.zeros(16, 20, 3))
     assert int(capped.frame_count) == 1 and float(capped.pixels.min()) == 0.5
@@ -213,7 +216,8 @@ def test_exposure_accumulate_and_luma():
 def test_tonemap_and_draw(kind):
     f = _hdr(4)
     jb = jex.accumulate(jex.new_exposure_buffer(16, 20), jnp.asarray(f))
-    pb = pex.accumulate(pex.new_exposure_buffer(16, 20), torch.as_tensor(f))
+    pb = pex.accumulate(pex.new_exposure_buffer(16, 20, device="cpu"),
+                        torch.as_tensor(f))
     j = np.asarray(jview.draw(jb, JTC(kind=JTK[kind], dynamic_range=5)))
     p = pview.draw(pb, PTC(kind=PTK[kind], dynamic_range=5)).numpy()
     np.testing.assert_allclose(p, j, rtol=1e-5, atol=1e-6)
@@ -243,6 +247,6 @@ def test_chip_smoke_headline_scene_is_bench_build_scene(monkeypatch):
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     bench = load_by_path("bench", ROOT / "bench.py")
     smoke = load_by_path("chip_smoke", ROOT / "chip_smoke.py")
-    port, ref = smoke.headline_scene(), bench.build_scene(50)
+    port, ref = smoke.headline_scene(device="cpu"), bench.build_scene(50)
     assert_same_scene(port, ref)
     assert port.n_prims == 52 and port.n_spheres == 51

@@ -49,7 +49,7 @@ def assert_same_scene(port, ref):
                           (True, True)])
 def test_builder_config1(with_glass, with_tri):
     smoke = load_by_path("chip_smoke", ROOT / "chip_smoke.py")
-    assert_same_scene(smoke.config1_scene(with_glass, with_tri),
+    assert_same_scene(smoke.config1_scene(with_glass, with_tri, device="cpu"),
                       config1_scene(with_glass, with_tri))
 
 
@@ -66,7 +66,7 @@ def test_builder_flags_and_defaults():
         jb, pb = JB(), PB()
         make(jb)
         make(pb)
-        assert_same_scene(pb.build(), jb.build())
+        assert_same_scene(pb.build(device="cpu"), jb.build())
 
 
 def test_prim_aabbs_and_volumes():
@@ -91,7 +91,7 @@ def test_unported_textures_raise():
         b.set_sky_box([0] * 5)
     img = b.add_image_texture(np.zeros((4, 4, 3), np.float32))
     b.set_sky_box([img] * 6)
-    scene = b.build()
+    scene = b.build(device="cpu")
     assert scene.sky_box == (img,) * 6 and scene.textures.has_images
 
 
@@ -103,7 +103,8 @@ _CAMS = [((0.0, 0.0, 0.5), 32, 32, np.pi / 2, np.pi / 2, 0.0, 0.0),
 @pytest.mark.parametrize("args", _CAMS)
 def test_make_camera_and_pixel_rays(args):
     jc = j_make_camera(*args[:5], rot_h=args[5], rot_v=args[6])
-    pc = pcam.make_camera(*args[:5], rot_h=args[5], rot_v=args[6])
+    pc = pcam.make_camera(*args[:5], rot_h=args[5], rot_v=args[6],
+                          device="cpu")
     for k in ("pos", "front", "left", "up"):
         np.testing.assert_allclose(getattr(pc, k).numpy(),
                                    np.asarray(getattr(jc, k)), atol=1e-6)
@@ -117,7 +118,7 @@ def test_make_camera_and_pixel_rays(args):
 
 def test_rotate_and_move():
     jc = j_make_camera((0, 0, 0), 8, 8, 1.0, 1.0)
-    pc = pcam.make_camera((0, 0, 0), 8, 8, 1.0, 1.0)
+    pc = pcam.make_camera((0, 0, 0), 8, 8, 1.0, 1.0, device="cpu")
     jc = jcam.move(jcam.rotate_v(jcam.rotate_h(jc, 0.7), -0.4, lock=True),
                    (1.0, -2.0, 0.5))
     pc = pcam.move(pcam.rotate_v(pcam.rotate_h(pc, 0.7), -0.4, lock=True),

@@ -30,7 +30,7 @@ from raytracer_js_tpu_torch.render import render_rays as p_render_rays
 from raytracer_js_tpu_torch.utils import mesh as pmesh
 
 from scenes import config1_scene
-from test_torch_parity import (ROOT, assert_parity, load_by_path,
+from test_torch_parity import (ROOT, assert_parity, build_cpu, load_by_path,
                                to_port_camera, to_port_cfg, to_port_scene,
                                to_torch)
 from test_torch_render import _render_both
@@ -57,7 +57,7 @@ def box_uv_scene(pkg):
     tex = b.add_image_texture(rng.uniform(0.0, 1.0, (16, 16, 3))
                               .astype(np.float32))
     b.add_box((4.0, 0.0, 0.0), 2.0, m, tex)
-    return b.build()
+    return build_cpu(b)
 
 
 def bilinear_scene(pkg, bilinear=True):
@@ -69,7 +69,7 @@ def bilinear_scene(pkg, bilinear=True):
     m = b.add_material(pkg.ResponseType.REFLECTION)
     b.add_sphere((4.0, 0.0, 0.0), 1.5, m,
                  b.add_image_texture(img16, bilinear=bilinear))
-    return b.build()
+    return build_cpu(b)
 
 
 def sky_box_scene(pkg, image_faces):
@@ -88,7 +88,7 @@ def sky_box_scene(pkg, image_faces):
     b.set_sky_box(faces)
     b.add_sphere((4.0, 0.0, 0.0), 1.0, m,
                  b.add_solid_texture((0.9, 0.9, 0.9)))
-    return b.build()
+    return build_cpu(b)
 
 
 def mixed_images_scene(pkg):
@@ -109,7 +109,7 @@ def mixed_images_scene(pkg):
     b.add_sphere((4.0, 1.2, 0.0), 1.0, diffuse, t_big_bl)
     b.add_sphere((4.0, 0.0, 4.0), 0.8, light,
                  b.add_solid_texture((1.0, 1.0, 1.0)))
-    return b.build()
+    return build_cpu(b)
 
 
 _RECIPES = {
@@ -150,7 +150,7 @@ def test_builder_resizes_to_atlas_hw_and_clears_the_sky_box():
         b.set_sky_box([sky] * 6)
         b.set_sky(sky)
         if pkg is prt:
-            port = b.build()
+            port = b.build(device="cpu")
         else:
             ref = b.build()
     assert_same_scene(port, ref)
@@ -174,7 +174,7 @@ def test_chip_smoke_config3_scene_is_bench_config3(monkeypatch):
     (bench.py sets a default JAX cache directory in the environment; the
     monkeypatch keeps it from leaking into later tests' subprocesses)."""
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
-    port, ref = _smoke().config3_scene(), _bench().build_config3_scene()
+    port, ref = _smoke().config3_scene(device="cpu"), _bench().build_config3_scene()
     assert_same_scene(port, ref)
     assert (port.n_prims, port.n_tris, port.n_spheres) == (5124, 5120, 3)
     assert port.textures.has_images and not port.textures.has_bilinear

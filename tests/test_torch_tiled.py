@@ -135,7 +135,7 @@ def test_frame_bounce0_plain_matches_reference(name):
     listed = cnts[g_tile, :3] > 0
     assert torch.equal(chunks > 0, live[:, None] & listed)
     assert bool((chunks.sum(1) * tt.CHUNK <= c_max).all())
-    assert tt.LAUNCHES == {"frame": 0}
+    assert tt.LAUNCHES == {"frame": 0, "wave": 0}
 
 
 def test_group_layout_round_trips():
@@ -247,8 +247,9 @@ def test_sweep_frame_rough_and_glass():
 
 def test_unported_tiled_parts_raise(monkeypatch):
     """What the TILED path does not port yet raises, naming its ROADMAP
-    item: the octree ``accel=``, the in-kernel cone cull (B8) and packet
-    mode (B7's wavefront entry)."""
+    item: the octree ``accel=``. (The in-kernel cone cull and packet mode
+    are ported: ``test_torch_culled.py``, ``test_torch_packet*.py``.) The
+    frame kernel's launcher refuses CPU tensors."""
     ps = to_port_scene(_tiny_scene())
     pc = to_port_camera(make_camera((0, 0, 0.5), 16, 8, 1.0, 0.5))
     cfg = prt.RenderConfig(refmax=2, backend=prt.HitBackend.TILED)
@@ -256,15 +257,6 @@ def test_unported_tiled_parts_raise(monkeypatch):
         prtl.render_frame_tiled(ps, cfg, pc, accel=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         prt.render_hdr(ps, pc, cfg, accel=object())
-    monkeypatch.setattr(prtl, "SWEEP_CULL", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        prtl.render_frame_tiled(ps, cfg, pc)
-    monkeypatch.setattr(prtl, "SWEEP_CULL", False)
-    monkeypatch.setattr(prtl, "SWEEP_MAX_PRIMS", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        prt.render_hdr(ps, pc, cfg, tables=prtl.frame_tables(ps, pc))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        tt.wave_bounce(ps, None, None, None, 16)
     tab, cnts, c_max, _ = prtl.frame_tables(ps, pc)
     ca = tt._cam_array(pc, ps.textures.solid_rgb[ps.sky_tex],
                        *tt._scene_bbox(ps))

@@ -157,7 +157,7 @@ def test_nearest_hit_brute_ties_take_the_lowest_pid():
     b.add_sphere((5, 0, 0), 1.0, m, t)
     b.add_sphere((4.5, 0, 0), 0.5, m, t)      # tangent on the ray at t = 4
     b.add_box((4.5, 0, 0), 1.0, m, t)         # face at x = 4 too
-    s = b.build()
+    s = b.build(device="cpu")
     tt, pid = ptrace.nearest_hit_brute(s, torch.zeros((1, 3)),
                                        torch.tensor([[1.0, 0, 0]]))
     assert float(tt[0]) == 4.0 and int(pid[0]) == 0
