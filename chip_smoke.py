@@ -39,11 +39,13 @@ Phases, one JSON line each:
                 600-sphere field); (c) config 3's image scene (uv planes);
                 (d) the rough + glass scene (normal planes, transmission).
  6c. B6       — the listed nearest-hit kernel against its plain version (t
-                and pid bit for bit, the same list slots streamed) and
-                against B4 on the same rays and Morton-permuted scene: (a)
-                the 600-sphere field listed per 128-ray block; (b) config
-                3's mesh, triangles listed; (c) a supertile fan of 4; (d)
-                n_live < N.
+                and pid bit for bit, the same list slots streamed by each
+                warp), against the plain version with the first design's
+                128-ray exit groups (t and pid bit for bit, never fewer
+                slots) and against B4 on the same rays and Morton-permuted
+                scene: (a) the 600-sphere field listed per 128-ray block;
+                (b) config 3's mesh, triangles listed; (c) a supertile fan
+                of 4; (d) n_live < N.
  6d. B7-wave  — the tiled wavefront kernel against its plain version, every
                 plane bit for bit (and the chunks each exit group scanned),
                 on packetized wavefronts with their packet tables: (a)
@@ -53,11 +55,12 @@ Phases, one JSON line each:
                 (d) the rough + glass scene (normal planes); (e) config 3's
                 image scene (uv planes); (f) one-row packets (wave_sub 1).
  6e. B8       — the cone-culled nearest-hit kernel against its plain version
-                (t, pid and the sphere tiles each block streamed, bit for
+                (t, pid and the sphere tiles each warp streamed, bit for
                 bit) and against B4 on the same rays and Morton-permuted
-                scene: (a) the 600-sphere field; (b) config 4's first sweep
-                round with n_live < N (from 9d); (c) incoherent blocks
-                (cos_t < 0.25 keeps every tile).
+                scene (t and pid bit for bit, 0 flips): (a) the 600-sphere
+                field; (b) config 4's first sweep round with n_live < N
+                (from 9d); (c) incoherent warps (cos_t < 0.25 keeps every
+                tile).
   7. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
                 STDDEV tone map -> PNG, plus ``render_rays`` FUSED over the
                 same camera's rays, with the launch counters reset first.
@@ -93,6 +96,13 @@ Phases, one JSON line each:
  9d. main-cull — config 4 with ``SWEEP_LISTED = False`` and ``SWEEP_CULL =
                 True``: B8 once per sweep round, the frame equal to 9b's
                 but for proven flips.
+ 9e. work     — on config 4's first sweep round (B6) and its cull round
+                (B8), summed over the live rays: the slots (tiles) the
+                first design's 128-ray blocks stream, the slots the
+                kernel's warps stream, and the slots each ray needs (B6:
+                those whose t_lo lies within its own final hit or bbox
+                exit, in whole chunks; B8: the tiles its own apex-0,
+                angle-0 cone reaches); need <= warp <= block.
  10. times    — CUDA-event medians of each kernel and its plain version at
                 the main paths' shapes, ``render_hdr`` end to end, and the
                 gradient path: a replay step for one view, an 8-view fit
@@ -102,7 +112,10 @@ Phases, one JSON line each:
                 cull frame and B8 per round, the host tables. Then each
                 kernel's bound: the larger of its tests' operations over
                 67 TFLOP/s (float32) and its bytes in and out over
-                3.35 TB/s, counted from this run's inputs (``OPS``).
+                3.35 TB/s, counted from this run's inputs (``OPS``); B6's
+                and B8's from the work the rays need (9e), printed beside
+                the bound of what the warps streamed and the time of one
+                streamed test.
 Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
 pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
 B5: colors and per-ray cotangents bit-exact; per-prim and sky cotangents
@@ -622,11 +635,30 @@ def compare_tiled(name, scene, cam, tables=None):
     return rep, k, tables
 
 
+def live_per_group(live, groups, group, device):
+    """Live rays in each of ``groups`` consecutive groups of ``group``
+    rays [groups] f64."""
+    start = group * torch.arange(groups, device=device)
+    return torch.clamp(live - start, 0, group).double()
+
+
+def ray_slots(slots, live, group):
+    """Sum over live rays of the slots (or tiles) each ray's exit group
+    streamed, from counts per group of ``group`` rays [..., classes] ->
+    [classes] f64."""
+    per = slots.reshape(-1, slots.shape[-1]).double()
+    return (per * live_per_group(live, per.shape[0], group,
+                                 per.device)[:, None]).sum(0)
+
+
 def compare_listed(name, scene_s, org, dir, n_live=None, **lists):
     """B6 against its plain version (t and pid bit for bit, the same list
-    slots streamed per block) and against B4 on the same rays and scene
-    (equal pids but for proven flips: the cull is exact), all on the card;
-    -> (report, inputs, slots)."""
+    slots streamed per warp), against the plain version with the first
+    design's 128-ray exit groups (t and pid bit for bit: the finer exit
+    changes no result) and against B4 on the same rays and scene (equal
+    pids but for proven flips: the cull is exact), all on the card; ->
+    (report, inputs, slots per warp [rows, 4, 2], slots per block [rows,
+    1, 2], t)."""
     n = org.shape[0]
     li = nh.listed_inputs(scene_s, n, **lists)
     nl = (None if n_live is None else
@@ -638,31 +670,38 @@ def compare_listed(name, scene_s, org, dir, n_live=None, **lists):
         scene_s, org, dir, n_live, inputs=li, work=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    b_t, b_pid, b_slots = nh.nearest_hit_listed_plain(
+        scene_s, org, dir, n_live, inputs=li, work=True, group=128)
     d_t, d_pid = nh.launch_dense(nh.pack_tables(scene_s), org, dir,
                                  n_live=nl)
     torch.cuda.synchronize()
     exact = (torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
              and torch.equal(k_slots, p_slots))
+    same_as_block = (torch.equal(bits(k_t), bits(b_t))
+                     and torch.equal(k_pid, b_pid))
     vs_b4 = parity.compare_hits(scene_s, org, dir, k_t, k_pid, d_t, d_pid)
     live = n if n_live is None else min(n_live, n)
     cols = max((lst[0].shape[1] for lst in (li.sph_list, li.tri_list)
                 if lst is not None), default=0)
     rep = dict(rays=n, n_live=live, prims=scene_s.n_prims,
                sph_fan=li.sph_fan, tri_fan=li.tri_fan, list_cols=cols,
-               slots_streamed=int(k_slots.sum()),
-               mean_slots_per_live_block=float(
-                   k_slots[:-(-live // nh.BLOCK_R)].sum(1).float().mean())
-               if live else 0.0,
-               bit_exact=exact, plain_seconds=plain_s,
+               warp_slots_streamed=int(k_slots.sum()),
+               block_slots_streamed=int(b_slots.sum()),
+               ray_slots_warp_rule=ray_slots(k_slots, live, 32).tolist(),
+               ray_slots_block_rule=ray_slots(b_slots, live, 128).tolist(),
+               bit_exact=exact, same_as_block_rule=same_as_block,
+               plain_seconds=plain_s,
                max_abs_err=float(torch.where(torch.isfinite(p_t),
                                              (k_t - p_t).abs(), 0.0).max()),
                vs_b4=vs_b4)
     emit(phase="B6", case=name, **rep)
-    check(exact and vs_b4["ok"], f"B6 {name}: {rep}")
+    check(exact and same_as_block and vs_b4["ok"], f"B6 {name}: {rep}")
     check(bool(torch.isinf(k_t[live:]).all())
           and bool((k_pid[live:] == -1).all()),
           f"B6 {name}: rows past n_live are not misses")
-    return rep, li, k_slots
+    check(bool((k_slots <= b_slots).all()), f"B6 {name}: a warp streamed "
+          f"more slots than its block")
+    return rep, li, k_slots, b_slots, k_t
 
 
 def compare_wave(name, scene, cols, tab, cnts, c_max, static_bases=None,
@@ -746,10 +785,10 @@ def bounce1_wavefront(scene, cam):
 
 
 def compare_culled(name, scene_s, org, dir, tb, n_live=None):
-    """B8 against its plain version (t, pid and the sphere tiles each block
+    """B8 against its plain version (t, pid and the sphere tiles each warp
     streamed, bit for bit) and against B4 on the same rays and permuted
-    scene (equal but for proven flips: the cull is exact), all on the
-    card; -> (report, tiles)."""
+    scene (t and pid bit for bit: the cull is exact and the fold order
+    B4's), all on the card; -> (report, tiles per warp [B, 4])."""
     n = org.shape[0]
     tabs = nh.pack_tables(scene_s)
     nl = (None if n_live is None else
@@ -765,25 +804,79 @@ def compare_culled(name, scene_s, org, dir, tb, n_live=None):
     torch.cuda.synchronize()
     exact = (torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
              and torch.equal(k_tiles, p_tiles))
+    equal_b4 = torch.equal(bits(k_t), bits(d_t)) and torch.equal(k_pid, d_pid)
     vs_b4 = parity.compare_hits(scene_s, org, dir, k_t, k_pid, d_t, d_pid)
     live = n if n_live is None else min(n_live, n)
-    live_blk = -(-live // nh.BLOCK_R)
+    live_w = -(-live // 32)
     n_t = -(-scene_s.n_spheres // nh.BLOCK_K)
+    per_warp = k_tiles.reshape(-1)[:live_w]
     rep = dict(rays=n, n_live=live, prims=scene_s.n_prims, sphere_tiles=n_t,
                tiles_streamed=int(k_tiles.sum()),
-               mean_tiles_per_live_block=float(
-                   k_tiles[:live_blk].float().mean()) if live else 0.0,
-               blocks_keeping_all=int((k_tiles[:live_blk] == n_t).sum()),
-               bit_exact=exact, plain_seconds=plain_s,
+               mean_tiles_per_live_warp=float(per_warp.float().mean())
+               if live else 0.0,
+               warps_keeping_all=int((per_warp == n_t).sum()),
+               live_warps=live_w, bit_exact=exact, equal_to_b4=equal_b4,
+               plain_seconds=plain_s,
                max_abs_err=float(torch.where(torch.isfinite(p_t),
                                              (k_t - p_t).abs(), 0.0).max()),
                vs_b4=vs_b4)
     emit(phase="B8", case=name, **rep)
-    check(exact and vs_b4["ok"], f"B8 {name}: {rep}")
+    check(exact and equal_b4 and vs_b4["ok"] and vs_b4["flips"] == 0,
+          f"B8 {name}: {rep}")
     check(bool(torch.isinf(k_t[live:]).all())
           and bool((k_pid[live:] == -1).all()),
           f"B8 {name}: rows past n_live are not misses")
     return rep, k_tiles
+
+
+def work_phase(li, org_s, dir_s, t_s, n_live, slots, bslots, scene_c,
+               org_c, dir_c, tb_c, n_live_c, tiles_c):
+    """Phase 9e, on config 4's first sweep round (B6: its inputs ``li``,
+    rays, final t, the slots each warp and each block streamed) and its
+    cull round (B8: its rays, tile bounds and the tiles each warp
+    streamed): what the first design's 128-ray blocks stream, what the
+    kernels' warps stream and what the rays need, summed over the live
+    rays (each ray is tested against every slot or tile its exit group
+    streams) -> ({rule: [classes] f64} for B6, the same for B8).
+
+    B6's need is each ray's slots whose t_lo lies within its own final hit
+    or bbox exit, in whole chunks (``listed_need``); B8's the tiles its own
+    apex-0, angle-0 cone reaches (``culled_tiles(group=1)``)."""
+    dev = org_s.device
+    need_s = nh.listed_need(li, org_s, dir_s, t_s, n_live).double().sum(0)
+    rules6 = {"block": ray_slots(bslots, n_live, 128),
+              "warp": ray_slots(slots, n_live, 32), "need": need_s}
+    n_sc = scene_c.n_spheres
+    blk_tiles = nh.culled_tiles(org_c, dir_c, n_live_c, tb_c, n_sc,
+                                group=128).sum(1, keepdim=True)
+    own = torch.zeros((), dtype=torch.float64, device=dev)
+    step = 64 * nh.BLOCK_R
+    for lo in range(0, n_live_c, step):
+        own = own + nh.culled_tiles(
+            org_c[lo:lo + step], dir_c[lo:lo + step], n_live_c - lo, tb_c,
+            n_sc, group=1)[:min(step, n_live_c - lo)].sum()
+    rules8 = {"block": ray_slots(blk_tiles, n_live_c, 128),
+              "warp": ray_slots(tiles_c[..., None], n_live_c, 32),
+              "need": own.reshape(1)}
+
+    def work_rep(rules, live, classes):
+        return {c: {r: {"total": float(v[k]),
+                        "mean_per_32_rays": 32.0 * float(v[k]) / live}
+                    for r, v in rules.items()}
+                for k, c in enumerate(classes)}
+
+    emit(phase="work", kernel="B6", case="config4_first_sweep_round",
+         live_rays=n_live, fan=li.sph_fan, unit="list slots of 128-prim "
+         "(super)tiles, summed over the live rays",
+         **work_rep(rules6, n_live, ("sphere_slots", "triangle_slots")))
+    emit(phase="work", kernel="B8", case="config4_cull_round",
+         live_rays=n_live_c, unit="128-sphere tiles, summed over the live "
+         "rays", **work_rep(rules8, n_live_c, ("sphere_tiles",)))
+    for rules, what in ((rules6, "B6"), (rules8, "B8")):
+        check(bool((rules["need"] <= rules["warp"]).all())
+              and bool((rules["warp"] <= rules["block"]).all()),
+              f"{what}: work out of order need <= warp <= block: {rules}")
+    return rules6, rules8
 
 
 #: float operations per intersection test, counted from the kernels'
@@ -1136,9 +1229,9 @@ def main() -> int:
                              d_in / d_in.norm(dim=1, keepdim=True),
                              tb_field)[0])
     check(b8[0]["tiles_streamed"] < b8[0]["sphere_tiles"] * (
-        o512.shape[0] // nh.BLOCK_R), "B8 (a) culled no tile")
-    check(b8[1]["blocks_keeping_all"] == o_in.shape[0] // nh.BLOCK_R,
-          "B8 (c): an incoherent block culled a tile")
+        o512.shape[0] // 32), "B8 (a) culled no tile")
+    check(b8[1]["warps_keeping_all"] == b8[1]["live_warps"],
+          "B8 (c): an incoherent warp culled a tile")
 
     # ---- 7. the main path -----------------------------------------------------
     reset_launches()
@@ -1380,8 +1473,9 @@ def main() -> int:
     b7.append(rep)
     scene_s, org_s, dir_s, kw_s = searches[0]
     n_live4 = int(kw_s.pop("n_live"))
-    rep, li4, slots4 = compare_listed("e_config4_first_sweep_round", scene_s,
-                                      org_s, dir_s, n_live=n_live4, **kw_s)
+    rep, li4, slots4, bslots4, t_s = compare_listed(
+        "e_config4_first_sweep_round", scene_s, org_s, dir_s,
+        n_live=n_live4, **kw_s)
     b6.append(rep)
 
     # the same frame through PALLAS (B4 over all 100k prims a bounce), under
@@ -1603,6 +1697,12 @@ def main() -> int:
                                   org_c, dir_c, kw_c["tile_bounds"], n_live_c)
     b8.insert(1, rep)
 
+    # ---- 9e. work: what each exit rule streams, and what the rays need ---
+    tb_c = kw_c["tile_bounds"]
+    rules6, rules8 = work_phase(li4, org_s, dir_s, t_s, n_live4, slots4,
+                                bslots4, scene_c, org_c, dir_c, tb_c,
+                                n_live_c, tiles_c)
+
     # ---- 10. times at the main paths' shapes -------------------------------
     tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
     refr = tf._refr_pair(head, None)
@@ -1761,7 +1861,6 @@ def main() -> int:
 
     b7w_ms, b7w_plain_ms, works_a = wave_sums(waves_a)
     b7w_b_ms, b7w_b_plain_ms, works_b = wave_sums(waves_b)
-    tb_c = kw_c["tile_bounds"]
     nl_c = torch.tensor([n_live_c], dtype=torch.int32, device=dev)
     tabs_c = nh.pack_tables(scene_c)
     b8_ms = cuda_median_ms(lambda: nh.launch_culled(tabs_c, org_c, dir_c,
@@ -1842,24 +1941,25 @@ def main() -> int:
                   .sum()) * tt.CHUNK
     b7_bound = bound(b7_ops, rows4 * 80 + 15 * 4 * hp4 * wp4
                      + 32 * tables4[1].shape[0])
-    live_blk = -(-n_live4 // nh.BLOCK_R)
-    active = torch.clamp(n_live4 - nh.BLOCK_R * torch.arange(
-        live_blk, device=dev), max=nh.BLOCK_R).double()
-    sl4 = slots4[:live_blk].double()
-    b6_ops = (float((sl4[:, 0] * active).sum()) * li4.sph_fan * nh.BLOCK_K
-              * OPS["sphere"]
-              + float((sl4[:, 1] * active).sum()) * li4.tri_fan * nh.BLOCK_K
-              * OPS["tri"]
-              + n_live4 * scene_s.n_boxes * OPS["box"]
-              + (n_live4 * scene_s.n_spheres * OPS["sphere"]
-                 if li4.sph_list is None else 0)
-              + (n_live4 * scene_s.n_tris * OPS["tri"]
-                 if li4.tri_list is None else 0))
+    # B6 and B8 on config 4's sweep round: the sphere (and triangle) tests
+    # of the slots or tiles the rays need (9e), boxes and unlisted classes
+    # dense; beside it, the same count over what the warps streamed
+    def b6_ops(ray_sl):
+        return (float(ray_sl[0]) * li4.sph_fan * nh.BLOCK_K * OPS["sphere"]
+                + float(ray_sl[1]) * li4.tri_fan * nh.BLOCK_K * OPS["tri"]
+                + n_live4 * scene_s.n_boxes * OPS["box"]
+                + (n_live4 * scene_s.n_spheres * OPS["sphere"]
+                   if li4.sph_list is None else 0)
+                + (n_live4 * scene_s.n_tris * OPS["tri"]
+                   if li4.tri_list is None else 0))
+
     lists_bytes = sum(lst[0].numel() * 8 for lst in (li4.sph_list,
                                                       li4.tri_list)
                       if lst is not None)
-    b6_bound = bound(b6_ops, 32 * org_s.shape[0] + lists_bytes + 4 * (
-        4 * scene_s.n_spheres + 6 * scene_s.n_boxes + 9 * scene_s.n_tris))
+    b6_bytes = 32 * org_s.shape[0] + lists_bytes + 4 * (
+        4 * scene_s.n_spheres + 6 * scene_s.n_boxes + 9 * scene_s.n_tris)
+    b6_bound = bound(b6_ops(rules6["need"]), b6_bytes)
+    b6_bound_streamed = bound(b6_ops(rules6["warp"]), b6_bytes)
     # B7-wave over config 4's packet rounds: the tests of the chunks each
     # exit group scanned; a packet's table rows read once (its most
     # scanning group's), 11 planes in and 15 (or 18) out per ray
@@ -1876,16 +1976,30 @@ def main() -> int:
         w_bytes += (float(per_pk.sum()) * tt.CHUNK * 80
                     + (11 + n_out) * 4 * cols[0].numel() + 32 * cnts.shape[0])
     b7w_bound = bound(w_ops, w_bytes)
-    # B8 on config 4's first sweep round: the kept sphere tiles against
-    # the active rays of each block, boxes and triangles dense
-    blk_c = -(-n_live_c // nh.BLOCK_R)
-    act_c = torch.clamp(n_live_c - nh.BLOCK_R * torch.arange(
-        blk_c, device=dev), max=nh.BLOCK_R).double()
-    b8_ops = (float((tiles_c[:blk_c].double() * act_c).sum()) * nh.BLOCK_K
-              * OPS["sphere"] + n_live_c * (scene_c.n_boxes * OPS["box"]
-                                            + scene_c.n_tris * OPS["tri"]))
-    b8_bound = bound(b8_ops, 32 * org_c.shape[0] + 16 * tb_c.shape[0] + 4 * (
-        4 * scene_c.n_spheres + 6 * scene_c.n_boxes + 9 * scene_c.n_tris))
+
+    # B8 on the cull round: the sphere tiles needed (or streamed) against
+    # the live rays, boxes and triangles dense
+    def b8_ops(ray_tiles):
+        return (float(ray_tiles[0]) * nh.BLOCK_K * OPS["sphere"]
+                + n_live_c * (scene_c.n_boxes * OPS["box"]
+                              + scene_c.n_tris * OPS["tri"]))
+
+    b8_bytes = 32 * org_c.shape[0] + 16 * tb_c.shape[0] + 4 * (
+        4 * scene_c.n_spheres + 6 * scene_c.n_boxes + 9 * scene_c.n_tris)
+    b8_bound = bound(b8_ops(rules8["need"]), b8_bytes)
+    b8_bound_streamed = bound(b8_ops(rules8["warp"]), b8_bytes)
+    # the time of one streamed sphere test (a live ray against a prim)
+    tests6 = float(rules6["warp"][0]) * li4.sph_fan * nh.BLOCK_K
+    tests8 = float(rules8["warp"][0]) * nh.BLOCK_K
+    emit(phase="bounds", card=name, nvidia_smi=smi,
+         b6=dict(ms=b6_ms, bound_ms_needed=b6_bound[0],
+                 bound_ms_streamed=b6_bound_streamed[0],
+                 bound_by=b6_bound[1], sphere_tests_streamed=tests6,
+                 ns_per_streamed_test=b6_ms * 1e6 / tests6),
+         b8=dict(ms=b8_ms, bound_ms_needed=b8_bound[0],
+                 bound_ms_streamed=b8_bound_streamed[0],
+                 bound_by=b8_bound[1], sphere_tests_streamed=tests8,
+                 ns_per_streamed_test=b8_ms * 1e6 / tests8))
 
     # ---- kernels summary and the last line ------------------------------------
     def worst(reps, key="max_abs_err"):

@@ -79,8 +79,9 @@ class HitBackend(enum.Enum):
       ``render_hdr`` sends scenes of at most 2048 prims without cached
       tables, and BOTH scenes, to PALLAS, and ``render_rays`` takes BRUTE,
       as in the reference.
-    * ``OCTREE`` — not ported yet; raises ``NotImplementedError`` (ROADMAP
-      A11).
+    * ``OCTREE`` — the dense search (BRUTE), the reference's path without
+      an accel; the octree ``accel=`` itself is not ported yet and raises
+      ``NotImplementedError`` (ROADMAP A11).
     """
 
     BRUTE = "brute"
@@ -114,8 +115,9 @@ class RenderConfig:
     #: kept for field parity with the reference package; a PyTorch loop
     #: has nothing to unroll
     unroll: bool = False
-    #: kept for field parity with the reference package; this package is
-    #: forward-only so far
+    #: recompute each bounce of ``ops/trace.trace_rays`` in the backward
+    #: (``torch.utils.checkpoint``) instead of keeping its residuals: the
+    #: memory knob for gradients over big wavefronts and prim tables
     remat: bool = False
     #: nearest forward hit (argmin t), the documented divergence from
     #: first-entity-in-set-order (raytracer.ts:186-195)
@@ -124,7 +126,7 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OctreeConfig:
-    """Octree build parameters (the OCTREE backend is not ported yet)."""
+    """Octree build parameters (the octree accel is not ported yet)."""
 
     max_depth: int = 4
     max_entities_per_node: int = 64

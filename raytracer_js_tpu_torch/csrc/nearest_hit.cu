@@ -110,20 +110,33 @@ __device__ __forceinline__ float sphere_scalar(const Ray& r, float cx,
 }
 
 // B4's sphere test (nearest_hit.py:289-303): the factored form; a negative
-// discriminant makes sq NaN, every compare on it false, and t = +inf.
-__device__ __forceinline__ float sphere_dense(const Ray& r, float cx,
-                                              float cy, float cz,
-                                              float ccmr) {
-  float d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz;
+// discriminant makes sq NaN, every compare on it false, and t = +inf. Split
+// in two so that B6 and B8 can skip the root for a warp that misses.
+__device__ __forceinline__ float sphere_disc(const Ray& r, float cx,
+                                             float cy, float cz, float ccmr,
+                                             float& d_dot_c) {
+  d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz;
   float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
   float b_half = r.o_dot_d - d_dot_c;
   float c = r.o_dot_o - 2.0f * o_dot_c + ccmr;
-  float disc = b_half * b_half - r.a * c;
+  return b_half * b_half - r.a * c;
+}
+
+__device__ __forceinline__ float sphere_root(const Ray& r, float d_dot_c,
+                                             float disc) {
   float sq = sqrtf(disc);
   float u = (d_dot_c - r.o_dot_d) * r.inv_a;
   float s = sq * r.inv_a;
   float t_sel = u - s >= 0.0f ? u - s : u + s;
   return u + s >= 0.0f ? t_sel : kInf;
+}
+
+__device__ __forceinline__ float sphere_dense(const Ray& r, float cx,
+                                              float cy, float cz,
+                                              float ccmr) {
+  float d_dot_c;
+  const float disc = sphere_disc(r, cx, cy, cz, ccmr, d_dot_c);
+  return sphere_root(r, d_dot_c, disc);
 }
 
 // Slab test, first forward parameter (both kernels).
@@ -290,88 +303,214 @@ nh_dense_kernel(Tables T, const float* __restrict__ org,
   }
 }
 
-// ---- B6: the listed nearest hit ---------------------------------------------
-// nh_listed_kernel -> _nearest_hit_kernel_listed (nearest_hit.py:155, entry
-// nearest_hit_pallas(tile_ids=...) :898): one block of 128 threads per
-// 128-ray list row, one thread per ray. The row's (super)tile ids are
-// streamed in the given order (ascending t_lo); each 128-prim tile is staged
-// in shared memory and tested by every ray of the block. Every kChunkT list
-// slots the block takes its horizon, the largest over its rays of
-// min(t_best, bbox-exit cap), and stops once the next slot's t_lo exceeds
-// it: a tile whose t_lo lies past every ray's horizon cannot hold a nearer
-// hit. A fan > 1 id covers `fan` consecutive 128-prim tiles. Boxes stream
-// dense; spheres and triangles are listed when their lists are given, dense
-// otherwise. A t tie goes to the first prim streamed (strict <).
+// ---- B6 and B8: the sweep rounds' searches --------------------------------
+// nh_listed_kernel (B6) -> _nearest_hit_kernel_listed (nearest_hit.py:155,
+// entry nearest_hit_pallas(tile_ids=...) :898): the nearest hit over each
+// 128-ray block's list row of (super)tile ids, near to far (ascending t_lo).
+// nh_culled_kernel (B8) -> _nearest_hit_kernel_culled (nearest_hit.py:113,
+// body _nearest_hit_block :236-267 and :415-431, entry
+// nearest_hit_pallas(tile_bounds=...) :898): B4 with a cone cull of the
+// 128-sphere tiles. Both fold every prim with a strict < in stream order,
+// so a t tie goes to the prim streamed first; the plain versions are
+// kernels/nearest_hit.nearest_hit_listed_plain and culled_plain, whose
+// exit group is their `group` argument (32 here).
 //
-// What bounds it: the sphere tests of the streamed tiles (~780 tiles of 128
-// spheres per 128-ray block at config 4: ~12.8M tests a block, an IEEE sqrt
-// each); the ids, t_lo and rays are a few KB a block. Design: the tile
-// staging is the only shared-memory traffic, two barriers a tile and one
-// block reduction a chunk; no double buffering yet.
+// What bounds them: the sphere tests of the tiles streamed (config 4's
+// sweep round: some 2.4e10 of them, an IEEE sqrt each in the PR-5 design,
+// most of them misses). The tables (1.6 MB at 100k spheres), lists and
+// rays stay in the 50 MB L2; the bytes are a few percent of the time.
+//
+// Design. The exit group is one warp of 32 rays, not the block:
+//  - B6: each warp streams its block's list row chunk by chunk (kChunkT
+//    slots) and stops on its own once the next chunk's t_lo exceeds the
+//    warp's horizon, the largest over its live lanes of min(t_best,
+//    bbox-exit cap) (a __shfl_xor max). The row is conservative for all
+//    128 rays, hence for any 32 of them, so the finer exit skips only slots
+//    that cannot hold a strictly nearer prim: t and pid are those of the
+//    block rule.
+//  - B8: each warp bounds its own live rays by an apex ball (o0 = the mean
+//    origin, ro = the largest distance from it) and a cone (axis = the
+//    normalized mean direction, cos_t = the worst alignment, d / sqrt(a);
+//    cos_t < 0.25 keeps every tile), the sums one shuffle-down tree in a
+//    fixed order. 32 lanes evaluate the tile predicate for 32 tiles at
+//    once (__ballot_sync), which also tells the warp its next kept tile.
+//  - Tile delivery: each warp stages its tiles into a private two-stage
+//    ring in dynamic shared memory with cp.async 16-byte copies, copying
+//    tile k+1 while it tests tile k; synchronization is
+//    cp.async.wait_group and __syncwarp only, and no warp waits on
+//    another (no __syncthreads). The four warps of a block read the same
+//    list row, so a tile they share comes from L1 or L2. Spheres stage
+//    from an array-of-structs copy of the table ([S, 4]: cx cy cz ccmr), so
+//    a sphere is one 16-byte shared load broadcast to the warp; triangles
+//    stage as 9 rows of 128 floats. Both tables are padded to whole
+//    (super)tiles, padded spheres poisoned (ccmr = +inf) and padded
+//    triangles all-zero, so a padded prim never folds. Boxes (the ground
+//    plane or a few walls in the sweep scenes) stage by plain loads.
+//  - Test cost: the sphere test skips its IEEE sqrt and tail when no lane
+//    of the warp has disc >= 0 (__any_sync): a negative or NaN
+//    discriminant yields +inf either way, so the result is bit-identical.
+//    Built with --fmad=false: a fused multiply-add counts as two of the
+//    67 TFLOP/s peak's operations, so this kernel can reach at most half
+//    of an operations bound taken at that peak.
+// Shape: <<<ceil(n / 128), 128>>>, four independent warps a block, one list
+// row a block (B6), 4 KB of dynamic shared memory a warp (a ring of two
+// sphere tiles; the box staging fits in it), 9 KB with triangles. Rays at
+// or past n_live report (+inf, -1) and take no part in a horizon or cone; a
+// warp with no live ray exits at once. Why 128-thread blocks and not
+// one-warp blocks: ptxas (sm_90a, nvcc -Xptxas -v) gives B6 64 registers
+// a thread (8 blocks, 32 warps an SM by its 65,536 registers) and B8 56
+// (8 bytes spilled; 9 blocks, 36 warps); one-warp blocks would stop at 32
+// warps (32 resident blocks an SM), no more for B6 and fewer for B8, and
+// lose the four warps' sharing of one list row in L1.
 
+constexpr int kWarps = kBlock / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunkT = 16;       // list slots between early-exit checks
 
-enum { K_SPH = 0, K_BOX = 1, K_TRI = 2 };
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Lane 0's shuffle-down tree (lane i adds lane i + o), broadcast to the
+// warp: the order of the plain version's _group_sum.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return __shfl_sync(kFull, v, 0);
+}
+
+enum { K_SPH, K_TRI };
 
 template <int Kind>
-__device__ __forceinline__ float prim_t(const Ray& r,
-                                        const float (*tile)[kTile], int j) {
-  if (Kind == K_SPH)
-    return sphere_dense(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j]);
-  if (Kind == K_BOX)
-    return box_t(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j],
-                 tile[4][j], tile[5][j]);
-  return tri_t(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j], tile[4][j],
-               tile[5][j], tile[6][j], tile[7][j], tile[8][j]);
-}
+struct TileKind;
 
-// Stage prims [k0, k0 + kTile) of a table padded to whole tiles and fold all
-// kTile of them into the running minimum (pids pid0 + k0 + j).
-template <int Kind, int Rows>
-__device__ __forceinline__ void listed_tile(float (*tile)[kTile],
-                                            const float* tab, int stride,
-                                            int k0, int pid0, bool active,
-                                            const Ray& r, float& t_best,
-                                            int& pid) {
-  __syncthreads();
-  for (int row = 0; row < Rows; ++row)
-    tile[row][threadIdx.x] = ld(tab, row, stride, k0 + (int)threadIdx.x);
-  __syncthreads();
-  if (active) {
-    for (int j = 0; j < kTile; ++j)
-      fold(prim_t<Kind>(r, tile, j), pid0 + k0 + j, t_best, pid);
+// 128 spheres from the array-of-structs table [rows, 4]: 2048 bytes, four
+// 16-byte pieces a lane.
+template <>
+struct TileKind<K_SPH> {
+  static constexpr int kFloats = 4 * kTile;
+  static __device__ __forceinline__ void fetch(float* dst, const float* tab,
+                                               int, int k0) {
+    const float4* src = reinterpret_cast<const float4*>(tab) + k0;
+    float4* d = reinterpret_cast<float4*>(dst);
+    const int l = lane_id();
+#pragma unroll
+    for (int c = 0; c < kTile / 32; ++c)
+      cp_async16(d + l + 32 * c, src + l + 32 * c);
   }
-}
-
-// The dense scan of one class (B4's loop), prims [0, count).
-template <int Kind, int Rows>
-__device__ __forceinline__ void dense_class(float (*tile)[kTile],
-                                            const float* tab, int stride,
-                                            int count, int pid0, bool active,
-                                            const Ray& r, float& t_best,
-                                            int& pid) {
-  for (int k0 = 0; k0 < count; k0 += kTile) {
-    __syncthreads();
-    stage(tile, tab, Rows, stride, count, k0);
-    __syncthreads();
-    if (active) {
-      const int m = min(kTile, count - k0);
-      for (int j = 0; j < m; ++j)
-        fold(prim_t<Kind>(r, tile, j), pid0 + k0 + j, t_best, pid);
+  static __device__ __forceinline__ void test(const float* src, int pid0,
+                                              const Ray& r, float& t_best,
+                                              int& pid) {
+    const float4* sp = reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {
+      const float4 c = sp[j];
+      float d_dot_c;
+      const float disc = sphere_disc(r, c.x, c.y, c.z, c.w, d_dot_c);
+      if (__any_sync(kFull, disc >= 0.0f))
+        fold(sphere_root(r, d_dot_c, disc), pid0 + j, t_best, pid);
     }
   }
+};
+
+// 128 triangles from the structure-of-arrays table [9, stride] (stride and
+// k0 multiples of kTile): a 512-byte segment of each row, one 16-byte piece
+// a lane.
+template <>
+struct TileKind<K_TRI> {
+  static constexpr int kFloats = 9 * kTile;
+  static __device__ __forceinline__ void fetch(float* dst, const float* tab,
+                                               int stride, int k0) {
+    const int l = lane_id();
+#pragma unroll
+    for (int row = 0; row < 9; ++row)
+      cp_async16(dst + row * kTile + 4 * l,
+                 tab + (size_t)row * stride + k0 + 4 * l);
+  }
+  static __device__ __forceinline__ void test(const float* t, int pid0,
+                                              const Ray& r, float& t_best,
+                                              int& pid) {
+#pragma unroll 2
+    for (int j = 0; j < kTile; ++j)
+      fold(tri_t(r, t[j], t[kTile + j], t[2 * kTile + j], t[3 * kTile + j],
+                 t[4 * kTile + j], t[5 * kTile + j], t[6 * kTile + j],
+                 t[7 * kTile + j], t[8 * kTile + j]),
+           pid0 + j, t_best, pid);
+  }
+};
+
+// Stream the 128-prim tiles a cursor yields (prim offsets in stream order)
+// through the warp's two-stage ring, folding each into (t_best, pid): the
+// copy of the next tile is in flight while this one is tested. A cursor
+// has first(t_best) -> the first offset or -1; ahead() -> the offset after
+// the current one, as far as it can tell yet (-1: none); advance(t_best)
+// -> whether that tile is streamed, now that the current one is folded.
+// Every call is warp-uniform. Returns the tiles tested.
+template <int Kind, class Cursor>
+__device__ __forceinline__ int stream_tiles(float* ring, const float* tab,
+                                            int stride, int pid0, Cursor& cur,
+                                            const Ray& r, float& t_best,
+                                            int& pid) {
+  constexpr int kF = TileKind<Kind>::kFloats;
+  int k = cur.first(t_best);
+  if (k < 0) return 0;
+  TileKind<Kind>::fetch(ring, tab, stride, k);
+  cp_async_commit();
+  int s = 0, tested = 0;
+  for (;;) {
+    const int next = cur.ahead();
+    if (next >= 0) TileKind<Kind>::fetch(ring + (s ^ 1) * kF, tab, stride,
+                                         next);
+    cp_async_commit();
+    cp_async_wait<1>();       // this lane's copies of tile k have landed
+    __syncwarp();             // ... and every lane's
+    TileKind<Kind>::test(ring + s * kF, pid0 + k, r, t_best, pid);
+    ++tested;
+    __syncwarp();             // stage s is read before it is refilled
+    if (!cur.advance(t_best)) break;
+    k = next;
+    s ^= 1;
+  }
+  cp_async_wait<0>();         // drain a copy the stream did not use
+  __syncwarp();
+  return tested;
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < kBlock / 32; ++w) m = fmaxf(m, red[w]);
-  return m;
-}
+// Every tile of a class padded to whole tiles, in order.
+struct AllCursor {
+  int n_t, k;
+  __device__ int first(float) {
+    k = 0;
+    return n_t > 0 ? 0 : -1;
+  }
+  __device__ int ahead() const { return k + 1 < n_t ? (k + 1) * kTile : -1; }
+  __device__ bool advance(float) { return ++k < n_t; }
+};
 
 struct List {
   const int* ids;      // [rows, cols] (super)tile ids, null when dense
@@ -380,45 +519,146 @@ struct List {
   int fan;             // 128-prim tiles per id
 };
 
-// Stream one class's list for this block's row; returns the slots streamed.
-template <int Kind, int Rows>
-__device__ int listed_scan(float (*tile)[kTile], float* red, const List& L,
-                           const float* tab, int stride, int pid0, int row,
-                           bool active, const Ray& r, float t_cap,
-                           float& t_best, int& pid) {
-  const int* ids = L.ids + (size_t)row * L.cols;
-  const float* tlo = L.tlo + (size_t)row * L.cols;
-  float t_hi = block_max(active ? fminf(t_best, t_cap) : -kInf, red);
-  int j = 0;
-  for (; j < L.cols && __ldg(tlo + j) <= t_hi; j += kChunkT) {
-    for (int k = 0; k < kChunkT; ++k) {
-      const int id = __ldg(ids + j + k);
-      for (int f = 0; f < L.fan; ++f)
-        listed_tile<Kind, Rows>(tile, tab, stride, (id * L.fan + f) * kTile,
-                                pid0, active, r, t_best, pid);
-    }
-    t_hi = block_max(active ? fminf(t_best, t_cap) : -kInf, red);
+// B6: one list row, streamed chunk by chunk while the next chunk's t_lo
+// lies within the warp's horizon. j counts the slots streamed.
+struct ListCursor {
+  const int* ids;
+  const float* tlo;
+  int cols, fan;
+  bool active;
+  float t_cap;
+  int j = 0;       // the current chunk's first slot
+  int q = 0;       // the current tile within the chunk
+  float t_hi = 0;  // the warp's horizon when the chunk started
+
+  __device__ int tile(int jj, int qq) const {
+    return (__ldg(ids + jj + qq / fan) * fan + qq % fan) * kTile;
   }
-  return j;
+  __device__ float horizon(float t_best) const {
+    return warp_max(active ? fminf(t_best, t_cap) : -kInf);
+  }
+  __device__ int first(float t_best) {
+    t_hi = horizon(t_best);
+    return cols > 0 && __ldg(tlo) <= t_hi ? tile(0, 0) : -1;
+  }
+  __device__ int ahead() const {
+    if (q + 1 < kChunkT * fan) return tile(j, q + 1);
+    // the next chunk's first tile, copied ahead while its t_lo lies within
+    // the current horizon: the horizon only shrinks, so a chunk past it
+    // now is never streamed
+    return j + kChunkT < cols && __ldg(tlo + j + kChunkT) <= t_hi
+               ? tile(j + kChunkT, 0)
+               : -1;
+  }
+  __device__ bool advance(float t_best) {
+    if (++q < kChunkT * fan) return true;
+    j += kChunkT;
+    q = 0;
+    t_hi = horizon(t_best);
+    return j < cols && __ldg(tlo + j) <= t_hi;
+  }
+};
+
+// B8: the sphere tiles the warp's ball-cone can reach, 32 predicates at a
+// time (lane l tests tile w0 + l); `mask` holds the window's kept tiles
+// not yet handed out.
+struct ConeCursor {
+  const float* tb;     // [n_t, 4] tile bounds: center, radius
+  int n_t;
+  float o0x, o0y, o0z, ro, axm, aym, azm, cos_t, sin_t;
+  bool use_cone;
+  int w0 = 0;
+  unsigned mask = 0;
+  int pending = -1;
+
+  __device__ unsigned window(int w) const {
+    const int k = w + lane_id();
+    bool include = false;
+    if (k < n_t) {
+      const float* b = tb + 4 * k;
+      const float vx = __ldg(b + 0) - o0x;
+      const float vy = __ldg(b + 1) - o0y;
+      const float vz = __ldg(b + 2) - o0z;
+      const float dist = sqrtf(vx * vx + vy * vy + vz * vz);
+      const float rr = __ldg(b + 3) + ro;
+      const bool inside = dist <= rr * 1.00001f + 1e-7f;
+      const float sin_a = fminf(rr / fmaxf(dist, 1e-20f), 1.0f);
+      const float cos_a = sqrtf(fmaxf(1.0f - sin_a * sin_a, 0.0f));
+      const float cos_b =
+          (vx * axm + vy * aym + vz * azm) / fmaxf(dist, 1e-20f);
+      include = inside || cos_b >= cos_a * cos_t - sin_a * sin_t - 1e-5f ||
+                !use_cone;
+    }
+    return __ballot_sync(kFull, include);
+  }
+  __device__ int pop() {
+    while (mask == 0) {
+      w0 += 32;
+      if (w0 >= n_t) return -1;
+      mask = window(w0);
+    }
+    const int b = __ffs(mask) - 1;
+    mask &= mask - 1;
+    return (w0 + b) * kTile;
+  }
+  __device__ int first(float) {
+    w0 = 0;
+    mask = n_t > 0 ? window(0) : 0u;
+    return pop();
+  }
+  __device__ int ahead() {
+    pending = pop();
+    return pending;
+  }
+  __device__ bool advance(float) const { return pending >= 0; }
+};
+
+// The dense scan of the boxes (an unpadded [6, stride] table) through the
+// warp's staging area.
+__device__ __forceinline__ void box_scan(float* buf, const Tables& T,
+                                         const Ray& r, float& t_best,
+                                         int& pid) {
+  for (int k0 = 0; k0 < T.n_box; k0 += kTile) {
+    const int m = min(kTile, T.n_box - k0);
+    for (int p = lane_id(); p < m; p += 32)
+      for (int row = 0; row < 6; ++row)
+        buf[row * kTile + p] = ld(T.box, row, T.b_stride, k0 + p);
+    __syncwarp();
+    for (int j = 0; j < m; ++j)
+      fold(box_t(r, buf[j], buf[kTile + j], buf[2 * kTile + j],
+                 buf[3 * kTile + j], buf[4 * kTile + j], buf[5 * kTile + j]),
+           T.n_sph + k0 + j, t_best, pid);
+    __syncwarp();
+  }
 }
 
+__device__ __forceinline__ int tiles_of(int count) {
+  return (count + kTile - 1) / kTile;
+}
+
+// Tables of B6 and B8: T.sph is the array-of-structs sphere table [S', 4]
+// and T.tri the [9, T'] triangle table, both padded to whole (super)tiles
+// (S', T' their strides); boxes as in B4.
 __global__ void __launch_bounds__(kBlock)
 nh_listed_kernel(Tables T, const float* __restrict__ org,
                  const float* __restrict__ dir, long long n,
                  const int* __restrict__ n_live,
                  const float* __restrict__ bbox, List sph_list,
-                 List tri_list, float* __restrict__ t_out,
+                 List tri_list, int warp_floats, float* __restrict__ t_out,
                  int* __restrict__ pid_out, int* __restrict__ work) {
-  __shared__ float tile[9][kTile];
-  __shared__ float red[kBlock / 32];
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  float* ring = reinterpret_cast<float*>(smem4) + warp * warp_floats;
   const int row = blockIdx.x;
   const long long i = (long long)row * kBlock + threadIdx.x;
   const long long live = min(n, (long long)__ldg(n_live));
-  if ((long long)row * kBlock >= live) {
+  int* wk = work == nullptr ? nullptr : work + 2 * (row * kWarps + warp);
+  if (i - lane_id() >= live) {      // no live ray in this warp
     if (i < n) {
       t_out[i] = kInf;
       pid_out[i] = -1;
     }
+    if (wk != nullptr && lane_id() == 0) wk[0] = wk[1] = 0;
     return;
   }
   const bool active = i < live;
@@ -436,153 +676,107 @@ nh_listed_kernel(Tables T, const float* __restrict__ org,
   float t_best = kInf;
   int pid = -1;
   int slots_s = 0, slots_t = 0;
-  if (sph_list.ids != nullptr)
-    slots_s = listed_scan<K_SPH, 4>(tile, red, sph_list, T.sph, T.s_stride,
-                                    0, row, active, r, t_cap, t_best, pid);
-  else
-    dense_class<K_SPH, 4>(tile, T.sph, T.s_stride, T.n_sph, 0, active, r,
-                          t_best, pid);
-  dense_class<K_BOX, 6>(tile, T.box, T.b_stride, T.n_box, T.n_sph, active, r,
-                        t_best, pid);
-  if (tri_list.ids != nullptr)
-    slots_t = listed_scan<K_TRI, 9>(tile, red, tri_list, T.tri, T.t_stride,
-                                    T.n_sph + T.n_box, row, active, r, t_cap,
-                                    t_best, pid);
-  else
-    dense_class<K_TRI, 9>(tile, T.tri, T.t_stride, T.n_tri,
-                          T.n_sph + T.n_box, active, r, t_best, pid);
-  if (work != nullptr && threadIdx.x == 0) {
-    work[2 * row] = slots_s;
-    work[2 * row + 1] = slots_t;
+  if (sph_list.ids != nullptr) {
+    ListCursor c{sph_list.ids + (size_t)row * sph_list.cols,
+                 sph_list.tlo + (size_t)row * sph_list.cols, sph_list.cols,
+                 sph_list.fan, active, t_cap};
+    stream_tiles<K_SPH>(ring, T.sph, T.s_stride, 0, c, r, t_best, pid);
+    slots_s = c.j;
+  } else {
+    AllCursor c{tiles_of(T.n_sph), 0};
+    stream_tiles<K_SPH>(ring, T.sph, T.s_stride, 0, c, r, t_best, pid);
+  }
+  box_scan(ring, T, r, t_best, pid);
+  const int tri0 = T.n_sph + T.n_box;
+  if (tri_list.ids != nullptr) {
+    ListCursor c{tri_list.ids + (size_t)row * tri_list.cols,
+                 tri_list.tlo + (size_t)row * tri_list.cols, tri_list.cols,
+                 tri_list.fan, active, t_cap};
+    stream_tiles<K_TRI>(ring, T.tri, T.t_stride, tri0, c, r, t_best, pid);
+    slots_t = c.j;
+  } else {
+    AllCursor c{tiles_of(T.n_tri), 0};
+    stream_tiles<K_TRI>(ring, T.tri, T.t_stride, tri0, c, r, t_best, pid);
+  }
+  if (wk != nullptr && lane_id() == 0) {
+    wk[0] = slots_s;
+    wk[1] = slots_t;
   }
   if (i < n) {
     t_out[i] = active ? t_best : kInf;
     pid_out[i] = active && t_best < kInf ? pid : -1;
   }
-}
-
-// ---- B8: the cone-culled dense nearest hit ---------------------------------
-// nh_culled_kernel -> _nearest_hit_kernel_culled (nearest_hit.py:113, body
-// _nearest_hit_block :236-267 and :415-431, entry
-// nearest_hit_pallas(tile_bounds=...) :898): B4's block of 128 rays, which
-// first bounds its live rays (the rows below min(n_live, n)) by an apex ball
-// (o0 = their mean origin, ro = the largest distance from it) and a cone
-// (axis = their normalized mean direction, cos_t = the worst alignment,
-// d / sqrt(a)), then skips every 128-sphere tile whose bounding sphere
-// (tb [T, 4]: center, radius) the ball-cone cannot reach; cos_t < 0.25
-// keeps every tile. The skip is block-uniform: every thread evaluates the
-// same predicate on the same values. Boxes and triangles stream dense. The
-// cull is conservative, so the result is B4's.
-//
-// What bounds it: the sphere tests of the tiles kept (an IEEE sqrt each)
-// plus the dense boxes and triangles; a per-tile predicate of ~25 float
-// operations a thread. Design: B4's staging and fold; the block's sums are
-// a shuffle-down tree per warp, then the four warp sums left to right (the
-// plain version, nearest_hit_culled_plain, sums in the same order), so the
-// predicate is bit-identical. No prefetch of the next kept tile yet.
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = red[0];
-  for (int w = 1; w < kBlock / 32; ++w) s = s + red[w];
-  return s;
-}
-
-__device__ __forceinline__ float block_min(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < kBlock / 32; ++w) m = fminf(m, red[w]);
-  return m;
 }
 
 __global__ void __launch_bounds__(kBlock)
 nh_culled_kernel(Tables T, const float* __restrict__ org,
                  const float* __restrict__ dir, long long n,
                  const int* __restrict__ n_live,
-                 const float* __restrict__ tb, float* __restrict__ t_out,
-                 int* __restrict__ pid_out, int* __restrict__ work) {
-  __shared__ float tile[9][kTile];
-  __shared__ float red[kBlock / 32];
+                 const float* __restrict__ tb, int warp_floats,
+                 float* __restrict__ t_out, int* __restrict__ pid_out,
+                 int* __restrict__ work) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  float* ring = reinterpret_cast<float*>(smem4) + warp * warp_floats;
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   const long long live = min(n, (long long)__ldg(n_live));
-  if ((long long)blockIdx.x * kBlock >= live) {
+  int* wk = work == nullptr ? nullptr : work + blockIdx.x * kWarps + warp;
+  if (i - lane_id() >= live) {      // no live ray in this warp
     if (i < n) {
       t_out[i] = kInf;
       pid_out[i] = -1;
     }
-    if (work != nullptr && threadIdx.x == 0) work[blockIdx.x] = 0;
+    if (wk != nullptr && lane_id() == 0) *wk = 0;
     return;
   }
   const bool active = i < live;
   const Ray r = load_ray(org, dir, active ? i : 0);
 
-  // the block's cone over its live rays
-  const float r_inv = 1.0f / fmaxf(block_sum(active ? 1.0f : 0.0f, red),
-                                   1.0f);
-  const float o0x = block_sum(active ? r.ox : 0.0f, red) * r_inv;
-  const float o0y = block_sum(active ? r.oy : 0.0f, red) * r_inv;
-  const float o0z = block_sum(active ? r.oz : 0.0f, red) * r_inv;
-  const float ex = r.ox - o0x, ey = r.oy - o0y, ez = r.oz - o0z;
-  const float ro =
-      sqrtf(block_max(active ? ex * ex + ey * ey + ez * ez : 0.0f, red));
-  float axm = block_sum(active ? r.dx : 0.0f, red) * r_inv;
-  float aym = block_sum(active ? r.dy : 0.0f, red) * r_inv;
-  float azm = block_sum(active ? r.dz : 0.0f, red) * r_inv;
+  // the warp's ball-cone over its live rays
+  const float r_inv = 1.0f / fmaxf(warp_sum(active ? 1.0f : 0.0f), 1.0f);
+  ConeCursor c;
+  c.tb = tb;
+  c.n_t = tiles_of(T.n_sph);
+  c.o0x = warp_sum(active ? r.ox : 0.0f) * r_inv;
+  c.o0y = warp_sum(active ? r.oy : 0.0f) * r_inv;
+  c.o0z = warp_sum(active ? r.oz : 0.0f) * r_inv;
+  const float ex = r.ox - c.o0x, ey = r.oy - c.o0y, ez = r.oz - c.o0z;
+  c.ro = sqrtf(warp_max(active ? ex * ex + ey * ey + ez * ez : 0.0f));
+  float axm = warp_sum(active ? r.dx : 0.0f) * r_inv;
+  float aym = warp_sum(active ? r.dy : 0.0f) * r_inv;
+  float azm = warp_sum(active ? r.dz : 0.0f) * r_inv;
   const float a_n =
       1.0f / sqrtf(fmaxf(axm * axm + aym * aym + azm * azm, 1e-20f));
-  axm = axm * a_n;
-  aym = aym * a_n;
-  azm = azm * a_n;
+  c.axm = axm * a_n;
+  c.aym = aym * a_n;
+  c.azm = azm * a_n;
   const float d_inv = 1.0f / sqrtf(r.a);
-  const float cos_t = block_min(
-      active ? (r.dx * axm + r.dy * aym + r.dz * azm) * d_inv : 1.0f, red);
-  const bool use_cone = cos_t >= 0.25f;
-  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  c.cos_t = warp_min(
+      active ? (r.dx * c.axm + r.dy * c.aym + r.dz * c.azm) * d_inv : 1.0f);
+  c.use_cone = c.cos_t >= 0.25f;
+  c.sin_t = sqrtf(fmaxf(1.0f - c.cos_t * c.cos_t, 0.0f));
 
   float t_best = kInf;
   int pid = -1;
-  int streamed = 0;
-  for (int k0 = 0; k0 < T.n_sph; k0 += kTile) {
-    const float* b = tb + 4 * (k0 / kTile);
-    const float vx = __ldg(b + 0) - o0x;
-    const float vy = __ldg(b + 1) - o0y;
-    const float vz = __ldg(b + 2) - o0z;
-    const float dist = sqrtf(vx * vx + vy * vy + vz * vz);
-    const float rr = __ldg(b + 3) + ro;
-    const bool inside = dist <= rr * 1.00001f + 1e-7f;
-    const float sin_a = fminf(rr / fmaxf(dist, 1e-20f), 1.0f);
-    const float cos_a = sqrtf(fmaxf(1.0f - sin_a * sin_a, 0.0f));
-    const float cos_b = (vx * axm + vy * aym + vz * azm) / fmaxf(dist, 1e-20f);
-    const bool include =
-        inside || cos_b >= cos_a * cos_t - sin_a * sin_t - 1e-5f || !use_cone;
-    if (!include) continue;          // block-uniform
-    ++streamed;
-    __syncthreads();
-    stage(tile, T.sph, 4, T.s_stride, T.n_sph, k0);
-    __syncthreads();
-    if (active) {
-      const int m = min(kTile, T.n_sph - k0);
-      for (int j = 0; j < m; ++j)
-        fold(sphere_dense(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j]),
-             k0 + j, t_best, pid);
-    }
-  }
-  dense_class<K_BOX, 6>(tile, T.box, T.b_stride, T.n_box, T.n_sph, active, r,
-                        t_best, pid);
-  dense_class<K_TRI, 9>(tile, T.tri, T.t_stride, T.n_tri, T.n_sph + T.n_box,
-                        active, r, t_best, pid);
-  if (work != nullptr && threadIdx.x == 0) work[blockIdx.x] = streamed;
+  const int streamed =
+      stream_tiles<K_SPH>(ring, T.sph, T.s_stride, 0, c, r, t_best, pid);
+  box_scan(ring, T, r, t_best, pid);
+  AllCursor all{tiles_of(T.n_tri), 0};
+  stream_tiles<K_TRI>(ring, T.tri, T.t_stride, T.n_sph + T.n_box, all, r,
+                      t_best, pid);
+  if (wk != nullptr && lane_id() == 0) *wk = streamed;
   if (i < n) {
     t_out[i] = active ? t_best : kInf;
     pid_out[i] = active && t_best < kInf ? pid : -1;
   }
+}
+
+// Floats of one warp's staging area: a ring of two tiles of the widest
+// class streamed (the box staging, 6 x 128 floats, fits in two sphere
+// tiles).
+int warp_floats_for(int n_tri) {
+  return 2 * (n_tri > 0 ? TileKind<K_TRI>::kFloats
+                        : TileKind<K_SPH>::kFloats);
 }
 
 Tables make_tables(const float* sph, int n_sph, int s_stride,
@@ -646,11 +840,12 @@ extern "C" int rt_nearest_hit_dense(const float* sph, int n_sph, int s_stride,
   return (int)cudaGetLastError();
 }
 
-// B6. The sphere and triangle tables are padded to whole (super)tiles, the
-// sphere padding poisoned (ccmr = +inf); a null ids pointer scans that class
-// dense. The lists have at least ceil(n / 128) rows and a multiple of 16
-// columns. `work` may be null; else it receives the list slots each block
-// streamed, [rows, 2] (spheres, triangles).
+// B6. `sph` is the array-of-structs sphere table [s_stride, 4] and `tri`
+// the triangle table [9, t_stride], both padded to whole (super)tiles (16-byte
+// aligned), the sphere padding poisoned (ccmr = +inf); a null ids pointer
+// scans that class dense. The lists have at least ceil(n / 128) rows and a
+// multiple of 16 columns. `work` may be null; else it receives the list
+// slots each warp streamed, [rows, 4, 2] (spheres, triangles).
 extern "C" int rt_nearest_hit_listed(
     const float* sph, int n_sph, int s_stride, const float* box, int n_box,
     int b_stride, const float* tri, int n_tri, int t_stride,
@@ -673,15 +868,18 @@ extern "C" int rt_nearest_hit_listed(
   lt.tlo = tri_tlo;
   lt.cols = t_cols;
   lt.fan = tri_fan;
+  const int wf = warp_floats_for(n_tri);
+  const size_t smem = (size_t)kWarps * wf * sizeof(float);
   const long long grid = (n + kBlock - 1) / kBlock;
-  nh_listed_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
-      T, org, dir, n, n_live, bbox, ls, lt, t_out, pid_out, work);
+  nh_listed_kernel<<<(unsigned int)grid, kBlock, smem,
+                     (cudaStream_t)stream>>>(T, org, dir, n, n_live, bbox, ls,
+                                             lt, wf, t_out, pid_out, work);
   return (int)cudaGetLastError();
 }
 
-// B8. tb holds one row (cx, cy, cz, r) per 128-sphere tile of the sphere
-// table, in its order. `work` may be null; else it receives the sphere
-// tiles each block streamed, [ceil(n / 128)].
+// B8. Tables as for B6 (padded to whole tiles); tb holds one row (cx, cy,
+// cz, r) per 128-sphere tile, in the table's order. `work` may be null;
+// else it receives the sphere tiles each warp streamed, [ceil(n / 128), 4].
 extern "C" int rt_nearest_hit_culled(const float* sph, int n_sph,
                                      int s_stride, const float* box,
                                      int n_box, int b_stride,
@@ -696,8 +894,11 @@ extern "C" int rt_nearest_hit_culled(const float* sph, int n_sph,
   if (n <= 0) return 0;
   const Tables T = make_tables(sph, n_sph, s_stride, box, n_box, b_stride,
                                tri, n_tri, t_stride);
+  const int wf = warp_floats_for(n_tri);
+  const size_t smem = (size_t)kWarps * wf * sizeof(float);
   const long long grid = (n + kBlock - 1) / kBlock;
-  nh_culled_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
-      T, org, dir, n, n_live, tb, t_out, pid_out, work);
+  nh_culled_kernel<<<(unsigned int)grid, kBlock, smem,
+                     (cudaStream_t)stream>>>(T, org, dir, n, n_live, tb, wf,
+                                             t_out, pid_out, work);
   return (int)cudaGetLastError();
 }

@@ -14,12 +14,18 @@ to the lowest pid — the contract of ``ops/trace.nearest_hit_brute``.
 
 - :func:`nearest_hit_pallas` with ``tile_ids``/``tri_tile_ids`` (B6,
   ``nh_listed_kernel``) — the listed search of the TILED sweep rounds: each
-  128-ray block streams its own list of 128-prim (super)tiles in ascending
-  entry bound and stops early (:func:`nearest_hit_listed_plain`).
+  128-ray block has its own list of 128-prim (super)tiles in ascending
+  entry bound; each warp of 32 rays streams it and stops early on its own
+  (:func:`nearest_hit_listed_plain`).
 - :func:`nearest_hit_pallas` with ``tile_bounds`` (B8,
-  ``nh_culled_kernel``) — B4 with an in-kernel cone cull: each 128-ray
-  block bounds its live rays by a cone and skips every 128-sphere tile the
+  ``nh_culled_kernel``) — B4 with an in-kernel cone cull: each warp of 32
+  rays bounds its live rays by a cone and skips every 128-sphere tile the
   cone cannot reach (:func:`nearest_hit_culled_plain`).
+
+The plain versions of B6 and B8 take the exit group's size as ``group``:
+32, the kernels', by default; 128 gives the block-wide exit of the first
+design, with the same t and pid, so the two can be held against each
+other.
 
 The kernels live in ``csrc/nearest_hit.cu``. Each has a plain PyTorch
 version (``*_plain``) with the kernel's expressions in the kernel's order,
@@ -51,8 +57,8 @@ LAUNCHES = {"scalar": 0, "dense": 0, "listed": 0, "culled": 0}
 SCALAR_MAX_PRIMS = 384
 #: elements of one [rays, prims] temporary in a plain version
 PLAIN_CHUNK_ELEMS = 1 << 25
-#: B6: rays per list row (one CUDA block), prims per listed tile, and list
-#: slots streamed between early-exit checks
+#: B6: rays per list row (one CUDA block of four warps), prims per listed
+#: tile, and list slots streamed between early-exit checks
 BLOCK_R = 128
 BLOCK_K = 128
 CHUNK_T = 16
@@ -266,13 +272,22 @@ def nearest_hit_pallas_plain(scene: Scene, org: Tensor, dir: Tensor,
     return torch.where(live, t, _INF), torch.where(live, pid, -1)
 
 
-def _block_sum(x: Tensor) -> Tensor:
-    """Sum of each 128-row block [B, 128] in the kernel's order: a
-    shuffle-down tree in each warp of 32 rows, then the four warp sums left
-    to right."""
-    x = x.reshape(x.shape[0], BLOCK_R // 32, 32)
-    for off in (16, 8, 4, 2, 1):
+def _check_group(group: int) -> None:
+    if group < 1 or group & (group - 1) or BLOCK_R % group:
+        raise ValueError(f"group must be a power of two dividing {BLOCK_R}, "
+                         f"got {group}")
+
+
+def _group_sum(x: Tensor, group: int) -> Tensor:
+    """Sum of each group of rows [G, group] in the kernels' order: a
+    shuffle-down tree over each warp of (at most) 32 rows, then the warp
+    sums left to right (the first design's block of 128: four warps)."""
+    lanes = min(group, 32)
+    x = x.reshape(x.shape[0], group // lanes, lanes)
+    off = lanes // 2
+    while off:
         x = x[..., :off] + x[..., off:2 * off]
+        off //= 2
     w = x[..., 0]
     s = w[:, 0]
     for k in range(1, w.shape[1]):
@@ -281,36 +296,44 @@ def _block_sum(x: Tensor) -> Tensor:
 
 
 def culled_tiles(org: Tensor, dir: Tensor, live: int,
-                 tile_bounds: Tensor, n_sph: int) -> Tensor:
-    """B8's cull -> include [B, T] bool: block b's rays below ``live`` (the
-    kernel's prologue, over the rows below min(n_live, N)) are bounded by
-    an apex ball (o0 = their mean origin, ro = the largest distance from
-    it) and a cone (axis = their mean direction, cos_t = the worst
-    alignment); sphere tile k (bounds ``tile_bounds[k]`` = center, radius)
-    is kept iff the ball-cone can reach it or ``cos_t < 0.25``, the
-    predicate of ``accel/candidates.cone_include_np``. The kernel's
-    expressions, in its order."""
+                 tile_bounds: Tensor, n_sph: int,
+                 group: int = 32) -> Tensor:
+    """B8's cull -> include [G, T] bool, one row per group of ``group``
+    rays (the rays padded to whole 128-ray blocks): group g's rays below
+    ``live`` (the kernel's prologue, over the rows below min(n_live, N))
+    are bounded by an apex ball (o0 = their mean origin, ro = the largest
+    distance from it) and a cone (axis = their mean direction, cos_t = the
+    worst alignment); sphere tile k (bounds ``tile_bounds[k]`` = center,
+    radius) is kept iff the ball-cone can reach it or ``cos_t < 0.25``,
+    the predicate of ``accel/candidates.cone_include_np``. The kernel's
+    expressions, in its order. ``group=1`` bounds each ray by itself (apex
+    0, angle 0): the tiles that ray alone can reach."""
+    _check_group(group)
     n = org.shape[0]
-    nb = -(-n // BLOCK_R)
+    nb = -(-n // BLOCK_R) * (BLOCK_R // group)
     n_t = -(-n_sph // BLOCK_K)
-    pad = nb * BLOCK_R - n
+    pad = nb * group - n
     o = torch.cat([org, org.new_zeros((pad, 3))]) if pad else org
     d = torch.cat([dir, dir.new_ones((pad, 3))]) if pad else dir
-    lv = (torch.arange(nb * BLOCK_R, device=org.device) < live).reshape(
-        nb, BLOCK_R)
-    ox, oy, oz = (o[:, k].reshape(nb, BLOCK_R) for k in range(3))
-    dx, dy, dz = (d[:, k].reshape(nb, BLOCK_R) for k in range(3))
+    lv = (torch.arange(nb * group, device=org.device) < live).reshape(
+        nb, group)
+    ox, oy, oz = (o[:, k].reshape(nb, group) for k in range(3))
+    dx, dy, dz = (d[:, k].reshape(nb, group) for k in range(3))
     zero = torch.zeros_like(ox)
-    r_inv = 1.0 / torch.clamp(_block_sum(lv.to(torch.float32)), min=1.0)
-    o0x = _block_sum(torch.where(lv, ox, zero)) * r_inv
-    o0y = _block_sum(torch.where(lv, oy, zero)) * r_inv
-    o0z = _block_sum(torch.where(lv, oz, zero)) * r_inv
+
+    def gsum(x):
+        return _group_sum(x, group)
+
+    r_inv = 1.0 / torch.clamp(gsum(lv.to(torch.float32)), min=1.0)
+    o0x = gsum(torch.where(lv, ox, zero)) * r_inv
+    o0y = gsum(torch.where(lv, oy, zero)) * r_inv
+    o0z = gsum(torch.where(lv, oz, zero)) * r_inv
     ex, ey, ez = ox - o0x[:, None], oy - o0y[:, None], oz - o0z[:, None]
     ro = torch.sqrt(torch.where(lv, ex * ex + ey * ey + ez * ez,
                                 zero).max(dim=1).values)
-    axm = _block_sum(torch.where(lv, dx, zero)) * r_inv
-    aym = _block_sum(torch.where(lv, dy, zero)) * r_inv
-    azm = _block_sum(torch.where(lv, dz, zero)) * r_inv
+    axm = gsum(torch.where(lv, dx, zero)) * r_inv
+    aym = gsum(torch.where(lv, dy, zero)) * r_inv
+    azm = gsum(torch.where(lv, dz, zero)) * r_inv
     a_n = 1.0 / torch.sqrt(torch.clamp(axm * axm + aym * aym + azm * azm,
                                        min=1e-20))
     axm, aym, azm = axm * a_n, aym * a_n, azm * a_n
@@ -338,42 +361,45 @@ def culled_tiles(org: Tensor, dir: Tensor, live: int,
 
 def nearest_hit_culled_plain(scene: Scene, org: Tensor, dir: Tensor,
                              tile_bounds: Tensor, n_live=None,
-                             work: bool = False):
-    """Plain version of B8 -> (t [N], pid [N]) (+ ``tiles`` [B] i32, the
-    sphere tiles each 128-ray block streamed, when ``work``).
+                             work: bool = False, group: int = 32):
+    """Plain version of B8 -> (t [N], pid [N]) (+ ``tiles`` [B, 128 /
+    group] i32, the sphere tiles each group of ``group`` rays streamed, per
+    128-ray block, when ``work``).
 
-    B4's search (boxes and triangles dense), each block skipping the
+    B4's search (boxes and triangles dense), each group skipping the
     sphere tiles :func:`culled_tiles` excludes; the spheres must be in the
     tile order of ``tile_bounds`` [T >= ceil(S / 128), 4]. Rows at or past
-    ``n_live`` report (+inf, -1), and blocks wholly past it stream
-    nothing. The cull is conservative, so the result is B4's."""
+    ``n_live`` report (+inf, -1), and groups wholly past it stream
+    nothing. The cull is conservative, so the result is B4's whatever the
+    group."""
     return culled_plain(pack_tables(scene), org, dir, tile_bounds, n_live,
-                        work)
+                        work, group)
 
 
 def culled_plain(tabs: HitTables, org: Tensor, dir: Tensor,
-                 tile_bounds: Tensor, n_live=None, work: bool = False):
+                 tile_bounds: Tensor, n_live=None, work: bool = False,
+                 group: int = 32):
     """:func:`nearest_hit_culled_plain` on packed tables."""
     n = org.shape[0]
     live = n if n_live is None else min(int(n_live), n)
     if tile_bounds.shape[0] * BLOCK_K < tabs.n_sph:
         raise ValueError(f"{tile_bounds.shape[0]} tile bounds cover fewer "
                          f"than {tabs.n_sph} spheres")
-    include = culled_tiles(org, dir, live, tile_bounds, tabs.n_sph)
+    include = culled_tiles(org, dir, live, tile_bounds, tabs.n_sph, group)
     tile_of = torch.arange(tabs.n_sph, device=org.device) // BLOCK_K
 
     def mask(lo, hi):
-        blk = torch.arange(lo, hi, device=org.device) // BLOCK_R
-        return include[blk][:, tile_of]
+        grp = torch.arange(lo, hi, device=org.device) // group
+        return include[grp][:, tile_of]
 
     t, pid = _search_plain(tabs, org, dir, _sphere_dense, sph_mask=mask)
     rows = torch.arange(n, device=org.device) < live
     t, pid = torch.where(rows, t, _INF), torch.where(rows, pid, -1)
     if not work:
         return t, pid
-    blocks = torch.arange(include.shape[0], device=org.device) * BLOCK_R
-    tiles = torch.where(blocks < live, include.sum(dim=1), 0).to(
-        torch.int32)
+    starts = torch.arange(include.shape[0], device=org.device) * group
+    tiles = torch.where(starts < live, include.sum(dim=1), 0).to(
+        torch.int32).reshape(-1, BLOCK_R // group)
     return t, pid, tiles
 
 
@@ -450,19 +476,36 @@ def nearest_hit_pallas_scalar(scene: Scene, org: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# B6: the listed search
+# B6: the listed search, and the tables B6 and B8 stream
 # ---------------------------------------------------------------------------
+
+def _pad_tiles(tab: Tensor, count: int, fan: int = 1,
+               poison_row: Optional[int] = None) -> Tensor:
+    """A [rows, >= count] table padded with zero columns to whole
+    (super)tiles of ``BLOCK_K * fan`` prims; ``poison_row`` set to +inf in
+    the padding (the sphere table's ccmr row: a padded sphere is never
+    hit)."""
+    width = -(-max(count, 1) // (BLOCK_K * fan)) * (BLOCK_K * fan)
+    out = torch.zeros((tab.shape[0], width), dtype=torch.float32,
+                      device=tab.device)
+    out[:, :count] = tab[:, :count]
+    if poison_row is not None:
+        out[poison_row, count:] = _INF
+    return out
+
 
 @dataclasses.dataclass(frozen=True)
 class ListedInputs:
     """What B6 and its plain version read: the tables, spheres and
     triangles padded to whole (super)tiles (padded spheres poisoned with
     ``ccmr = +inf``, padded triangles all-zero: neither can be hit), the
-    lists ([rows, cols] ids i32 / t_lo f32, rows >= ceil(N / BLOCK_R), cols
-    a CHUNK_T multiple; None scans that class dense) and the scene-bbox row
-    [8] (lo xyz, hi xyz, 0, 0)."""
+    kernel's array-of-structs copy of the padded sphere table (``sph4``
+    [S', 4]), the lists ([rows, cols] ids i32 / t_lo f32, rows >= ceil(N /
+    BLOCK_R), cols a CHUNK_T multiple; None scans that class dense) and the
+    scene-bbox row [8] (lo xyz, hi xyz, 0, 0)."""
 
     tabs: HitTables
+    sph4: Tensor
     sph_list: Optional[Tuple[Tensor, Tensor]]
     tri_list: Optional[Tuple[Tensor, Tensor]]
     sph_fan: int
@@ -491,34 +534,37 @@ def listed_inputs(scene: Scene, n: int, tile_ids=None, tri_tile_ids=None,
     from ..models.scene import prim_aabbs
 
     tabs = pack_tables(scene)
-
-    def padded(tab, count, fan, poison_row):
-        width = -(-max(count, 1) // (BLOCK_K * fan)) * (BLOCK_K * fan)
-        out = torch.zeros((tab.shape[0], width), dtype=torch.float32,
-                          device=tab.device)
-        out[:, :count] = tab[:, :count]
-        if poison_row is not None:
-            out[poison_row, count:] = _INF
-        return out
-
     tabs = dataclasses.replace(
-        tabs, sph=padded(tabs.sph, tabs.n_sph, sph_fan, 3),
-        tri=padded(tabs.tri, tabs.n_tri, tri_fan, None))
+        tabs, sph=_pad_tiles(tabs.sph, tabs.n_sph, sph_fan, 3),
+        tri=_pad_tiles(tabs.tri, tabs.n_tri, tri_fan))
     lo, hi = prim_aabbs(scene)
     bbox = torch.cat([lo.min(dim=0).values, hi.max(dim=0).values,
                       torch.zeros(2, device=lo.device)]).contiguous()
     return ListedInputs(
-        tabs=tabs,
+        tabs=tabs, sph4=tabs.sph.T.contiguous(),
         sph_list=None if tile_ids is None else _prep_list(tile_ids, n),
         tri_list=None if tri_tile_ids is None else _prep_list(tri_tile_ids,
                                                               n),
         sph_fan=int(sph_fan), tri_fan=int(tri_fan), bbox=bbox)
 
 
-def _block_rays(r: _Rays, g: int) -> _Rays:
-    """[g * BLOCK_R, 1] ray columns -> [g, BLOCK_R, 1]."""
-    return _Rays(*(getattr(r, f.name).reshape(g, BLOCK_R, 1)
+def _group_rays(r: _Rays, group: int) -> _Rays:
+    """[k * group, 1] ray columns -> [k, group, 1]."""
+    return _Rays(*(getattr(r, f.name).reshape(-1, group, 1)
                    for f in dataclasses.fields(_Rays)))
+
+
+def _t_cap(r: _Rays, bbox: Tensor) -> Tensor:
+    """Each ray's early-exit cap, the scene-bbox exit (every hit point lies
+    in the union of the prim AABBs), with the kernel's slack."""
+    lo_x, lo_y, lo_z, hi_x, hi_y, hi_z = (bbox[k] for k in range(6))
+    ex = [torch.maximum((lo - oc[..., 0]) * ic[..., 0],
+                        (hi - oc[..., 0]) * ic[..., 0])
+          for lo, hi, oc, ic in ((lo_x, hi_x, r.ox, r.ix),
+                                 (lo_y, hi_y, r.oy, r.iy),
+                                 (lo_z, hi_z, r.oz, r.iz))]
+    t_exit = torch.minimum(torch.minimum(ex[0], ex[1]), ex[2])
+    return torch.clamp(t_exit, min=0.0) * (1.0 + 1e-4) + 1e-3
 
 
 def _fold(t: Tensor, pids: Tensor, active: Tensor, t_best: Tensor,
@@ -546,8 +592,9 @@ def _dense_plain(r: _Rays, tab: Tensor, count: int, pid0: int, test,
 
 def _listed_plain(r: _Rays, ids: Tensor, tlo: Tensor, fan: int, tab: Tensor,
                   pid0: int, test, active, t_cap, t_best, pid, slots):
-    """Stream each block's list (the kernel's ``listed_scan``); ``slots``
-    [g] counts the list slots each block streamed."""
+    """Stream each exit group's list row (the kernel's ``ListCursor``):
+    rows [G, group] of rays, ``ids``/``tlo`` [G, cols] the row each group
+    streams; ``slots`` [G] counts the list slots each group streamed."""
     g, cols = ids.shape
     dev = ids.device
     lane = torch.arange(BLOCK_K, device=dev)
@@ -577,41 +624,52 @@ def _listed_plain(r: _Rays, ids: Tensor, tlo: Tensor, fan: int, tab: Tensor,
     return t_best, pid
 
 
+def _list_rows(li: ListedInputs, n: int) -> int:
+    rows = max(-(-n // BLOCK_R), 1)
+    for lst in (li.sph_list, li.tri_list):
+        if lst is not None:
+            rows = lst[0].shape[0]
+    return rows
+
+
 def nearest_hit_listed_plain(scene: Scene, org: Tensor, dir: Tensor,
                              n_live=None, tile_ids=None, tri_tile_ids=None,
                              sph_fan: int = 1, tri_fan: int = 1,
-                             work: bool = False, inputs=None):
-    """Plain version of B6 -> (t [N], pid [N]) (+ ``slots`` [rows, 2], the
-    list slots each block streamed per listed class, when ``work``).
+                             work: bool = False, inputs=None,
+                             group: int = 32):
+    """Plain version of B6 -> (t [N], pid [N]) (+ ``slots`` [rows, 128 /
+    group, 2], the list slots each exit group streamed per listed class,
+    when ``work``).
 
-    Block b = rays [128 b, 128 b + 128) streams list row b: spheres (listed
-    or dense), boxes (dense), triangles (listed or dense), each prim folded
-    with a strict ``<`` in stream order, so a t tie goes to the prim
-    streamed first. A listed class stops once the next chunk's t_lo exceeds
-    the block's horizon, the largest over its rays of min(t_best,
-    bbox-exit cap). Rows at or past ``n_live`` report (+inf, -1) and take
-    no part in the horizon (the reference computes them and lets its caller
-    mask them). ``inputs`` is a prebuilt :func:`listed_inputs`.
+    Block b = rays [128 b, 128 b + 128) has list row b. Each exit group of
+    ``group`` rays in it (32, the kernel's warp, by default; 128, the
+    whole block, is the first design) streams spheres (listed or dense),
+    boxes (dense), triangles (listed or dense), each prim folded with a
+    strict ``<`` in stream order, so a t tie goes to the prim streamed
+    first. A listed class stops once the next chunk's t_lo exceeds the
+    group's horizon, the largest over its rays of min(t_best, bbox-exit
+    cap). The row is conservative for the block, hence for any group in
+    it, so t and pid do not depend on ``group``; the slots streamed do.
+    Rows at or past ``n_live`` report (+inf, -1) and take no part in a
+    horizon (the reference computes them and lets its caller mask them).
+    ``inputs`` is a prebuilt :func:`listed_inputs`.
     """
+    _check_group(group)
     n = org.shape[0]
     dev = org.device
     li = inputs or listed_inputs(scene, n, tile_ids, tri_tile_ids, sph_fan,
                                  tri_fan)
     tabs = li.tabs
     live = n if n_live is None else min(int(n_live), n)
-    n_blk = -(-n // BLOCK_R)
-    rows = max(n_blk, 1)
-    for lst in (li.sph_list, li.tri_list):
-        if lst is not None:
-            rows = lst[0].shape[0]
-    slots = torch.zeros((rows, 2), dtype=torch.int32, device=dev)
+    sub = BLOCK_R // group
+    slots = torch.zeros((_list_rows(li, n), sub, 2), dtype=torch.int32,
+                        device=dev)
     t_out = torch.full((n,), _INF, dtype=torch.float32, device=dev)
     pid_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
     live_blk = -(-live // BLOCK_R)
     widest = max(BLOCK_K * CHUNK_T * max(li.sph_fan, li.tri_fan),
                  tabs.n_box, 1)
     per = max(1, PLAIN_CHUNK_ELEMS // (BLOCK_R * widest))
-    lo_x, lo_y, lo_z, hi_x, hi_y, hi_z = (li.bbox[k] for k in range(6))
     for b0 in range(0, live_blk, per):
         b1 = min(live_blk, b0 + per)
         g = b1 - b0
@@ -620,20 +678,14 @@ def nearest_hit_listed_plain(scene: Scene, org: Tensor, dir: Tensor,
         d = torch.ones((g * BLOCK_R, 3), dtype=torch.float32, device=dev)
         o[:r1 - r0] = org[r0:r1]
         d[:r1 - r0] = dir[r0:r1]
-        r = _block_rays(_rays(o, d), g)
-        row = torch.arange(r0, r0 + g * BLOCK_R, device=dev).reshape(g, -1)
+        r = _group_rays(_rays(o, d), group)
+        row = torch.arange(r0, r0 + g * BLOCK_R, device=dev).reshape(
+            -1, group)
         active = row < live
-        ex = [torch.maximum((lo - oc[..., 0]) * ic[..., 0],
-                            (hi - oc[..., 0]) * ic[..., 0])
-              for lo, hi, oc, ic in ((lo_x, hi_x, r.ox, r.ix),
-                                     (lo_y, hi_y, r.oy, r.iy),
-                                     (lo_z, hi_z, r.oz, r.iz))]
-        t_exit = torch.minimum(torch.minimum(ex[0], ex[1]), ex[2])
-        t_cap = torch.clamp(t_exit, min=0.0) * (1.0 + 1e-4) + 1e-3
-        t_best = torch.full((g, BLOCK_R), _INF, dtype=torch.float32,
-                            device=dev)
-        pid = torch.full((g, BLOCK_R), -1, dtype=torch.int64, device=dev)
-        s = torch.zeros((g, 2), dtype=torch.int32, device=dev)
+        t_cap = _t_cap(r, li.bbox)
+        t_best = torch.full(row.shape, _INF, dtype=torch.float32, device=dev)
+        pid = torch.full(row.shape, -1, dtype=torch.int64, device=dev)
+        s = torch.zeros((g * sub, 2), dtype=torch.int32, device=dev)
         classes = ((li.sph_list, li.sph_fan, tabs.sph, tabs.n_sph, 0,
                     _sphere_dense),
                    (None, 1, tabs.box, tabs.n_box, tabs.n_sph, _box),
@@ -644,10 +696,12 @@ def nearest_hit_listed_plain(scene: Scene, org: Tensor, dir: Tensor,
                 t_best, pid = _dense_plain(r, tab, count, pid0, test, active,
                                            t_best, pid)
             else:
+                ids, tlo = (x[b0:b1].repeat_interleave(sub, dim=0)
+                            for x in lst)
                 t_best, pid = _listed_plain(
-                    r, lst[0][b0:b1].long(), lst[1][b0:b1], fan, tab, pid0,
-                    test, active, t_cap, t_best, pid, s[:, k // 2])
-        slots[b0:b1] = s
+                    r, ids.long(), tlo, fan, tab, pid0, test, active, t_cap,
+                    t_best, pid, s[:, k // 2])
+        slots[b0:b1] = s.reshape(g, sub, 2)
         t_best = torch.where(active, t_best, _INF).reshape(-1)[:r1 - r0]
         t_out[r0:r1] = t_best
         pid_out[r0:r1] = torch.where(t_best < _INF, pid.reshape(-1)[:r1 - r0],
@@ -655,11 +709,40 @@ def nearest_hit_listed_plain(scene: Scene, org: Tensor, dir: Tensor,
     return (t_out, pid_out, slots) if work else (t_out, pid_out)
 
 
+def listed_need(li: ListedInputs, org: Tensor, dir: Tensor, t: Tensor,
+                n_live=None) -> Tensor:
+    """The list slots each ray needs, given its final nearest hit ``t``
+    [N] -> [N, 2] i32 (spheres, triangles): the slots of its block's row
+    whose t_lo is at most its own min(t, bbox-exit cap), rounded up to
+    whole CHUNK_T chunks (the least any exit rule streams for that ray);
+    0 for a class streamed dense and for rows at or past ``n_live``."""
+    n = org.shape[0]
+    live = n if n_live is None else min(int(n_live), n)
+    need = torch.zeros((n, 2), dtype=torch.int32, device=org.device)
+    nb = -(-live // BLOCK_R)
+    if nb == 0:
+        return need
+    pad = nb * BLOCK_R - live
+    r = _group_rays(_rays(torch.cat([org[:live], org.new_zeros((pad, 3))]),
+                          torch.cat([dir[:live], dir.new_ones((pad, 3))])),
+                    BLOCK_R)
+    reach = torch.minimum(torch.cat([t[:live], t.new_full((pad,), -_INF)])
+                          .reshape(nb, BLOCK_R), _t_cap(r, li.bbox))
+    for k, lst in enumerate((li.sph_list, li.tri_list)):
+        if lst is None:
+            continue
+        count = torch.searchsorted(lst[1][:nb], reach, right=True)
+        need[:live, k] = (-(-count // CHUNK_T) * CHUNK_T).reshape(-1)[
+            :live].to(torch.int32)
+    return need
+
+
 def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
                   n_live: Optional[Tensor] = None, work: bool = False):
     """Launch B6 on the current stream -> (t [N], pid [N]) (+ ``slots``
-    when ``work``); ``n_live`` is a [1] int32 device tensor (None: every
-    row), so the count never syncs to the host. Does not synchronize."""
+    [rows, 4, 2], the list slots each warp streamed, when ``work``);
+    ``n_live`` is a [1] int32 device tensor (None: every row), so the count
+    never syncs to the host. Does not synchronize."""
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
@@ -667,19 +750,13 @@ def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
     n = org.shape[0]
     f32, i32 = torch.float32, torch.int32
     tabs = li.tabs
-    args = []
-    for name, tab, rows, count in (("sphere table", tabs.sph, 4, tabs.n_sph),
-                                   ("box table", tabs.box, 6, tabs.n_box),
-                                   ("triangle table", tabs.tri, 9,
-                                    tabs.n_tri)):
-        _build.need(tab, name, f32, (rows, tab.shape[1]), dev)
-        args += [_build.ptr(tab), count, tab.shape[1]]
+    args = _stream_table_args(li.sph4, tabs.n_sph, tabs.box, tabs.n_box,
+                              tabs.tri, tabs.n_tri, dev)
     _build.need(org, "org", f32, (n, 3), dev)
     _build.need(dir, "dir", f32, (n, 3), dev)
     _build.need(li.bbox, "bbox", f32, (8,), dev)
     n_blk = -(-n // BLOCK_R)
     list_args = []
-    rows = n_blk
     for name, lst, fan in (("sphere list", li.sph_list, li.sph_fan),
                            ("triangle list", li.tri_list, li.tri_fan)):
         if lst is None:
@@ -691,10 +768,10 @@ def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
         _build.need(ids, f"{name} ids", i32, tuple(ids.shape), dev)
         _build.need(tlo, f"{name} t_lo", f32, tuple(ids.shape), dev)
         list_args += [_build.ptr(ids), _build.ptr(tlo), ids.shape[1], fan]
-        rows = ids.shape[0]
     t = torch.full((n,), _INF, dtype=f32, device=dev)
     pid = torch.full((n,), -1, dtype=i32, device=dev)
-    slots = torch.zeros((rows, 2), dtype=i32, device=dev) if work else None
+    slots = (torch.zeros((_list_rows(li, n), BLOCK_R // 32, 2), dtype=i32,
+                         device=dev) if work else None)
     if n == 0:
         return (t, pid, slots) if work else (t, pid)
     if n_live is None:
@@ -710,30 +787,64 @@ def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
     return (t, pid, slots) if work else (t, pid)
 
 
+def _stream_table_args(sph4: Tensor, n_sph: int, box: Tensor, n_box: int,
+                       tri: Tensor, n_tri: int, dev) -> list:
+    """B6's and B8's table arguments: the array-of-structs sphere table
+    [S', 4] and the triangle table [9, T'], padded to whole tiles and
+    16-byte aligned (the kernels copy them in 16-byte pieces), and the box
+    table as B4 takes it."""
+    f32 = torch.float32
+    _build.need(sph4, "sphere table", f32, (sph4.shape[0], 4), dev)
+    _build.need(box, "box table", f32, (6, max(n_box, 1)), dev)
+    _build.need(tri, "triangle table", f32, (9, tri.shape[1]), dev)
+    for name, tab, width, count in (("sphere table", sph4, sph4.shape[0],
+                                     n_sph),
+                                    ("triangle table", tri, tri.shape[1],
+                                     n_tri)):
+        if width % BLOCK_K or width < count:
+            raise ValueError(f"{name} is not padded to whole tiles: "
+                             f"{width} for {count} prims")
+        if tab.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    return [_build.ptr(sph4), n_sph, sph4.shape[0], _build.ptr(box), n_box,
+            box.shape[1], _build.ptr(tri), n_tri, tri.shape[1]]
+
+
 def launch_culled(tabs: HitTables, org: Tensor, dir: Tensor,
                   tile_bounds: Tensor, n_live: Optional[Tensor] = None,
                   work: bool = False):
     """Launch B8 on the current stream -> (t [N], pid [N]) (+ ``tiles``
-    [B] i32 when ``work``); ``n_live`` as for :func:`launch_dense`. Does
-    not synchronize."""
-    args, t, pid = _launch_args(tabs, org, dir)
-    n = org.shape[0]
+    [B, 4] i32, the sphere tiles each warp streamed, when ``work``);
+    ``n_live`` as for :func:`launch_dense`. Does not synchronize."""
     dev = org.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
+                         f"{dev}")
+    n = org.shape[0]
+    _build.need(org, "org", torch.float32, (n, 3), dev)
+    _build.need(dir, "dir", torch.float32, (n, 3), dev)
     n_t = -(-tabs.n_sph // BLOCK_K)
     if tile_bounds.shape[0] < n_t:
         raise ValueError(f"{tile_bounds.shape[0]} tile bounds cover fewer "
                          f"than {tabs.n_sph} spheres")
     tb = _build.need(tile_bounds[:max(n_t, 1)].contiguous(), "tile bounds",
                      torch.float32, (max(n_t, 1), 4), dev)
-    tiles = (torch.zeros((-(-n // BLOCK_R),), dtype=torch.int32, device=dev)
-             if work else None)
+    t = torch.full((n,), _INF, dtype=torch.float32, device=dev)
+    pid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    tiles = (torch.zeros((-(-n // BLOCK_R), BLOCK_R // 32), dtype=torch.int32,
+                         device=dev) if work else None)
     if n == 0 or tabs.n_prims == 0:
         return (t, pid, tiles) if work else (t, pid)
+    args = _stream_table_args(
+        _pad_tiles(tabs.sph, tabs.n_sph, poison_row=3).T.contiguous(),
+        tabs.n_sph, tabs.box, tabs.n_box, _pad_tiles(tabs.tri, tabs.n_tri),
+        tabs.n_tri, dev)
     if n_live is None:
         n_live = torch.full((1,), n, dtype=torch.int32, device=dev)
     _build.need(n_live, "n_live", torch.int32, (1,), dev)
     lib = _build.load()
-    err = lib.rt_nearest_hit_culled(*args, _build.ptr(n_live), _build.ptr(tb),
+    err = lib.rt_nearest_hit_culled(*args, _build.ptr(org), _build.ptr(dir),
+                                    n, _build.ptr(n_live), _build.ptr(tb),
                                     _build.ptr(t), _build.ptr(pid),
                                     _build.ptr(tiles), dev.index,
                                     _build.stream(dev))

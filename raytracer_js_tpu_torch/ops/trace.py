@@ -39,6 +39,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
                       RenderConfig, ResponseType)
@@ -102,12 +103,12 @@ def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
             if 0 < scene.n_prims <= nh.SCALAR_MAX_PRIMS:
                 return nh.nearest_hit_pallas_scalar(scene, org, dir)
             return nh.nearest_hit_pallas(scene, org, dir)
-    if cfg.backend == HitBackend.OCTREE:
-        raise NotImplementedError("the OCTREE backend is not ported yet "
-                                  "(ROADMAP A11)")
-    if cfg.backend not in (HitBackend.BRUTE, HitBackend.FUSED):
+    if cfg.backend not in (HitBackend.BRUTE, HitBackend.OCTREE,
+                           HitBackend.FUSED):
         raise ValueError(f"unknown backend {cfg.backend}")
-    # FUSED reaches this loop only for off-class scenes (BOTH)
+    # BRUTE, OCTREE without an accel (the reference's dense fallback; the
+    # octree is ROADMAP A11) and FUSED reaching this loop for off-class
+    # scenes (BOTH) all take the dense search
     return nearest_hit_brute(scene, org, dir)
 
 
@@ -439,14 +440,21 @@ def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     the scene default). ``pid_seq`` [N, refmax] switches to path replay:
     the winners come from :func:`record_paths` and no search runs.
     Returns the final RayState: LIGHT rays carry the inverse-square
-    attenuation, EXHAUST rays are black.
+    attenuation, EXHAUST rays are black. Under ``cfg.remat`` each bounce
+    is recomputed in the backward instead of keeping its residuals; the
+    counter RNG makes the recompute exact.
     """
     state, rng = _start(scene, cfg, org, dir, seed, ray_id, start_refr)
     prows = prim_rows(scene)
+    remat = cfg.remat and torch.is_grad_enabled()
     for b in range(cfg.refmax):
-        state = _bounce(scene, cfg, state, rng, b, prows,
-                        pid_override=None if pid_seq is None
-                        else pid_seq[:, b])
+        pid_b = None if pid_seq is None else pid_seq[:, b]
+        if remat:
+            state = checkpoint(_bounce, scene, cfg, state, rng, b, prows,
+                               pid_b, use_reentrant=False)
+        else:
+            state = _bounce(scene, cfg, state, rng, b, prows,
+                            pid_override=pid_b)
 
     # alive after refmax bounces -> black (raytracer.ts:256-263)
     exhausted = state.status == int(RayStatus.ALIVE)

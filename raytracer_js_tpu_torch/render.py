@@ -9,7 +9,8 @@ wavefronts go through the wavefront kernel; scenes outside the fused class
 PALLAS backend runs the wavefront loop with kernels B3/B4 as its search.
 TILED renders through ``render_tiled`` (kernels B7 and B6); TILED requests
 on scenes of at most ``TILED_MIN_PRIMS`` prims without cached tables, and
-on BOTH scenes, go to PALLAS. This is the reference's dispatch.
+on BOTH scenes, go to PALLAS. OCTREE without an accel takes the dense
+search, as BRUTE does. This is the reference's dispatch.
 """
 from __future__ import annotations
 
@@ -31,11 +32,6 @@ Tensor = torch.Tensor
 #: the reference
 TILED_MIN_PRIMS = 2048
 
-_NOT_PORTED = {
-    HitBackend.OCTREE: "ROADMAP A11",
-}
-
-
 def _stochastic(scene: Scene, cfg: RenderConfig) -> bool:
     """spp averaging only helps when some draw varies per sample: rough
     scatter, or the Fresnel-BOTH split."""
@@ -50,18 +46,20 @@ def start_substance(scene: Scene, pos: Tensor) -> Tensor:
     return refr[0]
 
 
-def refuse_grad(scene: Scene, *tensors: Tensor) -> None:
-    """Raise if autograd would record through the fused kernels: they (and
-    their plain versions) return detached colors, so a loss through them
-    would get zero gradients without a word."""
+def refuse_grad(scene: Scene, *tensors: Tensor, backend: str = "FUSED"
+                ) -> None:
+    """Raise if autograd would record through a backend without a backward
+    (FUSED, TILED): its kernels (and their plain versions) return detached
+    values, so a loss through them would get zero or partial gradients
+    without a word."""
     from .parallel.sharding import float_partition
 
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (*float_partition(scene)[0], *tensors)):
         raise RuntimeError(
-            "the FUSED backend has no backward: an input requires grad; "
-            "render with HitBackend.PALLAS or HitBackend.BRUTE to "
-            "differentiate")
+            f"the {backend} backend has no backward: an input requires "
+            f"grad; render with HitBackend.PALLAS or HitBackend.BRUTE to "
+            f"differentiate")
 
 
 def _average(one, spp: int, stochastic: bool) -> Tensor:
@@ -122,8 +120,10 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     ``tables`` — cached TILED candidate tables
     (``render_tiled.frame_tables(scene, camera)``); without them TILED
-    builds them on the host per call. ``accel`` (the octree) is not ported
-    and raises.
+    builds them on the host per call. OCTREE renders with the dense search
+    (the reference's path without an accel); ``accel`` (the octree itself)
+    is not ported and raises. FUSED and TILED raise on inputs that require
+    grad.
     """
     from .kernels import trace_fused
 
@@ -136,15 +136,14 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
         # small scenes render faster on the whole-table wavefront path, and
         # the tiled kernels have no BOTH branch
         cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
-    if cfg.backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.backend.name} backend is not ported yet "
-            f"({_NOT_PORTED[cfg.backend]})")
     if seed is None:
         seed = sampling.DEFAULT_SEED
     if cfg.backend == HitBackend.TILED:
         from . import render_tiled as rtl
 
+        # before the host builds tables for a frame that would raise
+        refuse_grad(scene, camera.pos, camera.front, camera.left, camera.up,
+                    backend="TILED")
         if tables is None:
             tables = rtl.frame_tables(scene, camera)
         # image scenes: a solid-search record pass + one flat replay shading

@@ -28,7 +28,10 @@ attenuation) are applied at the end (:func:`_epilogue`). Image textures,
 image and cube-map skies (:func:`_apply_images`), rough scatter and
 refraction (:func:`_respawn_glue`) ride the glue between the kernels.
 
-What raises, naming its ROADMAP item: the octree ``accel=``. The
+What raises: the octree ``accel=`` (not ported, ROADMAP A11); inputs that
+require grad (the kernels return detached values, so a loss would get
+partial gradients); and BOTH scenes with ``fresnel_both`` (the kernels have
+no Fresnel split; ``render_hdr`` sends BOTH scenes to PALLAS). The
 reference's ``RT_*`` environment knobs are module constants here.
 """
 from __future__ import annotations
@@ -594,6 +597,20 @@ def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
 
 
 
+def _refuse(scene: Scene, cfg: RenderConfig, cam, accel) -> None:
+    """What the TILED frame does not render raises (module docstring)."""
+    from .render import refuse_grad
+
+    if accel is not None:
+        raise NotImplementedError("the octree accel= is not ported yet "
+                                  "(ROADMAP A11)")
+    refuse_grad(scene, cam.pos, cam.front, cam.left, cam.up, backend="TILED")
+    if scene.has_both and cfg.fresnel_both:
+        raise ValueError("the TILED kernels have no Fresnel-BOTH split: "
+                         "render BOTH scenes with fresnel_both through "
+                         "HitBackend.PALLAS (render_hdr sends them there)")
+
+
 def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
                        seed: Optional[int] = None, sample: int = 0,
                        accel=None, with_diag: bool = False,
@@ -623,9 +640,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
     """
     from .render import start_substance
 
-    if accel is not None:
-        raise NotImplementedError("the octree accel= is not ported yet "
-                                  "(ROADMAP A11)")
+    _refuse(scene, cfg, cam, accel)
     if seed is None:
         seed = sampling.DEFAULT_SEED
     if tables is None:
@@ -747,6 +762,7 @@ def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
     from .ops.trace import trace_rays
     from .render import start_substance
 
+    _refuse(scene, cfg, cam, accel)
     tex = scene.textures
     twin = dataclasses.replace(
         scene, textures=dataclasses.replace(

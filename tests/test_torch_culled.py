@@ -3,8 +3,10 @@ B8's plain version against the reference's culled Pallas kernel
 (interpret mode on the CPU) and against the port's B4 plain version, and
 sweep-mode frames with ``SWEEP_CULL`` and without ``SWEEP_LISTED``.
 
-Tolerances: B8's plain version equals B4's bit for bit (t and pid): the
-cull is conservative and the fold order is B4's. Against the reference's
+Tolerances: B8's plain version equals B4's bit for bit (t and pid),
+whatever its exit group (``group``: 32 rays, the kernel's warp, or 128,
+the first design's block): the cull is conservative and the fold order is
+B4's. Against the reference's
 kernel the pids are equal and t is held to the parity rule with float32
 rounding slack for grazing sphere hits (its o.c and d.c dots are a matrix
 product, XLA fuses multiply-adds on the CPU: ``parity.compare_hits``).
@@ -44,8 +46,9 @@ def _rays(kind):
     return org, d, 470
 
 
+@pytest.mark.parametrize("group", [32, 128])
 @pytest.mark.parametrize("kind", ["camera", "wide"])
-def test_culled_matches_reference_and_dense(kind):
+def test_culled_matches_reference_and_dense(kind, group):
     js = sphere_field()
     ps = to_port_scene(js)
     j_sw, p_sw = jrtl._sweep_perm(js), prtl._sweep_perm(ps)
@@ -55,7 +58,7 @@ def test_culled_matches_reference_and_dense(kind):
     o, dd = torch.as_tensor(org), torch.as_tensor(d)
     tb = p_sw[1][1]
     t, pid, tiles = nh.nearest_hit_culled_plain(p_sw[0], o, dd, tb, n_live,
-                                                work=True)
+                                                work=True, group=group)
     # equal to B4 bit for bit, rows past n_live included (+inf, -1)
     b_t, b_pid = nh.nearest_hit_pallas_plain(p_sw[0], o, dd, n_live=n_live)
     assert torch.equal(t, b_t) and torch.equal(pid, b_pid)
@@ -70,35 +73,63 @@ def test_culled_matches_reference_and_dense(kind):
                               rounding_slack=True)
     assert rep["ok"] and rep["flips"] == 0 and rep["hits"] > 100, rep
     n_blk, n_t = -(-org.shape[0] // nh.BLOCK_R), tb.shape[0]
-    live_blk = -(-n_live // nh.BLOCK_R)
-    assert tiles.shape == (n_blk,) and (tiles[live_blk:] == 0).all()
+    live_g = -(-n_live // group)
+    assert tiles.shape == (n_blk, 128 // group)
+    tiles = tiles.reshape(-1)
+    assert (tiles[live_g:] == 0).all()
     if kind == "camera":
-        # coherent blocks skip tiles
-        assert int(tiles[:live_blk].min()) < n_t
+        # coherent groups skip tiles
+        assert int(tiles[:live_g].min()) < n_t
     else:
-        assert bool((tiles[:live_blk] == n_t).all())
+        assert bool((tiles[:live_g] == n_t).all())
 
 
-def test_culled_block_sums_and_cone():
-    """The prologue's block sums run in the kernel's fixed order (a warp
-    tree, then the four warp sums left to right); a block whose live rays
-    point every way keeps every tile (cos_t < 0.25)."""
-    x = torch.arange(256, dtype=torch.float32).reshape(2, 128) * 0.37
+def test_warp_cones_stream_less():
+    """The kernel's per-warp cones keep no more sphere tiles than the block
+    cone around them (each warp's rays are a subset), and fewer somewhere
+    on the camera rays; every ray's own tiles (``group=1``: apex 0, angle
+    0) lie within its warp's."""
+    ps = to_port_scene(sphere_field())
+    tb = prtl._sweep_perm(ps)[1][1]
+    org, d, n_live = _rays("camera")
+    o, dd = torch.as_tensor(org), torch.as_tensor(d)
+    inc = {g: nh.culled_tiles(o, dd, n_live, tb, ps.n_spheres, group=g)
+           for g in (1, 32, 128)}
+    assert inc[1].shape == (o.shape[0], tb.shape[0])
+    warp_of_block = inc[128].repeat_interleave(4, dim=0)
+    assert bool((inc[32] <= warp_of_block).all())
+    assert int(inc[32].sum()) < int(warp_of_block.sum())
+    own = inc[1][:n_live]
+    assert bool((own <= inc[32].repeat_interleave(32, dim=0)[:n_live]).all())
+
+
+@pytest.mark.parametrize("group", [32, 128])
+def test_culled_block_sums_and_cone(group):
+    """The prologue's sums run in the kernel's fixed order: a shuffle-down
+    tree over each warp (the kernel's group is one warp), then, for the
+    first design's 128-ray block, the four warp sums left to right; a
+    group whose live rays point every way keeps every tile (cos_t <
+    0.25)."""
+    x = torch.arange(256, dtype=torch.float32).reshape(-1, group) * 0.37
     want = []
     for row in x:
         w = []
-        for k in range(4):
+        for k in range(group // 32):
             v = row[32 * k:32 * k + 32].clone()
             for off in (16, 8, 4, 2, 1):
                 v = v[:off] + v[off:2 * off]
             w.append(v[0])
-        want.append(((w[0] + w[1]) + w[2]) + w[3])
-    assert torch.equal(nh._block_sum(x), torch.stack(want))
+        acc = w[0]
+        for v in w[1:]:
+            acc = acc + v
+        want.append(acc)
+    assert torch.equal(nh._group_sum(x, group), torch.stack(want))
     ps = to_port_scene(sphere_field())
     tb = prtl._sweep_perm(ps)[1][1]
     org, d = map(torch.as_tensor, field_rays(256))
-    inc = nh.culled_tiles(org, d, 128, tb, ps.n_spheres)
-    assert inc.shape == (2, tb.shape[0]) and bool(inc[0].all())
+    inc = nh.culled_tiles(org, d, 128, tb, ps.n_spheres, group=group)
+    assert inc.shape == (256 // group, tb.shape[0])
+    assert bool(inc[:128 // group].all())
 
 
 def _sweep_frames(monkeypatch, listed, cull):

@@ -1,6 +1,6 @@
-"""Gradients through the search path, the camera pose and the FUSED
-refusal, against the reference package on the ``tests/test_grad.py``
-config-1 scene (12x12, refmax 3).
+"""Gradients through the search path, the camera pose, ``remat`` and the
+FUSED and TILED refusals, against the reference package on the
+``tests/test_grad.py`` config-1 scene (12x12, refmax 3).
 
 Tolerance: rtol 2e-4 / atol 2e-6 against ``jax.grad`` (another order of
 float32 rounding in the surface recompute, and XLA fuses multiply-adds on
@@ -24,7 +24,8 @@ import raytracer_js_tpu_torch as rt
 from raytracer_js_tpu_torch import HitBackend
 from raytracer_js_tpu_torch.kernels import trace_fused
 from raytracer_js_tpu_torch.models import camera as pcam
-from raytracer_js_tpu_torch.parallel.sharding import float_partition
+from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
+                                                       float_partition)
 from raytracer_js_tpu_torch.render import render_rays
 
 from scenes import config1_camera, config1_cfg, config1_scene
@@ -131,3 +132,71 @@ def test_fused_refuses_inputs_that_require_grad():
         rt.render_hdr(ps, pose, cfg)
     with torch.no_grad():
         assert tuple(rt.render_hdr(sc, cam, cfg).shape) == (8, 8, 3)
+
+
+def test_tiled_refuses_inputs_that_require_grad():
+    """TILED's bounce 0 shades inside kernel B7 (detached) while its sweep
+    rounds record autograd, so a loss through it got partial gradients
+    without a word. ``render_hdr`` TILED (forced with ``tables=``) and the
+    TILED frame functions now raise, naming TILED; without grad they
+    render as before."""
+    from raytracer_js_tpu_torch import render_tiled as prtl
+
+    ps = to_port_scene(config1_scene())
+    cam = to_port_camera(config1_camera(8, 8))
+    cfg = rt.RenderConfig(refmax=2, backend=HitBackend.TILED)
+    tables = prtl.frame_tables(ps, cam)
+    params, rebuild = float_partition(ps)
+    k = float_leaf_names(ps).index("textures.solid_rgb")
+    sc = rebuild([p.clone().requires_grad_(i == k)
+                  for i, p in enumerate(params)])
+    with pytest.raises(RuntimeError, match="TILED backend has no backward"):
+        rt.render_hdr(sc, cam, cfg, tables=tables)
+    for frame in (prtl.render_frame_tiled,
+                  prtl.render_frame_tiled_replay_shaded):
+        with pytest.raises(RuntimeError, match="TILED.*PALLAS.*BRUTE"):
+            frame(sc, cfg, cam, tables=tables)
+    pose = dataclasses.replace(cam, pos=cam.pos.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="TILED"):
+        rt.render_hdr(ps, pose, cfg, tables=tables)
+    with torch.no_grad():
+        img = rt.render_hdr(sc, cam, cfg, tables=tables)
+    assert torch.equal(img, rt.render_hdr(ps, cam, cfg, tables=tables))
+    assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
+
+
+def test_remat_gradients_match():
+    """``cfg.remat`` recomputes each bounce in the backward instead of
+    keeping its residuals (``tests/test_grad.py``'s memory knob): the same
+    value and gradients, bit for bit (the counter RNG makes the recompute
+    exact), and far fewer tensor elements saved for the backward."""
+    ps = to_port_scene(config1_scene(with_glass=True, with_tri=True))
+    cam = to_port_camera(jcam.make_camera((0, 0, 0.5), 16, 8, np.pi / 2,
+                                          np.pi / 4))
+    org, d = pcam.pixel_rays(cam)
+    params, rebuild = float_partition(ps)
+
+    def run(remat):
+        ps_ = [p.clone().requires_grad_(True) for p in params]
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel())
+            return t
+
+        cfg = rt.RenderConfig(refmax=3, remat=remat)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = (render_rays(rebuild(ps_), cfg, org, d) ** 2).sum()
+        loss.backward()
+        return loss.detach(), [p.grad for p in ps_], sum(saved)
+
+    v0, g0, saved0 = run(False)
+    v1, g1, saved1 = run(True)
+    assert torch.equal(v0, v1)
+    for a, b in zip(g0, g1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    assert float(g0[0].abs().sum()) > 0
+    assert saved1 < saved0 / 4, (saved0, saved1)
+

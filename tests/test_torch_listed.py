@@ -1,7 +1,9 @@
 """Kernel B6 (the listed nearest hit) and the TILED sweep machinery that
 feeds it: the plain version against the reference's Pallas kernel
 (interpret mode on the CPU), the Morton permutation and the per-block tile
-selection against the reference's, and a sweep-mode frame that reaches B6's
+selection against the reference's, the exit group (``group``: 32 rays, the
+kernel's warp, or 128, the first design's block) changing the slots
+streamed but never t or pid, and a sweep-mode frame that reaches B6's
 plain version.
 
 Tolerance: t within rtol 1e-5 / atol 1e-6 and equal pids, except proven
@@ -83,13 +85,14 @@ _LISTED = {
 }
 
 
+@pytest.mark.parametrize("group", [32, 128])
 @pytest.mark.parametrize("name", sorted(_LISTED))
-def test_listed_matches_reference_kernel(name, monkeypatch):
-    """B6's plain version against ``nearest_hit_pallas(tile_ids=...)`` on
-    the same Morton-permuted scene and the same lists (the port's
-    permutation, tile bounds and lists equal the reference's), with n_live
-    < N; and against B4's plain version on the same rays (the cull is
-    exact)."""
+def test_listed_matches_reference_kernel(name, group, monkeypatch):
+    """B6's plain version, exit groups of ``group`` rays, against
+    ``nearest_hit_pallas(tile_ids=...)`` on the same Morton-permuted scene
+    and the same lists (the port's permutation, tile bounds and lists equal
+    the reference's), with n_live < N; and against B4's plain version on
+    the same rays (the cull is exact): 0 flips, whatever the group."""
     make, cls, max_tiles = _LISTED[name]
     monkeypatch.setattr(jrtl, "LISTED_MAX_TILES", max_tiles)
     monkeypatch.setattr(prtl, "LISTED_MAX_TILES", max_tiles)
@@ -124,7 +127,8 @@ def test_listed_matches_reference_kernel(name, monkeypatch):
            else {"tri_tile_ids": p_ids, "tri_fan": p_fan})
     o, dd = torch.as_tensor(org), torch.as_tensor(d)
     t, pid, slots = nh.nearest_hit_listed_plain(p_sw[0], o, dd, n_live,
-                                                work=True, **pkw)
+                                                work=True, group=group,
+                                                **pkw)
     # rows past n_live report a miss (the reference leaves them to its
     # caller)
     assert torch.isinf(t[n_live:]).all() and (pid[n_live:] == -1).all()
@@ -134,14 +138,53 @@ def test_listed_matches_reference_kernel(name, monkeypatch):
                               torch.as_tensor(np.array(j_pid)[live]),
                               rounding_slack=True)
     assert rep["ok"] and rep["hits"] > 100, rep
-    # the stream stopped early somewhere, and never ran past the list
+    # one count per exit group; every live group streamed, none ran past
+    # the list, and groups wholly past n_live streamed nothing
     n_cols = p_ids[0].shape[1]
-    used = slots[:, 0 if cls == "sph" else 1]
-    assert (used[: -(-n_live // 128)] > 0).all()
+    assert slots.shape == (8, 128 // group, 2)
+    used = slots[..., 0 if cls == "sph" else 1].reshape(-1)
+    live_groups = -(-n_live // group)
+    assert (used[:live_groups] > 0).all() and (used[live_groups:] == 0).all()
     assert int(used.max()) <= -(-n_cols // 16) * 16
     b_t, b_pid = nh.nearest_hit_pallas_plain(p_sw[0], o, dd, n_live=n_live)
     rep = parity.compare_hits(p_sw[0], o, dd, t, pid, b_t, b_pid)
     assert rep["ok"] and rep["flips"] == 0, rep
+
+
+@pytest.mark.parametrize("name", sorted(_LISTED))
+def test_warp_exit_streams_less_same_hits(name, monkeypatch):
+    """Exit groups of one warp (the kernel's) give the block rule's t and
+    pid bit for bit, never stream more slots than the block around them,
+    and stream fewer somewhere on the near-miss field; every ray streams
+    at least what it needs (``listed_need``: the slots below its own final
+    hit or exit, in whole chunks), which the block streams too."""
+    make, cls, max_tiles = _LISTED[name]
+    monkeypatch.setattr(prtl, "LISTED_MAX_TILES", max_tiles)
+    ps = to_port_scene(make())
+    sw = prtl._sweep_perm(ps)
+    k = 1 if cls == "sph" else 2
+    n, n_live = 512, 470
+    org, d = map(torch.as_tensor, field_rays(n))
+    ids = prtl._block_tile_select(org, d, torch.arange(n) < n_live,
+                                  sw[k][1])
+    kw = ({"tile_ids": ids, "sph_fan": sw[k][2]} if cls == "sph"
+          else {"tri_tile_ids": ids, "tri_fan": sw[k][2]})
+    li = nh.listed_inputs(sw[0], n, **kw)
+    t32, pid32, s32 = nh.nearest_hit_listed_plain(sw[0], org, d, n_live,
+                                                  inputs=li, work=True)
+    t128, pid128, s128 = nh.nearest_hit_listed_plain(
+        sw[0], org, d, n_live, inputs=li, work=True, group=128)
+    assert torch.equal(t32, t128) and torch.equal(pid32, pid128)
+    assert s32.shape == (8, 4, 2) and s128.shape == (8, 1, 2)
+    assert bool((s32 <= s128).all())
+    c = 0 if cls == "sph" else 1
+    if name == "spheres":
+        assert int(s32[..., c].sum()) < 4 * int(s128[..., c].sum())
+    need = nh.listed_need(li, org, d, t32, n_live)
+    assert need.shape == (n, 2) and int(need[:, 1 - c].sum()) == 0
+    assert (need[n_live:] == 0).all() and int(need[:, c].max()) > 0
+    per_warp = s32[..., c].reshape(-1)[:n // 32].repeat_interleave(32)
+    assert bool((need[:, c] <= per_warp).all())
 
 
 def test_sweep_keys_match_reference():
@@ -190,6 +233,10 @@ def test_listed_dispatch_padding_and_refusals():
     assert torch.isinf(l_tlo[3:]).all() and (l_ids[3:] == 0).all()
     assert torch.isinf(li.tabs.sph[3, ps.n_spheres:]).all()
     assert li.tabs.sph.shape[1] % nh.BLOCK_K == 0
+    # the kernel's array-of-structs copy of the padded sphere table
+    assert torch.equal(li.sph4, li.tabs.sph.T) and li.sph4.is_contiguous()
+    with pytest.raises(ValueError, match="power of two"):
+        nh.nearest_hit_listed_plain(sw[0], org, d, tile_ids=ids, group=48)
     with pytest.raises(ValueError, match="CUDA"):
         nh.launch_listed(li, org, d)
     with pytest.raises(ValueError, match="rows"):

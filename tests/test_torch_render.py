@@ -109,9 +109,11 @@ def _many_spheres(n):
 @pytest.mark.parametrize("backend", ["PALLAS", "OCTREE", "TILED"])
 def test_unported_backends_raise(backend):
     """What each backend does not port yet raises, naming its ROADMAP item
-    (OCTREE), and what was ported since runs: PALLAS's listed and culled
-    variants (B6, B8) and TILED on scenes above ``TILED_MIN_PRIMS``
-    (kernels B7 and B6; smaller ones render on PALLAS)."""
+    (OCTREE's ``accel=``), and what was ported since runs: OCTREE without
+    an accel (the dense search, as the reference falls back), PALLAS's
+    listed and culled variants (B6, B8) and TILED on scenes above
+    ``TILED_MIN_PRIMS`` (kernels B7 and B6; smaller ones render on
+    PALLAS)."""
     from raytracer_js_tpu_torch.kernels import nearest_hit as nh
     from raytracer_js_tpu_torch.render import TILED_MIN_PRIMS
 
@@ -130,8 +132,16 @@ def test_unported_backends_raise(backend):
             nh.nearest_hit_pallas(ps, org, d, tile_ids=ids),
             nh.nearest_hit_pallas_plain(ps, org, d)))
     elif backend == "OCTREE":
+        brute = rt.render_hdr(ps, pc, rt.RenderConfig(
+            refmax=2, backend=rt.HitBackend.BRUTE))
+        assert torch.equal(rt.render_hdr(ps, pc, cfg), brute)
+        from raytracer_js_tpu_torch.models.camera import pixel_rays as rays
+
+        org, d = rays(pc)
+        assert torch.equal(p_render_rays(ps, cfg, org, d),
+                           brute.reshape(-1, 3))
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            rt.render_hdr(ps, pc, cfg)
+            rt.render_hdr(ps, pc, cfg, accel=object())
     else:
         big = _many_spheres(TILED_MIN_PRIMS + 1)
         img = rt.render_hdr(big, pc, cfg)

@@ -9,6 +9,8 @@ of the pixels) and sphere hits whose difference float32 rounding explains
 for bounce 0's planes the mirror map of ``_assert_planes``). The port's
 atan2 differs from the reference's polynomial by up to 9e-8 rad, far inside
 atol on u and v."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -243,6 +245,50 @@ def test_sweep_frame_rough_and_glass():
     zeros = np.zeros((pc.h, pc.w), np.int32)
     assert_parity(out, zeros, ref, zeros,
                   prove_rounding=parity.grazing_prover(ps, *pixel_rays(pc)))
+
+
+def _both_scene():
+    """``tests/test_both.py``'s BOTH glass ball before a red wall and a
+    light, on the port's SceneBuilder."""
+    b = prt.SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+    grey = b.add_solid_texture((0.6, 0.6, 0.6))
+    white = b.add_solid_texture((1.0, 1.0, 1.0))
+    diffuse = b.add_material(prt.ResponseType.REFLECTION)
+    light = b.add_material(prt.ResponseType.REFLECTION, light=True)
+    both = b.add_material(prt.ResponseType.BOTH)
+    glass = b.add_substance(1.5)
+    b.add_box((0.0, 0.0, -51.0), 100.0, diffuse, grey)
+    b.add_sphere((2.4, 0.0, 0.5), 0.9, both, white, glass)
+    b.add_sphere((6.0, 0.0, 0.5), 1.2, diffuse,
+                 b.add_solid_texture((0.9, 0.2, 0.1)))
+    b.add_sphere((4.0, 0.0, 4.5), 1.1, light, white)
+    return b.build(device="cpu")
+
+
+def test_tiled_refuses_fresnel_both():
+    """The TILED kernels have no Fresnel-BOTH split: a direct TILED frame of
+    a BOTH scene with ``fresnel_both`` rendered BOTH as terminal without a
+    word; it now raises, naming PALLAS. ``render_hdr`` still sends BOTH
+    scenes to PALLAS, cached tables or not."""
+    ps = _both_scene()
+    pc = prt.make_camera((0.0, 0.0, 0.5), 16, 8, np.pi / 2, np.pi / 4,
+                         device="cpu")
+    cfg = prt.RenderConfig(refmax=3, backend=prt.HitBackend.TILED,
+                           fresnel_both=True)
+    tables = prtl.frame_tables(ps, pc)
+    for frame in (prtl.render_frame_tiled,
+                  prtl.render_frame_tiled_replay_shaded):
+        with pytest.raises(ValueError, match="PALLAS"):
+            frame(ps, cfg, pc, tables=tables)
+    pallas = prt.render_hdr(ps, pc, dataclasses.replace(
+        cfg, backend=prt.HitBackend.PALLAS), seed=5)
+    assert torch.equal(prt.render_hdr(ps, pc, cfg, seed=5, tables=tables),
+                       pallas)
+    # without the split, BOTH is terminal in every backend: TILED renders
+    terminal = dataclasses.replace(cfg, fresnel_both=False)
+    assert tuple(prtl.render_frame_tiled(ps, terminal, pc,
+                                         tables=tables).shape) == (8, 16, 3)
 
 
 def test_unported_tiled_parts_raise(monkeypatch):
