@@ -22,10 +22,15 @@ Phases, one JSON line each:
                 (a) the headline scene's 1920x1088 bounce-0 rays; (b) config
                 1 with glass and a triangle, camera and random rays; (c) a
                 384-sphere near-miss field at 512x512.
-  5. B4       — the dense nearest-hit kernel against its plain version:
-                (a) BASELINE config 3's 512x512 bounce-0 rays (5124 prims);
-                (b) the 600-sphere near-miss field; (c) config 3 with
-                n_live < N; (d) the empty scene; (e) a ray on a box edge.
+  5. B4       — the dense nearest-hit kernel against its plain version, t
+                and pid bit for bit: (a) BASELINE config 3's 512x512
+                bounce-0 rays (5124 prims); (b) the 600-sphere near-miss
+                field; (c) config 3 with n_live < N; (d) the empty scene;
+                (e) a ray on a box edge; (f) rays through shared triangle
+                edges and vertices; (i) ties in t across the boundary of
+                two splits of the scan; (g, h) config 4's first and last
+                packet-mode rescue rounds (from 9c: 100k spheres, their
+                n_live, the scan split).
   6. B5       — the replay forward and backward kernels against their plain
                 versions: (a) a headline 1920x1088 view, winners recorded
                 by B3, a random target; (b) the 9-sphere replay scene at
@@ -34,7 +39,9 @@ Phases, one JSON line each:
                 exhausted at refmax. Then B5's gradients against autograd
                 through the search path on view (a).
  6b. B7       — the tiled frame kernel against its plain version, every
-                plane bit for bit (and the chunks each exit group scanned):
+                plane bit for bit (and the chunks each warp scanned), and
+                every plane bit for bit against the plain version with the
+                first design's 256-ray exit groups (never fewer chunks):
                 (a) one 128x32 tile; (b) partial edge tiles (151x37, the
                 600-sphere field); (c) config 3's image scene (uv planes);
                 (d) the rough + glass scene (normal planes, transmission).
@@ -47,8 +54,10 @@ Phases, one JSON line each:
                 (b) config 3's mesh, triangles listed; (c) a supertile fan
                 of 4; (d) n_live < N.
  6d. B7-wave  — the tiled wavefront kernel against its plain version, every
-                plane bit for bit (and the chunks each exit group scanned),
-                on packetized wavefronts with their packet tables: (a)
+                plane bit for bit (and the chunks each warp scanned), and
+                against the plain version with the first design's exit
+                groups as B7, on packetized wavefronts with their packet
+                tables: (a)
                 config 4's first packet round (from 9c); (b) rowwise tables
                 on the 600-sphere field; (c) truncated cell-grid tables
                 (finite t_safe: unresolved rays pass through unchanged);
@@ -102,20 +111,24 @@ Phases, one JSON line each:
                 kernel's warps stream, and the slots each ray needs (B6:
                 those whose t_lo lies within its own final hit or bbox
                 exit, in whole chunks; B8: the tiles its own apex-0,
-                angle-0 cone reaches); need <= warp <= block.
+                angle-0 cone reaches); need <= warp <= block. The same for
+                B7-wave on config 4's first packet round (the need: each
+                ray's chunks up to its own exit, ``wave_need``).
  10. times    — CUDA-event medians of each kernel and its plain version at
                 the main paths' shapes, ``render_hdr`` end to end, and the
                 gradient path: a replay step for one view, an 8-view fit
                 step and an 8-view recording; config 4's TILED frame, B7,
                 B6 per sweep round, and its PALLAS frame; the packet frames
-                (config 4, 1.1M) with B7-wave summed over their rounds, the
-                cull frame and B8 per round, the host tables. Then each
-                kernel's bound: the larger of its tests' operations over
-                67 TFLOP/s (float32) and its bytes in and out over
-                3.35 TB/s, counted from this run's inputs (``OPS``); B6's
-                and B8's from the work the rays need (9e), printed beside
-                the bound of what the warps streamed and the time of one
-                streamed test.
+                (config 4, 1.1M) with B7-wave summed over their rounds, B4
+                per rescue round and the glue (the frame less B7, B7-wave
+                and B4), the cull frame and B8 per round, the host tables.
+                Then each kernel's bound: the larger of its tests'
+                operations over 67 TFLOP/s (float32) and its bytes in and
+                out over 3.35 TB/s, counted from this run's inputs
+                (``OPS``); B6's, B7's, B7-wave's and B8's from the work the
+                rays need (9e, ``frame_need``), printed beside the bound of
+                what the warps streamed and the time of one streamed test;
+                B7-wave's chunks per warp and time per launch.
 Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
 pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
 B5: colors and per-ray cotangents bit-exact; per-prim and sky cotangents
@@ -179,6 +192,10 @@ C4B_SAMPLES = 65536
 C4B_MAX_ROUNDING_FRAC = 0.03
 SWEEP_MAX_PRIMS = rtl.SWEEP_MAX_PRIMS
 WARMUP, TIMED = 3, 20
+#: how every kernel's ``ms`` is taken (``cuda_median_ms``), and B7-wave's
+#: ``kernel_ms`` beside it (``device_ms_per_call``)
+MS_TIMING = "median of CUDA events around the wrapper's call"
+KERNEL_MS_TIMING = "mean kernel time in a torch.profiler trace of the card"
 KERNEL_SOURCE = "raytracer_js_tpu_torch/csrc/trace_fused.cu"
 NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
 REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
@@ -350,6 +367,75 @@ def near_miss_field(n: int = 600, seed: int = 0, device=None):
         b.add_sphere(tuple(p), 0.25, (m, mm)[i % 3 == 0],
                      b.add_solid_texture((.8, .3, .2)))
     return b.build(device)
+
+
+def tri_edge_field(n: int = 16, n_free: int = 300, seed: int = 3,
+                   device=None):
+    """Triangles that share edges and vertices, and triangles that rays
+    pass close to -> (scene, org, dir). An n x n grid of cells, two
+    triangles a cell, on a tilted plane ahead of the camera, then
+    ``n_free`` small free triangles in front of it; rays from one origin
+    aimed at every grid vertex and at the midpoint of every grid edge (the
+    cell diagonals too), where float32 rounding decides which triangle (or
+    none) a ray hits, and at the free triangles' vertices."""
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+    m = b.add_material(ResponseType.REFLECTION)
+    tex = b.add_solid_texture((0.7, 0.6, 0.5))
+    y, z = np.meshgrid(np.linspace(-2.0, 2.0, n + 1),
+                       np.linspace(-1.5, 2.5, n + 1), indexing="ij")
+    grid = np.stack([6.0 + 0.3 * y + 0.2 * z, y, z], -1).astype(np.float32)
+    k = np.arange((n + 1) * (n + 1)).reshape(n + 1, n + 1)
+    a, bb, c, d = k[:-1, :-1], k[1:, :-1], k[1:, 1:], k[:-1, 1:]
+    faces = np.concatenate([np.stack([a, bb, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    b.add_mesh(grid.reshape(-1, 3), faces, m, tex)
+    rng = np.random.default_rng(seed)
+    free = (rng.uniform([3.0, -1.5, -1.0], [5.0, 1.5, 2.0], (n_free, 1, 3))
+            + rng.uniform(-0.15, 0.15, (n_free, 3, 3))).astype(np.float32)
+    for v in free:
+        b.add_triangle(v[0], v[1], v[2], m, tex)
+    mid = [(grid[1:] + grid[:-1]) / 2, (grid[:, 1:] + grid[:, :-1]) / 2,
+           (grid[1:, 1:] + grid[:-1, :-1]) / 2]
+    targets = np.concatenate([grid.reshape(-1, 3)]
+                             + [x.reshape(-1, 3) for x in mid]
+                             + [free.reshape(-1, 3)]).astype(np.float32)
+    o = np.float32([0.0, 0.1, 0.4])
+    d = targets - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org = np.broadcast_to(o, d.shape).copy()
+    return (b.build(device), torch.as_tensor(org, device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+def split_tie_field(n: int = 5000, rays: int = 4096, seed: int = 5,
+                    device=None):
+    """n small spheres, where the first sphere of B4's second split (of two:
+    ``nh.dense_splits`` at this size) is a copy of the last sphere of the
+    first, set before the field -> (scene, org, dir, pid of that last
+    sphere). A quarter of the rays aim at the copies, so their t ties
+    across the split boundary, and the tie goes to the lower pid; the rest
+    cross the field."""
+    first = -(-n // nh.BLOCK_K) // 2 * nh.BLOCK_K - 1
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-4, 4, (n, 3))
+    pos[:, 0] += 8
+    pos[first] = pos[first + 1] = (2.0, 0.3, 0.6)
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((.35, .45, .65)))
+    m = b.add_material(ResponseType.REFLECTION)
+    tex = b.add_solid_texture((.8, .3, .2))
+    for p in pos:
+        b.add_sphere(tuple(p), 0.25, m, tex)
+    o = np.float32([0.0, 0.0, 0.5])
+    aim = rays // 4
+    targets = np.concatenate([
+        pos[first] + rng.uniform(-0.2, 0.2, (aim, 3)),
+        rng.uniform([4.0, -4.0, -4.0], [12.0, 4.0, 4.0], (rays - aim, 3))])
+    d = (targets - o).astype(np.float32)
+    org = np.broadcast_to(o, d.shape).copy()
+    return (b.build(device), torch.as_tensor(org, device=device),
+            torch.as_tensor(d, device=device), first)
 
 
 def box_edge_case(device=None):
@@ -546,6 +632,33 @@ def compare_hits(phase, name, scene, org, dir, kernel, plain, **kw):
     return rep, (k_t, k_pid)
 
 
+def compare_dense(name, scene, org, dir, n_live=None):
+    """B4 against its plain version on one set of rays, both on the card: t
+    and pid bit for bit; -> (report, (t, pid))."""
+    st = nh.stream_tables(nh.pack_tables(scene))
+    nl = (None if n_live is None else
+          torch.tensor([n_live], dtype=torch.int32, device=org.device))
+    k_t, k_pid = nh.launch_dense(st, org, dir, n_live=nl)
+    p_t, p_pid = nh.nearest_hit_pallas_plain(scene, org, dir, n_live=n_live)
+    torch.cuda.synchronize()
+    exact = torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
+    rep = dict(rays=org.shape[0], n_live=org.shape[0] if n_live is None
+               else int(n_live), prims=scene.n_prims,
+               spheres=scene.n_spheres, triangles=scene.n_tris,
+               splits=nh.dense_splits(st, org.shape[0]),
+               hits=int((k_pid >= 0).sum()), bit_exact=exact,
+               max_abs_err=float(torch.where(torch.isfinite(p_t),
+                                             (k_t - p_t).abs(), 0.0).max())
+               if org.shape[0] else 0.0)
+    emit(phase="B4", case=name, **rep)
+    check(exact, f"B4 {name}: {rep}")
+    if n_live is not None:
+        check(bool(torch.isinf(k_t[n_live:]).all())
+              and bool((k_pid[n_live:] == -1).all()),
+              f"B4 {name}: rows past n_live are not misses")
+    return rep, (k_t, k_pid)
+
+
 def compare_replay(name, scene, org, dir, pid_seq, refmax, g_color=None):
     """B5's kernels against their plain versions on one wavefront, both on
     the card (the backward twice, for reproducibility) -> report."""
@@ -594,10 +707,25 @@ def bits(x):
     return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
 
 
+def block_rule_check(what, k, blk, group_blk):
+    """The kernel's planes against the plain version's with the first
+    design's exit groups of ``group_blk`` rays (every plane bit for bit),
+    and the chunks each warp scanned against its block's -> (planes that
+    differ, chunks the blocks scanned)."""
+    differ = [n for n in blk if n != "chunks"
+              and not torch.equal(bits(k[n]), bits(blk[n]))]
+    per_warp = blk["chunks"].repeat_interleave(group_blk // tt.GROUP, dim=0)
+    check(bool((k["chunks"] <= per_warp).all()),
+          f"{what}: a warp scanned more chunks than its block")
+    return differ, int(blk["chunks"].sum())
+
+
 def compare_tiled(name, scene, cam, tables=None):
     """B7 against its plain version on one frame, both on the card: every
-    plane bit for bit, and the chunks each exit group scanned; -> (report,
-    kernel planes, tables)."""
+    plane bit for bit, and the chunks each warp scanned; every plane bit
+    for bit against the plain version with the first design's 256-ray
+    exit groups, whose chunks are never fewer; -> (report, kernel planes,
+    tables)."""
     tables = tables or rtl.frame_tables(scene, cam)
     tab, cnts, c_max = tables[:3]
     k = tt.frame_bounce0(scene, cam, tab, cnts, c_max, work=True)
@@ -605,6 +733,10 @@ def compare_tiled(name, scene, cam, tables=None):
     p = tt.frame_bounce0_plain(scene, cam, tab, cnts, c_max, work=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    blk = tt.frame_bounce0_plain(scene, cam, tab, cnts, c_max, work=True,
+                                 group=tt.GROUP_SUB * tt.LANE)
+    differ_blk, blk_chunks = block_rule_check(f"B7 {name}", k, blk,
+                                              tt.GROUP_SUB * tt.LANE)
     differ = [n for n in p if not torch.equal(bits(k[n]), bits(p[n]))]
     err = max(float(torch.where(torch.isfinite(p[n]), (k[n] - p[n]).abs(),
                                 0.0).max())
@@ -612,9 +744,10 @@ def compare_tiled(name, scene, cam, tables=None):
     rep = dict(w=cam.w, h=cam.h, tiles=cnts.shape[0], c_max=c_max,
                prims=scene.n_prims, planes=len(p) - 1, differ=differ,
                max_abs_err=err, chunks_scanned=int(k["chunks"].sum()),
+               block_rule_chunks=blk_chunks, differ_from_block_rule=differ_blk,
                plain_seconds=plain_s, **{f: v for f, v in
                                         tt._flags(scene).items()})
-    ok = not differ
+    ok = not differ and not differ_blk
     if differ:
         # the parity rule, winner flips proven on the bounce-0 rays
         hp, wp = k["cr"].shape
@@ -672,8 +805,8 @@ def compare_listed(name, scene_s, org, dir, n_live=None, **lists):
     plain_s = time.perf_counter() - t0
     b_t, b_pid, b_slots = nh.nearest_hit_listed_plain(
         scene_s, org, dir, n_live, inputs=li, work=True, group=128)
-    d_t, d_pid = nh.launch_dense(nh.pack_tables(scene_s), org, dir,
-                                 n_live=nl)
+    d_t, d_pid = nh.launch_dense(nh.stream_tables(nh.pack_tables(scene_s)),
+                                 org, dir, n_live=nl)
     torch.cuda.synchronize()
     exact = (torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
              and torch.equal(k_slots, p_slots))
@@ -707,8 +840,10 @@ def compare_listed(name, scene_s, org, dir, n_live=None, **lists):
 def compare_wave(name, scene, cols, tab, cnts, c_max, static_bases=None,
                  wave_sub=tt.WAVE_SUB):
     """B7-wave against its plain version on one packetized wavefront, both
-    on the card: every plane bit for bit and the chunks each exit group
-    scanned; -> report."""
+    on the card: every plane bit for bit and the chunks each warp scanned;
+    every plane bit for bit against the plain version with the first
+    design's exit groups (two rows, one for one-row packets), whose chunks
+    are never fewer; -> (report, kernel planes, block chunks)."""
     k = tt.launch_wave(scene, cols, tab, cnts, c_max, wave_sub, static_bases,
                        work=True)
     t0 = time.perf_counter()
@@ -716,6 +851,11 @@ def compare_wave(name, scene, cols, tab, cnts, c_max, static_bases=None,
                              static_bases, work=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    g_blk = tt.LANE * tt.group_rows(wave_sub)
+    blk = tt.wave_bounce_plain(scene, cols, tab, cnts, c_max, wave_sub,
+                               static_bases, work=True, group=g_blk)
+    differ_blk, blk_chunks = block_rule_check(f"B7-wave {name}", k, blk,
+                                              g_blk)
     differ = [n for n in p if not torch.equal(bits(k[n]), bits(p[n]))]
     err = max(float(torch.where(torch.isfinite(p[n]), (k[n] - p[n]).abs(),
                                 0.0).max())
@@ -731,11 +871,13 @@ def compare_wave(name, scene, cols, tab, cnts, c_max, static_bases=None,
                unresolved=int(unres.sum()),
                finite_t_safe_packets=int(torch.isfinite(t_safe).sum()),
                planes=len(p) - 1, differ=differ, max_abs_err=err,
-               chunks_scanned=int(k["chunks"].sum()), plain_seconds=plain_s,
+               chunks_scanned=int(k["chunks"].sum()),
+               block_rule_group=g_blk, block_rule_chunks=blk_chunks,
+               differ_from_block_rule=differ_blk, plain_seconds=plain_s,
                **tt._flags(scene))
     emit(phase="B7-wave", case=name, **rep)
-    check(not differ, f"B7-wave {name}: {rep}")
-    return rep
+    check(not differ and not differ_blk, f"B7-wave {name}: {rep}")
+    return rep, k, blk["chunks"]
 
 
 def packet_tables(scene, cols, wave_sub, c_sel=None, c_max=None):
@@ -790,7 +932,7 @@ def compare_culled(name, scene_s, org, dir, tb, n_live=None):
     scene (t and pid bit for bit: the cull is exact and the fold order
     B4's), all on the card; -> (report, tiles per warp [B, 4])."""
     n = org.shape[0]
-    tabs = nh.pack_tables(scene_s)
+    tabs = nh.stream_tables(nh.pack_tables(scene_s))
     nl = (None if n_live is None else
           torch.tensor([n_live], dtype=torch.int32, device=org.device))
     k_t, k_pid, k_tiles = nh.launch_culled(tabs, org, dir, tb, n_live=nl,
@@ -877,6 +1019,37 @@ def work_phase(li, org_s, dir_s, t_s, n_live, slots, bslots, scene_c,
               and bool((rules["warp"] <= rules["block"]).all()),
               f"{what}: work out of order need <= warp <= block: {rules}")
     return rules6, rules8
+
+
+def wave_work(wave, k, blk_chunks):
+    """Phase 9e for B7-wave, on one packet round (``wave``: its scene,
+    planes, tables and keywords; ``k`` the kernel's planes with the chunks
+    each warp scanned; ``blk_chunks`` the first design's per block): the
+    chunks each rule scans, summed over the rays alive at its start (each
+    is tested against every row its exit group scans), and the chunks each
+    of them needs (``wave_need``: up to its own exit, given its final hit)
+    -> {rule: [3] f64} (spheres, boxes, triangles)."""
+    sc, cols, tab, cnts, c_max, kw = wave
+    alive = (cols[10] == 0).reshape(-1)
+    g_blk = cols[0].numel() // blk_chunks.shape[0]
+    need = tt.wave_need(sc, cols, tab, cnts, c_max, k["t"], **kw)
+    per_ray = {"block": blk_chunks.repeat_interleave(g_blk, dim=0),
+               "warp": k["chunks"].repeat_interleave(tt.GROUP, dim=0),
+               "need": need}
+    check(bool((per_ray["need"] <= per_ray["warp"]).all())
+          and bool((per_ray["warp"] <= per_ray["block"]).all()),
+          "B7-wave: a ray's chunks out of order need <= warp <= block")
+    rules = {r: v[alive].double().sum(0) for r, v in per_ray.items()}
+    live = int(alive.sum())
+    emit(phase="work", kernel="B7-wave", case="config4_first_packet_round",
+         live_rays=live, block_rule_group=g_blk,
+         unit="chunks of 16 candidate rows, summed over the live rays",
+         **{c: {r: {"total": float(v[i]),
+                    "mean_per_32_rays": 32.0 * float(v[i]) / max(live, 1)}
+                for r, v in rules.items()}
+            for i, c in enumerate(("sphere_chunks", "box_chunks",
+                                   "triangle_chunks"))})
+    return rules
 
 
 #: float operations per intersection test, counted from the kernels'
@@ -989,6 +1162,27 @@ def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def device_ms_per_call(calls, name, reps=3):
+    """Each call's device time (ms, the mean of ``reps`` runs) of the CUDA
+    kernel whose name holds ``name``, from one ``torch.profiler`` trace of
+    the card: the kernel's own time, without its wrapper's host work or
+    the small kernels that prepare its inputs. None when the trace does
+    not hold one such kernel a run."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for fn in calls:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if name in e.name and "CUDA" in str(e.device_type)]
+    if len(us) != reps * len(calls):
+        return None
+    return [statistics.mean(us[reps * i:reps * (i + 1)]) * 1e-3
+            for i in range(len(calls))]
+
+
 def main() -> int:
     # ---- 0. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1005,8 +1199,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
     emit(phase="device", name=name, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         nvidia_smi=smi, sm_clock_max_mhz=sm_clock_mhz,
+         torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
     # ---- 1. build ---------------------------------------------------------
@@ -1081,23 +1280,27 @@ def main() -> int:
     c3 = config3_scene(device=dev)
     c3_cam = config3_camera(dev)
     org3, dir3 = pixel_rays(c3_cam)
-    b4 = [compare_hits("B4", "a_config3_bounce0", c3, org3, dir3, *dense)[0]]
-    b4.append(compare_hits("B4", "b_near_miss_600", field, o512, d512,
-                           *dense)[0])
-    n_live = org3.shape[0] // 2 + 77
-    rep, (k_t, k_pid) = compare_hits("B4", "c_config3_n_live", c3, org3, dir3,
-                                     *dense, n_live=n_live)
-    check(bool(torch.isinf(k_t[n_live:]).all())
-          and bool((k_pid[n_live:] == -1).all()),
-          "B4 rows past n_live are not misses")
-    b4.append(rep)
+    b4 = [compare_dense("a_config3_bounce0", c3, org3, dir3)[0]]
+    b4.append(compare_dense("b_near_miss_600", field, o512, d512)[0])
+    b4.append(compare_dense("c_config3_n_live", c3, org3, dir3,
+                            n_live=org3.shape[0] // 2 + 77)[0])
     empty = SceneBuilder().build(dev)
     before = dict(nh.LAUNCHES)
     b4.append(compare_hits("B4", "d_empty_scene", empty, o_r, d_r,
                            *dense)[0])
     check(nh.LAUNCHES == before, "B4 launched on an empty scene")
-    b4.append(compare_hits("B4", "e_box_edge", edge, e_org, e_dir,
-                           *dense)[0])
+    b4.append(compare_dense("e_box_edge", edge, e_org, e_dir)[0])
+    tri_f, tri_o, tri_d = tri_edge_field(device=dev)
+    b4.append(compare_dense("f_triangle_edges_vertices", tri_f, tri_o,
+                            tri_d)[0])
+    check(b4[-1]["hits"] > 0.5 * tri_o.shape[0], "B4 (f): too few hits")
+    tie_f, tie_o, tie_d, tie_first = split_tie_field(device=dev)
+    rep, (_, tie_pid) = compare_dense("i_ties_across_a_split", tie_f, tie_o,
+                                      tie_d)
+    b4.append(rep)
+    check(rep["splits"] == 2 and bool((tie_pid == tie_first).any())
+          and not bool((tie_pid == tie_first + 1).any()),
+          f"B4 (i): the ties did not cross a split to the lower pid: {rep}")
 
     # ---- 6. B5 against its plain version -----------------------------------
     cfg_rep = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
@@ -1199,23 +1402,23 @@ def main() -> int:
     cols = camera_wavefront(make_camera((0.0, 0.0, 0.5), 128, 64, np.pi / 2,
                                         np.pi / 4, device=dev))
     b7w.append(compare_wave("b_rowwise_near_miss_600", field, cols,
-                            *packet_tables(field, cols, 8, c_max=256)))
+                            *packet_tables(field, cols, 8, c_max=256))[0])
     b7w.append(compare_wave("c_truncated_grid", lfield, cols,
-                            *packet_tables(lfield, cols, 8, c_sel=64)))
+                            *packet_tables(lfield, cols, 8, c_sel=64))[0])
     check(b7w[-1]["finite_t_safe_packets"] > 0 and b7w[-1]["unresolved"] > 0,
           "B7-wave (c) left no ray unresolved")
     cols = bounce1_wavefront(rough, make_camera((0.0, 0.0, 0.5), 200, 90,
                                                 1.4, 0.9, device=dev))
     b7w.append(compare_wave("d_rough_glass_normals", rough, cols,
-                            *packet_tables(rough, cols, 8, c_sel=4096)))
+                            *packet_tables(rough, cols, 8, c_sel=4096))[0])
     cols = bounce1_wavefront(c3, make_camera((0.05, -0.1, 0.45), 131, 67,
                                              1.45, 1.2, device=dev))
     b7w.append(compare_wave("e_image_uv_config3", c3, cols,
-                            *packet_tables(c3, cols, 8, c_sel=4096)))
+                            *packet_tables(c3, cols, 8, c_sel=4096))[0])
     cols = bounce1_wavefront(field, cam512)
     b7w.append(compare_wave("f_wave_sub_1", field, cols,
                             *packet_tables(field, cols, 1, c_sel=256),
-                            wave_sub=1))
+                            wave_sub=1)[0])
     check(b7w[2]["want_normal"] and b7w[2]["has_trans"] and b7w[3]["want_uv"]
           and b7w[0]["static_bases"] == [] and b7w[1]["static_bases"],
           "B7-wave cases miss the normal or uv planes or a table layout")
@@ -1511,11 +1714,17 @@ def main() -> int:
     cand.build_cell_grid(c4)
     grid4_s = time.perf_counter() - t0
     waves = []          # every packet round's wavefront, kept for 6d (a)
+    rescues = []        # every rescue round's search (B4), kept for 5 (g)
     real_wave = tt.wave_bounce
 
     def keep_wave(scene, cols, tab, cnts, c_max, **kw):
         waves.append((scene, [c.clone() for c in cols], tab, cnts, c_max, kw))
         return real_wave(scene, cols, tab, cnts, c_max, **kw)
+
+    def keep_rescue(scene, org, dir, n_live=None, **kw):
+        check(not kw, f"a packet-mode rescue round searched with {kw}")
+        rescues.append((scene, org, dir, n_live.clone()))
+        return real_search(scene, org, dir, n_live=n_live)
 
     def packet_frame(scene, cam, tables):
         """The main path (render_hdr TILED, counters reset first), then the
@@ -1528,20 +1737,21 @@ def main() -> int:
         secs = time.perf_counter() - t0
         launched = launches_now()
         waves.clear()
-        tt.wave_bounce = keep_wave
+        rescues.clear()
+        tt.wave_bounce, nh.nearest_hit_pallas = keep_wave, keep_rescue
         try:
             img, diag, rec = rtl.render_frame_tiled(
                 scene, cfg_c4, cam, tables=tables, with_diag=True,
                 with_record=True)
             torch.cuda.synchronize()
         finally:
-            tt.wave_bounce = real_wave
+            tt.wave_bounce, nh.nearest_hit_pallas = real_wave, real_search
         check(launched["tiled_frame"] == 1 and launched["tiled_wave"] >= 1
               and launched["listed"] == 0 and launched["culled"] == 0
               and launched["scalar"] == 0, f"packet mode did not run B7 "
               f"once and B7-wave: {launched}")
-        check(launched["dense"] == diag["rounds"], "packet mode: rescue "
-              "rounds and B4 launches disagree")
+        check(launched["dense"] == diag["rounds"] == len(rescues),
+              "packet mode: rescue rounds and B4 launches disagree")
         check(launched["tiled_wave"] == len(waves), "packet mode: B7-wave "
               "launches differ between two runs of the frame")
         check(int(diag["unresolved"]) == 0, "packet mode left rays "
@@ -1549,12 +1759,12 @@ def main() -> int:
         check(torch.equal(img, hdr) and bool(torch.isfinite(hdr).all())
               and tuple(hdr.shape) == (cam.h, cam.w, 3),
               "bad packet-mode frame")
-        return hdr, rec, diag, launched, secs, list(waves)
+        return hdr, rec, diag, launched, secs, list(waves), list(rescues)
 
     rtl.SWEEP_MAX_PRIMS = 0
     try:
-        hdr_pa, rec_pa, diag_pa, launches_pa, pa_s, waves_a = packet_frame(
-            c4, c4_cam, tables4)
+        (hdr_pa, rec_pa, diag_pa, launches_pa, pa_s, waves_a,
+         rescues_a) = packet_frame(c4, c4_cam, tables4)
     finally:
         rtl.SWEEP_MAX_PRIMS = SWEEP_MAX_PRIMS
     # (a) against the sweep frame of 9b at the reference's packet tolerance;
@@ -1604,8 +1814,8 @@ def main() -> int:
     grid_b_s = time.perf_counter() - t0
     check(c4b.n_prims > rtl.SWEEP_MAX_PRIMS, "case (b) is not above the "
           "sweep threshold")
-    hdr_pb, rec_pb, diag_pb, launches_pb, pb_s, waves_b = packet_frame(
-        c4b, c4_cam, tables_b)
+    (hdr_pb, rec_pb, diag_pb, launches_pb, pb_s, waves_b,
+     rescues_b) = packet_frame(c4b, c4_cam, tables_b)
     rng = np.random.default_rng(17)
     idx = torch.as_tensor(np.sort(rng.choice(C4_W * C4_H, C4B_SAMPLES,
                                              replace=False)), device=dev)
@@ -1687,9 +1897,17 @@ def main() -> int:
           f"config 4 through B8 differs from the sweep frame: {vs_sweep}")
 
     # B7-wave on config 4's first packet round, B8 on its first sweep round
-    sc, cols, tab, cnts, c_max, kw = waves_a[0]
-    b7w.insert(0, compare_wave("a_config4_first_packet_round", sc, cols, tab,
-                               cnts, c_max, **kw))
+    wave_a0 = waves_a[0]
+    rep, k_wa, blk_wa = compare_wave("a_config4_first_packet_round",
+                                     *wave_a0[:5], **wave_a0[5])
+    b7w.insert(0, rep)
+    # B4 on config 4's first and last rescue rounds: 100k spheres, their
+    # n_live (the last round's few live rays over a split scan)
+    for case, (sc_r, org_r, dir_r, nl_r) in (
+            ("g_config4_first_rescue_round", rescues_a[0]),
+            ("h_config4_last_rescue_round", rescues_a[-1])):
+        b4.append(compare_dense(case, sc_r, org_r, dir_r,
+                                n_live=int(nl_r))[0])
     scene_c, org_c, dir_c, kw_c = culls[0]
     n_live_c = int(kw_c["n_live"])
     check(n_live_c < org_c.shape[0], "config 4's sweep slice is all live")
@@ -1702,6 +1920,7 @@ def main() -> int:
     rules6, rules8 = work_phase(li4, org_s, dir_s, t_s, n_live4, slots4,
                                 bslots4, scene_c, org_c, dir_c, tb_c,
                                 n_live_c, tiles_c)
+    rules7w = wave_work(wave_a0, k_wa, blk_wa)
 
     # ---- 10. times at the main paths' shapes -------------------------------
     tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
@@ -1735,11 +1954,12 @@ def main() -> int:
              frames=TIMED, card=name, nvidia_smi=smi)
 
     # B3 on the headline wavefront, B4 on config 3's; render_hdr PALLAS
-    head_tabs, c3_tabs = nh.pack_tables(head), nh.pack_tables(c3)
+    head_tabs = nh.pack_tables(head)
+    c3_st = nh.stream_tables(nh.pack_tables(c3))
     b3_ms = cuda_median_ms(lambda: nh.launch_scalar(head_tabs, org, dir))
     b3_plain_ms = cuda_median_ms(
         lambda: nh.nearest_hit_pallas_scalar_plain(head, org, dir))
-    b4_ms = cuda_median_ms(lambda: nh.launch_dense(c3_tabs, org3, dir3))
+    b4_ms = cuda_median_ms(lambda: nh.launch_dense(c3_st, org3, dir3))
     b4_plain_ms = cuda_median_ms(
         lambda: nh.nearest_hit_pallas_plain(c3, org3, dir3), warmup=1,
         timed=5)
@@ -1844,25 +2064,69 @@ def main() -> int:
     # config 4 in packet mode and through B8, and the 1.1M-prim packet
     # frame: the frames, B7-wave summed over a frame's packet rounds, B8 on
     # the first sweep round, each against its plain version
-    def wave_sums(wave_list):
-        """Kernel and plain ms summed over a frame's wavefronts, and the
-        chunks each exit group scanned per launch."""
-        k_ms = p_ms = 0.0
-        works = []
+    def wave_runs(wave_list):
+        """Per launch of a frame's packet rounds: the kernel's and the plain
+        version's ms, the chunks each warp scanned [warps, 3], the chunks
+        each ray needs [rays, 3], the rays alive at its start, and the
+        output planes' count."""
+        runs = []
         for sc, cols, tab, cnts, c_max, kw in wave_list:
-            k_ms += cuda_median_ms(lambda: tt.launch_wave(
+            k_ms = cuda_median_ms(lambda: tt.launch_wave(
                 sc, cols, tab, cnts, c_max, **kw), warmup=1, timed=3)
-            p_ms += cuda_median_ms(lambda: tt.wave_bounce_plain(
+            p_ms = cuda_median_ms(lambda: tt.wave_bounce_plain(
                 sc, cols, tab, cnts, c_max, **kw), warmup=0, timed=1)
-            works.append(tt.launch_wave(sc, cols, tab, cnts, c_max, **kw,
-                                        work=True)["chunks"])
+            k = tt.launch_wave(sc, cols, tab, cnts, c_max, **kw, work=True)
+            runs.append(dict(
+                ms=k_ms, plain_ms=p_ms, chunks=k["chunks"],
+                need=tt.wave_need(sc, cols, tab, cnts, c_max, k["t"], **kw),
+                alive=(cols[10] == 0).reshape(-1), packets=cnts.shape[0],
+                n_out=18 if tt._flags(sc)["want_normal"] else 15))
         torch.cuda.synchronize()
-        return k_ms, p_ms, works
+        return runs
 
-    b7w_ms, b7w_plain_ms, works_a = wave_sums(waves_a)
-    b7w_b_ms, b7w_b_plain_ms, works_b = wave_sums(waves_b)
+    def rescue_runs(rescue_list):
+        """Per rescue round of a frame: B4's ms over the round's rays and
+        n_live."""
+        runs, st = [], None
+        for sc, o, d, nl in rescue_list:
+            if st is None:
+                st = nh.stream_tables(nh.pack_tables(sc))
+            nl1 = nl.reshape(1).to(torch.int32)
+            runs.append(dict(n_live=int(nl), rays=o.shape[0],
+                             ms=cuda_median_ms(lambda: nh.launch_dense(
+                                 st, o, d, n_live=nl1), warmup=1, timed=3)))
+        return runs
+
+    wave_a, wave_b = wave_runs(waves_a), wave_runs(waves_b)
+    # beside the events (as every kernel is timed: they also hold the
+    # wrapper's per-launch preparation, the scene bounds and the stacked
+    # planes), each launch's kernel alone from the profiler; None without a
+    # device trace
+    for runs, wave_list in ((wave_a, waves_a), (wave_b, waves_b)):
+        dev_ms = device_ms_per_call(
+            [lambda w=w: tt.launch_wave(*w[:5], **w[5]) for w in wave_list],
+            "tiled_wave_kernel")
+        for i, r in enumerate(runs):
+            r["kernel_ms"] = None if dev_ms is None else dev_ms[i]
+
+    def kernel_sum(runs):
+        ks = [r["kernel_ms"] for r in runs]
+        return None if None in ks else sum(ks)
+
+    b7w_ms = sum(r["ms"] for r in wave_a)
+    b7w_kernel_ms = kernel_sum(wave_a)
+    b7w_plain_ms = sum(r["plain_ms"] for r in wave_a)
+    b7w_b_ms = sum(r["ms"] for r in wave_b)
+    b7w_b_kernel_ms = kernel_sum(wave_b)
+    b7w_b_plain_ms = sum(r["plain_ms"] for r in wave_b)
+    resc_a = rescue_runs(rescues_a)
+    resc_b = rescue_runs(rescues_b)
+    cam_arr4b, nby4b, nbx4b = tt._frame_inputs(c4b, c4_cam, *tables_b[:3])
+    b7_b_ms = cuda_median_ms(lambda: tt.launch_frame(
+        tables_b[0], tables_b[1], cam_arr4b, tables_b[2], nby4b, nbx4b,
+        **tt._flags(c4b)))
     nl_c = torch.tensor([n_live_c], dtype=torch.int32, device=dev)
-    tabs_c = nh.pack_tables(scene_c)
+    tabs_c = nh.stream_tables(nh.pack_tables(scene_c))
     b8_ms = cuda_median_ms(lambda: nh.launch_culled(tabs_c, org_c, dir_c,
                                                     tb_c, n_live=nl_c))
     b8_plain_ms = cuda_median_ms(lambda: nh.nearest_hit_culled_plain(
@@ -1884,6 +2148,15 @@ def main() -> int:
             c4, c4_cam, cfg_c4, tables=tables4), warmup=1, timed=3)
     finally:
         rtl.SWEEP_LISTED, rtl.SWEEP_CULL = True, False
+    for frame, ms, b7f_ms, w_ms, resc in (
+            ("config 4", pa_render_ms, b7_ms, b7w_ms, resc_a),
+            ("1.1M prims", pb_render_ms, b7_b_ms, b7w_b_ms, resc_b)):
+        b4_sum = sum(r["ms"] for r in resc)
+        emit(phase="times", what=f"B4 kernel per rescue round, packet "
+             f"frame ({frame})", rounds=resc, b4_ms_per_frame=b4_sum,
+             frame_ms=ms, b7_frame_ms=b7f_ms, b7_wave_ms=w_ms,
+             glue_ms=ms - b7f_ms - w_ms - b4_sum, card=name,
+             nvidia_smi=smi)
     for what, ms, prims, frames, extra in (
             ("render_hdr TILED packet mode config 4 (tables cached)",
              pa_render_ms, c4.n_prims, 3,
@@ -1892,7 +2165,8 @@ def main() -> int:
                   wave_launches=len(waves_a),
                   grid_host_ms=grid4_s * 1e3)),
             ("B7-wave kernel, summed over the packet rounds (config 4)",
-             b7w_ms, c4.n_prims, 3, dict(wave_launches=len(waves_a))),
+             b7w_ms, c4.n_prims, 3, dict(wave_launches=len(waves_a),
+                                         kernel_ms=b7w_kernel_ms)),
             ("B7-wave plain, summed over the packet rounds (config 4)",
              b7w_plain_ms, c4.n_prims, 1, dict(wave_launches=len(waves_a))),
             ("render_hdr TILED packet mode 1.1M prims (tables cached)",
@@ -1903,10 +2177,13 @@ def main() -> int:
                   frame_tables_host_ms=tables_b_s * 1e3,
                   grid_host_ms=grid_b_s * 1e3)),
             ("B7-wave kernel, summed over the packet rounds (1.1M prims)",
-             b7w_b_ms, c4b.n_prims, 3, dict(wave_launches=len(waves_b))),
+             b7w_b_ms, c4b.n_prims, 3, dict(wave_launches=len(waves_b),
+                                            kernel_ms=b7w_b_kernel_ms)),
             ("B7-wave plain, summed over the packet rounds (1.1M prims)",
              b7w_b_plain_ms, c4b.n_prims, 1,
              dict(wave_launches=len(waves_b))),
+            ("B7 kernel (bounce 0, 1.1M prims)", b7_b_ms, c4b.n_prims,
+             TIMED, {}),
             ("render_hdr TILED config 4 through B8 (tables cached)",
              cull_render_ms, c4.n_prims, 3,
              dict(sweep_rounds=diag_c["rounds"])),
@@ -1931,16 +2208,62 @@ def main() -> int:
     b5f_bound = bound(n_head * 2 * OPS["replay_fwd"], n_head * (24 + 8 + 12))
     b5b_bound = bound(n_head * 2 * OPS["replay_bwd"],
                       n_head * (24 + 8 + 12 + 24))
-    ch = k4["chunks"].double()
+    # B7 and B7-wave: the tests of the chunks the rays need (``frame_need``,
+    # ``wave_need``: each ray up to its own exit, given its final hit), a
+    # table's rows read once (as many as its neediest ray scans), the
+    # planes in and out; beside it, the same over the chunks the warps
+    # scanned
+    ops_per_class = torch.tensor([OPS["sphere_unit"], OPS["box"],
+                                  OPS["tri_edges"]], dtype=torch.float64,
+                                 device=dev)
+
+    def chunk_ops(ray_chunks):
+        """Operations of ray-chunks [..., 3] (a ray against 16 rows)."""
+        return float((ray_chunks.double().reshape(-1, 3)
+                      * ops_per_class).sum()) * tt.CHUNK
+
+    def table_bytes(need_rays, rays_per_table):
+        """Rows that some ray of each table needs, at 80 bytes a row."""
+        per = need_rays.sum(-1).reshape(-1, rays_per_table).max(1).values
+        return float(per.double().sum()) * tt.CHUNK * 80
+
     hp4, wp4 = k4["cr"].shape
-    b7_ops = float((ch * torch.tensor(
-        [OPS["sphere_unit"], OPS["box"], OPS["tri_edges"]],
-        dtype=torch.float64, device=dev)).sum()) * tt.CHUNK * tt.GROUP_SUB \
-        * tt.LANE
-    rows4 = float(ch.sum(1).reshape(-1, tt.GROUPS_PER_TILE).max(1).values
-                  .sum()) * tt.CHUNK
-    b7_bound = bound(b7_ops, rows4 * 80 + 15 * 4 * hp4 * wp4
-                     + 32 * tables4[1].shape[0])
+    need4 = tt.frame_need(c4, c4_cam, *tables4[:3], k4["t"])
+    b7_io = 15 * 4 * hp4 * wp4 + 32 * tables4[1].shape[0]
+    b7_tile_need = torch.stack([tt.to_groups(need4[..., k], nby4, nbx4,
+                                             tt.TILE_SUB * tt.LANE)
+                                for k in range(3)], -1)
+    b7_bound = bound(chunk_ops(need4), table_bytes(
+        b7_tile_need, tt.TILE_SUB * tt.LANE) + b7_io)
+    b7_bound_streamed = bound(chunk_ops(k4["chunks"]) * tt.GROUP,
+                              float(k4["chunks"].sum(1).reshape(
+                                  -1, tt.GROUPS_PER_TILE).max(1).values
+                                  .double().sum()) * tt.CHUNK * 80 + b7_io)
+
+    def wave_bounds(runs):
+        """(needed bound, streamed bound, live-ray tests streamed, per
+        launch: ms and chunks per scanning warp) of a frame's launches."""
+        ops_n = ops_s = nbytes = tests = 0.0
+        launches = []
+        for r in runs:
+            rays = r["need"].shape[0]
+            ops_n += chunk_ops(r["need"])
+            ops_s += chunk_ops(r["chunks"]) * tt.GROUP
+            nbytes += (table_bytes(r["need"], rays // r["packets"])
+                       + (11 + r["n_out"]) * 4 * rays + 32 * r["packets"])
+            per_ray = r["chunks"].repeat_interleave(tt.GROUP, dim=0)
+            tests += float(per_ray[r["alive"]].sum()) * tt.CHUNK
+            c = r["chunks"].sum(1)
+            scan = c[c > 0].double()
+            launches.append(dict(
+                ms=r["ms"], kernel_ms=r["kernel_ms"], warps=c.numel(),
+                warps_scanning=scan.numel(),
+                mean_chunks_per_scanning_warp=float(scan.mean())
+                if scan.numel() else 0.0, max_chunks_per_warp=int(c.max())))
+        return bound(ops_n, nbytes), bound(ops_s, nbytes), tests, launches
+
+    b7w_bound, b7w_bound_streamed, tests7w, w_launches_a = wave_bounds(wave_a)
+    _, _, tests7w_b, w_launches_b = wave_bounds(wave_b)
     # B6 and B8 on config 4's sweep round: the sphere (and triangle) tests
     # of the slots or tiles the rays need (9e), boxes and unlisted classes
     # dense; beside it, the same count over what the warps streamed
@@ -1960,23 +2283,6 @@ def main() -> int:
         4 * scene_s.n_spheres + 6 * scene_s.n_boxes + 9 * scene_s.n_tris)
     b6_bound = bound(b6_ops(rules6["need"]), b6_bytes)
     b6_bound_streamed = bound(b6_ops(rules6["warp"]), b6_bytes)
-    # B7-wave over config 4's packet rounds: the tests of the chunks each
-    # exit group scanned; a packet's table rows read once (its most
-    # scanning group's), 11 planes in and 15 (or 18) out per ray
-    ops_per_class = torch.tensor([OPS["sphere_unit"], OPS["box"],
-                                  OPS["tri_edges"]], dtype=torch.float64,
-                                 device=dev)
-    w_ops = w_bytes = 0.0
-    for (sc, cols, tab, cnts, c_max, kw), ch in zip(waves_a, works_a):
-        gr = tt.group_rows(kw.get("wave_sub", tt.WAVE_SUB))
-        ch = ch.double()
-        w_ops += float((ch * ops_per_class).sum()) * tt.CHUNK * gr * tt.LANE
-        per_pk = ch.sum(1).reshape(cnts.shape[0], -1).max(1).values
-        n_out = 18 if tt._flags(sc)["want_normal"] else 15
-        w_bytes += (float(per_pk.sum()) * tt.CHUNK * 80
-                    + (11 + n_out) * 4 * cols[0].numel() + 32 * cnts.shape[0])
-    b7w_bound = bound(w_ops, w_bytes)
-
     # B8 on the cull round: the sphere tiles needed (or streamed) against
     # the live rays, boxes and triangles dense
     def b8_ops(ray_tiles):
@@ -1988,28 +2294,53 @@ def main() -> int:
         4 * scene_c.n_spheres + 6 * scene_c.n_boxes + 9 * scene_c.n_tris)
     b8_bound = bound(b8_ops(rules8["need"]), b8_bytes)
     b8_bound_streamed = bound(b8_ops(rules8["warp"]), b8_bytes)
-    # the time of one streamed sphere test (a live ray against a prim)
+    # the time of one streamed test (a live ray against a prim), in ns and
+    # in FP32 lane-cycles (132 SMs x 128 lanes at the card's top SM clock)
     tests6 = float(rules6["warp"][0]) * li4.sph_fan * nh.BLOCK_K
     tests8 = float(rules8["warp"][0]) * nh.BLOCK_K
+    tests4 = float(n_c3 * c3.n_prims)
+
+    def per_test(ms, tests):
+        ns = ms * 1e6 / tests
+        return dict(tests_streamed=tests, ns_per_streamed_test=ns,
+                    lane_cycles_per_streamed_test=ns * 1e-9 * 132 * 128
+                    * sm_clock_mhz * 1e6)
+
     emit(phase="bounds", card=name, nvidia_smi=smi,
+         sm_clock_max_mhz=sm_clock_mhz,
+         b4=dict(ms=b4_ms, bound_ms=b4_bound[0], bound_by=b4_bound[1],
+                 **per_test(b4_ms, tests4)),
          b6=dict(ms=b6_ms, bound_ms_needed=b6_bound[0],
                  bound_ms_streamed=b6_bound_streamed[0],
-                 bound_by=b6_bound[1], sphere_tests_streamed=tests6,
-                 ns_per_streamed_test=b6_ms * 1e6 / tests6),
+                 bound_by=b6_bound[1], **per_test(b6_ms, tests6)),
+         b7=dict(ms=b7_ms, bound_ms_needed=b7_bound[0],
+                 bound_ms_streamed=b7_bound_streamed[0],
+                 bound_by=b7_bound[1]),
+         b7_wave=dict(ms=b7w_ms, kernel_ms=b7w_kernel_ms,
+                      bound_ms_needed=b7w_bound[0],
+                      bound_ms_streamed=b7w_bound_streamed[0],
+                      bound_by=b7w_bound[1], **per_test(b7w_ms, tests7w)),
          b8=dict(ms=b8_ms, bound_ms_needed=b8_bound[0],
                  bound_ms_streamed=b8_bound_streamed[0],
-                 bound_by=b8_bound[1], sphere_tests_streamed=tests8,
-                 ns_per_streamed_test=b8_ms * 1e6 / tests8))
+                 bound_by=b8_bound[1], **per_test(b8_ms, tests8)))
+    # B7-wave's launches: does the slowest warp or the mean set the time?
+    for frame, per_launch, tests in (("config 4", w_launches_a, tests7w),
+                                     ("1.1M prims", w_launches_b,
+                                      tests7w_b)):
+        emit(phase="bounds", kernel="B7-wave", case=frame,
+             live_ray_tests_streamed=tests, launches=per_launch)
 
     # ---- kernels summary and the last line ------------------------------------
     def worst(reps, key="max_abs_err"):
         return max(r[key] for r in reps)
 
-    def row(kname, source, replaces, launched, err, ms, plain_ms, bnd):
+    def row(kname, source, replaces, launched, err, ms, plain_ms, bnd,
+            **extra):
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                "timing": MS_TIMING, **extra}
 
     src = "raytracer_js_tpu/kernels/"
     print(json.dumps({"kernels": [
@@ -2035,7 +2366,8 @@ def main() -> int:
             b7_bound),
         row("tiled_wave_kernel", TILED_SOURCE, src + "trace_tiled.py:518",
             launches_pa["tiled_wave"], worst(b7w), b7w_ms, b7w_plain_ms,
-            b7w_bound),
+            b7w_bound, kernel_ms=b7w_kernel_ms,
+            kernel_timing=KERNEL_MS_TIMING),
         row("nh_culled_kernel", NH_SOURCE, src + "nearest_hit.py:113",
             launches_c["culled"], worst(b8), b8_ms, b8_plain_ms, b8_bound),
     ]}), flush=True)
@@ -2045,5 +2377,60 @@ def main() -> int:
     return 0
 
 
+def frame_times() -> int:
+    """``python3 chip_smoke.py --frame-times``: the frames whose time is
+    mostly host work, each a median of CUDA events around ``render_hdr``,
+    and nothing else: config 4 TILED in sweep mode (B6), in packet mode and
+    through B8 (tables cached), the 1.1M-sphere packet frame, and config 3
+    PALLAS. It calls only entry points that earlier trees of the port share,
+    so a copy of this script placed at the root of another checkout times
+    that checkout's package: run two trees in turns in one session to tell
+    a change from the host's drift. Prints the card and one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.build()
+    _build.load()
+    c3, c3_cam = config3_scene(device=dev), config3_camera(dev)
+    cam = config4_camera(dev)
+    cfg = RenderConfig(refmax=2, backend=HitBackend.TILED)
+    c4 = config4_scene(device=dev)
+    tables = rtl.frame_tables(c4, cam)
+    c4b = config4_scene(C4B_PRIMS, device=dev)
+    tables_b = rtl.frame_tables(c4b, cam)
+
+    def frame_ms(scene, tbl, timed, threshold=SWEEP_MAX_PRIMS, listed=True,
+                 cull=False):
+        rtl.SWEEP_MAX_PRIMS = threshold
+        rtl.SWEEP_LISTED, rtl.SWEEP_CULL = listed, cull
+        try:
+            return cuda_median_ms(lambda: rt.render_hdr(
+                scene, cam, cfg, tables=tbl), warmup=1, timed=timed)
+        finally:
+            rtl.SWEEP_MAX_PRIMS = SWEEP_MAX_PRIMS
+            rtl.SWEEP_LISTED, rtl.SWEEP_CULL = True, False
+
+    ms = dict(
+        sweep_config4=frame_ms(c4, tables, 5),
+        packet_config4=frame_ms(c4, tables, 5, threshold=0),
+        cull_config4=frame_ms(c4, tables, 5, listed=False, cull=True),
+        packet_1_1m=frame_ms(c4b, tables_b, 3),
+        pallas_config3=cuda_median_ms(lambda: rt.render_hdr(
+            c3, c3_cam, RenderConfig(refmax=3, backend=HitBackend.PALLAS)),
+            warmup=2, timed=10))
+    emit(phase="frame_times",
+         tree=str(pathlib.Path(rt.__file__).resolve().parent.parent),
+         ms_per_frame=ms, timing=MS_TIMING, card=smi)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(frame_times() if sys.argv[1:] == ["--frame-times"] else main())

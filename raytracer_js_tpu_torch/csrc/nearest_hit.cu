@@ -1,6 +1,7 @@
 // Nearest-hit search kernels for the PALLAS and TILED backends (Hopper,
-// sm_90a). B6 (nh_listed_kernel) and B8 (nh_culled_kernel), the TILED sweep
-// rounds' searches, are described beside their code below.
+// sm_90a). B4 (nh_dense_kernel), B6 (nh_listed_kernel) and B8
+// (nh_culled_kernel) stream tiles through shared memory and are described
+// beside their code below.
 //
 // What they replace (the reference package's TPU kernels):
 //   nh_scalar_kernel (B3) -> _nh_scalar_kernel
@@ -24,24 +25,25 @@
 // Device-memory traffic is 24 bytes of ray in and 8 bytes of result out per
 // ray; the tables are at most a few hundred KB and stay in L1/L2.
 //
-// What this first design does about it: one thread per ray, no ray state
-// outside registers. B3 reads its (at most 384-prim) tables with __ldg: all
-// threads of a warp read the same address, so each load is one broadcast.
-// B4 stages 128-prim tiles of each class in shared memory, the GPU
-// counterpart of streaming 128-prim tiles from VMEM, so a block of 128 rays
-// reads each table from device memory once. The TPU layouts (256x128 ray
-// tiles, lane-replicated rows, 128 x DENSE_SPAN padding with poisoned
-// spheres) are not carried over: the loops run to the true counts. No culls,
-// no wgmma, no TMA yet.
+// B3: one thread per ray, no ray state outside registers; it reads its (at
+// most 384-prim) tables with __ldg: all threads of a warp read the same
+// address, so each load is one broadcast.
 //
 // Precision: built with --fmad=false and without fast math, so every
 // expression rounds once, as in PyTorch; sqrtf and division are IEEE. The
 // sphere dots are products summed left to right (never a matmul).
 //
-// Tables (row-major [rows, stride] float32, one per primitive class):
-//   spheres   cx cy cz ccmr        (ccmr = c.c - r^2, packed on the host)
-//   boxes     cx cy cz hx hy hz
-//   triangles v0(3) v1(3) v2(3)
+// Tables (row-major float32):
+//   B3: one [rows, stride] table per class: spheres cx cy cz ccmr (ccmr =
+//     c.c - r^2, packed on the host), boxes cx cy cz hx hy hz, triangles
+//     v0(3) v1(3) v2(3).
+//   B4, B6, B8 (kernels/nearest_hit.StreamTables): spheres as the
+//     array-of-structs [S', 4], triangles as edges [9, T'] = v0(3),
+//     e1 = v1 - v0 (3), e2 = v2 - v0 (3), both padded to whole 128-prim
+//     (super)tiles; boxes as for B3. The edges are subtracted on the device
+//     in float32, each rounded once, as the vertex-form test subtracts them,
+//     so the test's values do not change (tests/test_torch_nearest_hit.py
+//     holds the two forms equal bit for bit).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,11 +52,13 @@
 
 namespace {
 
+#include "stream.cuh"
+
 constexpr float kInf = std::numeric_limits<float>::infinity();
 constexpr float kSlabEps = 1e-12f;
 constexpr float kMtEps = 1e-9f;
-constexpr int kTile = 128;        // prims per shared-memory tile (B4)
-constexpr int kBlock = 128;       // rays per block (B4); kBlock >= kTile
+constexpr int kTile = 128;        // prims per shared-memory tile
+constexpr int kBlock = 128;       // rays per block (four warps)
 
 struct Tables {
   const float* sph;
@@ -111,7 +115,7 @@ __device__ __forceinline__ float sphere_scalar(const Ray& r, float cx,
 
 // B4's sphere test (nearest_hit.py:289-303): the factored form; a negative
 // discriminant makes sq NaN, every compare on it false, and t = +inf. Split
-// in two so that B6 and B8 can skip the root for a warp that misses.
+// in two so that B4, B6 and B8 can skip the root for a warp that misses.
 __device__ __forceinline__ float sphere_disc(const Ray& r, float cx,
                                              float cy, float cz, float ccmr,
                                              float& d_dot_c) {
@@ -129,14 +133,6 @@ __device__ __forceinline__ float sphere_root(const Ray& r, float d_dot_c,
   float s = sq * r.inv_a;
   float t_sel = u - s >= 0.0f ? u - s : u + s;
   return u + s >= 0.0f ? t_sel : kInf;
-}
-
-__device__ __forceinline__ float sphere_dense(const Ray& r, float cx,
-                                              float cy, float cz,
-                                              float ccmr) {
-  float d_dot_c;
-  const float disc = sphere_disc(r, cx, cy, cz, ccmr, d_dot_c);
-  return sphere_root(r, d_dot_c, disc);
 }
 
 // Slab test, first forward parameter (both kernels).
@@ -157,20 +153,48 @@ __device__ __forceinline__ float box_t(const Ray& r, float cx, float cy,
   return t_enter <= t_exit ? t : kInf;
 }
 
-// Moeller-Trumbore with the 1e-9 determinant floor (both kernels).
+// Whether a Moeller-Trumbore test certainly fails, from its determinant
+// and the numerator u_num = s.p of its u = u_num * (1 / det), under IEEE
+// rounding (the streaming kernels skip 1 / det and the tail for a warp
+// whose every lane certainly fails; such a lane yields +inf either way):
+//  - |det| < 1e-9, or det NaN: `fabsf(det) >= kMtEps` is false.
+//  - u_num and det of opposite signs, |u_num| >= |det| * 2^-64 (so u_num is
+//    not zero): 1 / det (det finite and nonzero) has det's sign and
+//    |1 / det| >= 2^-129, so |u| >= 2^-67 before rounding, and u rounds to
+//    a negative number, never to -0: `u >= 0` is false. (det = +-inf:
+//    |u_num| = inf, u = inf * 0 = NaN, also false.)
+//  - the same signs and |u_num| >= fl(|det| * (1 + 2^-20)): with the
+//    roundings of the product, of 1 / det (relative 2^-24, or 2^-22 when
+//    it is subnormal) and of u, u > 1, so for v >= 0, u + v >= u > 1 and
+//    `u + v <= 1` is false; v < 0 or NaN fails `v >= 0`. An overflowed
+//    bound (inf) holds only for |u_num| = inf: u = +inf or NaN, both fail.
+// tests/test_torch_nearest_hit.py holds the plain form of this predicate
+// (kernels/nearest_hit.tri_certain_miss) to never reject a hit.
+__device__ __forceinline__ bool tri_certain_miss(float det, float u_num) {
+  const float ad = fabsf(det), au = fabsf(u_num);
+  if (!(ad >= kMtEps)) return true;
+  return (u_num < 0.0f) != (det < 0.0f) ? au >= ad * 0x1p-64f
+                                         : au >= ad * (1.0f + 0x1p-20f);
+}
+
+// Moeller-Trumbore with the 1e-9 determinant floor, from v0 and the edges
+// e1 = v1 - v0, e2 = v2 - v0. kWarpSkip: every lane of the warp calls it
+// and the warp returns +inf at once when each lane certainly fails.
+template <bool kWarpSkip = false>
 __device__ __forceinline__ float tri_t(const Ray& r, float v0x, float v0y,
-                                       float v0z, float v1x, float v1y,
-                                       float v1z, float v2x, float v2y,
-                                       float v2z) {
-  float e1x = v1x - v0x, e1y = v1y - v0y, e1z = v1z - v0z;
-  float e2x = v2x - v0x, e2y = v2y - v0y, e2z = v2z - v0z;
+                                       float v0z, float e1x, float e1y,
+                                       float e1z, float e2x, float e2y,
+                                       float e2z) {
   float px = r.dy * e2z - r.dz * e2y;
   float py = r.dz * e2x - r.dx * e2z;
   float pz = r.dx * e2y - r.dy * e2x;
   float det = e1x * px + e1y * py + e1z * pz;
-  float inv_det = 1.0f / (fabsf(det) < kMtEps ? kMtEps : det);
   float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-  float u = (sx * px + sy * py + sz * pz) * inv_det;
+  float u_num = sx * px + sy * py + sz * pz;
+  if (kWarpSkip && __all_sync(kFull, tri_certain_miss(det, u_num)))
+    return kInf;
+  float inv_det = 1.0f / (fabsf(det) < kMtEps ? kMtEps : det);
+  float u = u_num * inv_det;
   float qx = sy * e1z - sz * e1y;
   float qy = sz * e1x - sx * e1z;
   float qz = sx * e1y - sy * e1x;
@@ -217,108 +241,47 @@ __global__ void nh_scalar_kernel(Tables T, const float* __restrict__ org,
   }
   for (int p = 0; p < T.n_tri; ++p) {
     const int s = T.t_stride;
-    fold(tri_t(r, ld(T.tri, 0, s, p), ld(T.tri, 1, s, p), ld(T.tri, 2, s, p),
-               ld(T.tri, 3, s, p), ld(T.tri, 4, s, p), ld(T.tri, 5, s, p),
-               ld(T.tri, 6, s, p), ld(T.tri, 7, s, p), ld(T.tri, 8, s, p)),
+    const float v0x = ld(T.tri, 0, s, p), v0y = ld(T.tri, 1, s, p),
+                v0z = ld(T.tri, 2, s, p);
+    fold(tri_t(r, v0x, v0y, v0z, ld(T.tri, 3, s, p) - v0x,
+               ld(T.tri, 4, s, p) - v0y, ld(T.tri, 5, s, p) - v0z,
+               ld(T.tri, 6, s, p) - v0x, ld(T.tri, 7, s, p) - v0y,
+               ld(T.tri, 8, s, p) - v0z),
          T.n_sph + T.n_box + p, t_best, pid);
   }
   t_out[i] = t_best;
   pid_out[i] = t_best < kInf ? pid : -1;
 }
 
-// Copy prims [k0, k0 + kTile) of a [rows, stride] table into tile[rows][kTile]
-// (one prim per thread; columns past the count are left unread).
-__device__ __forceinline__ void stage(float (*tile)[kTile], const float* tab,
-                                      int rows, int stride, int count,
-                                      int k0) {
-  const int p = k0 + (int)threadIdx.x;
-  if (threadIdx.x < kTile && p < count) {
-    for (int row = 0; row < rows; ++row)
-      tile[row][threadIdx.x] = ld(tab, row, stride, p);
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-nh_dense_kernel(Tables T, const float* __restrict__ org,
-                const float* __restrict__ dir, long long n,
-                const int* __restrict__ n_live, float* __restrict__ t_out,
-                int* __restrict__ pid_out) {
-  __shared__ float tile[9][kTile];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long live = min(n, (long long)__ldg(n_live));
-  // rows at or past n_live report a miss; a block wholly past it skips
-  // the search (every thread of the block takes this branch together)
-  if ((long long)blockIdx.x * blockDim.x >= live) {
-    if (i < n) {
-      t_out[i] = kInf;
-      pid_out[i] = -1;
-    }
-    return;
-  }
-  // rows past n_live stay in the block only to help stage the tiles
-  const bool active = i < live;
-  const Ray r = load_ray(org, dir, active ? i : 0);
-  float t_best = kInf;
-  int pid = -1;
-
-  for (int k0 = 0; k0 < T.n_sph; k0 += kTile) {
-    __syncthreads();
-    stage(tile, T.sph, 4, T.s_stride, T.n_sph, k0);
-    __syncthreads();
-    if (active) {
-      const int m = min(kTile, T.n_sph - k0);
-      for (int j = 0; j < m; ++j)
-        fold(sphere_dense(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j]),
-             k0 + j, t_best, pid);
-    }
-  }
-  for (int k0 = 0; k0 < T.n_box; k0 += kTile) {
-    __syncthreads();
-    stage(tile, T.box, 6, T.b_stride, T.n_box, k0);
-    __syncthreads();
-    if (active) {
-      const int m = min(kTile, T.n_box - k0);
-      for (int j = 0; j < m; ++j)
-        fold(box_t(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j],
-                   tile[4][j], tile[5][j]),
-             T.n_sph + k0 + j, t_best, pid);
-    }
-  }
-  for (int k0 = 0; k0 < T.n_tri; k0 += kTile) {
-    __syncthreads();
-    stage(tile, T.tri, 9, T.t_stride, T.n_tri, k0);
-    __syncthreads();
-    if (active) {
-      const int m = min(kTile, T.n_tri - k0);
-      for (int j = 0; j < m; ++j)
-        fold(tri_t(r, tile[0][j], tile[1][j], tile[2][j], tile[3][j],
-                   tile[4][j], tile[5][j], tile[6][j], tile[7][j],
-                   tile[8][j]),
-             T.n_sph + T.n_box + k0 + j, t_best, pid);
-    }
-  }
-  if (i < n) {
-    t_out[i] = t_best;
-    pid_out[i] = t_best < kInf ? pid : -1;
-  }
-}
-
-// ---- B6 and B8: the sweep rounds' searches --------------------------------
+// ---- B4, B6 and B8: the streaming searches --------------------------------
+// nh_dense_kernel (B4): every tile of every class, as described above.
 // nh_listed_kernel (B6) -> _nearest_hit_kernel_listed (nearest_hit.py:155,
 // entry nearest_hit_pallas(tile_ids=...) :898): the nearest hit over each
 // 128-ray block's list row of (super)tile ids, near to far (ascending t_lo).
 // nh_culled_kernel (B8) -> _nearest_hit_kernel_culled (nearest_hit.py:113,
 // body _nearest_hit_block :236-267 and :415-431, entry
 // nearest_hit_pallas(tile_bounds=...) :898): B4 with a cone cull of the
-// 128-sphere tiles. Both fold every prim with a strict < in stream order,
-// so a t tie goes to the prim streamed first; the plain versions are
-// kernels/nearest_hit.nearest_hit_listed_plain and culled_plain, whose
-// exit group is their `group` argument (32 here).
+// 128-sphere tiles. All three fold every prim with a strict < in stream
+// order, so a t tie goes to the prim streamed first (B4 and B8 stream in
+// pid order, so a tie goes to the lowest pid); the plain versions are
+// kernels/nearest_hit.nearest_hit_pallas_plain, nearest_hit_listed_plain
+// and culled_plain, the last two with their exit group as their `group`
+// argument (32 here).
 //
-// What bounds them: the sphere tests of the tiles streamed (config 4's
-// sweep round: some 2.4e10 of them, an IEEE sqrt each in the PR-5 design,
-// most of them misses). The tables (1.6 MB at 100k spheres), lists and
-// rays stay in the 50 MB L2; the bytes are a few percent of the time.
+// What bounds them: the tests of the tiles streamed (config 4's sweep
+// round: some 2.4e10 sphere tests, most of them misses; config 3's dense
+// search: 262,144 rays x 5120 triangles, an IEEE divide each). The tables
+// (1.6 MB at 100k spheres, 18 MB at 1.1M), lists and rays stay in the
+// 50 MB L2; the bytes are a few percent of the time.
+//
+// B4 and B8 are one body (search_all) with the sphere cursor as its
+// template parameter: AllCursor streams every tile (B4), ConeCursor the
+// tiles the warp's cone reaches (B8); boxes and triangles are dense in
+// both. A dense scan has no early exit, so the four warps of a B4 block
+// stream the same tiles; one ring shared by the block (one __syncthreads a
+// tile) was measured against the per-warp rings on the main paths' shapes
+// and was within 1% of them either way, so B4 takes the per-warp rings as
+// B8 does.
 //
 // Design. The exit group is one warp of 32 rays, not the block:
 //  - B6: each warp streams its block's list row chunk by chunk (kChunkT
@@ -361,29 +324,12 @@ nh_dense_kernel(Tables T, const float* __restrict__ org,
 // a thread (8 blocks, 32 warps an SM by its 65,536 registers) and B8 56
 // (8 bytes spilled; 9 blocks, 36 warps); one-warp blocks would stop at 32
 // warps (32 resident blocks an SM), no more for B6 and fewer for B8, and
-// lose the four warps' sharing of one list row in L1.
+// lose the four warps' sharing of one list row in L1. B4: 48 registers,
+// no spills (with triangles, 36 KB of rings limit it to 6 blocks an SM);
+// nh_merge_kernel 27.
 
 constexpr int kWarps = kBlock / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunkT = 16;       // list slots between early-exit checks
-
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -409,8 +355,11 @@ enum { K_SPH, K_TRI };
 template <int Kind>
 struct TileKind;
 
-// 128 spheres from the array-of-structs table [rows, 4]: 2048 bytes, four
-// 16-byte pieces a lane.
+// A warp fills its own ring: lane l copies every 32nd 16-byte piece of a
+// tile from piece l.
+
+// 128 spheres from the array-of-structs table [rows, 4]: 2048 bytes, 128
+// 16-byte pieces.
 template <>
 struct TileKind<K_SPH> {
   static constexpr int kFloats = 4 * kTile;
@@ -438,28 +387,28 @@ struct TileKind<K_SPH> {
   }
 };
 
-// 128 triangles from the structure-of-arrays table [9, stride] (stride and
-// k0 multiples of kTile): a 512-byte segment of each row, one 16-byte piece
-// a lane.
+// 128 triangles from the structure-of-arrays edge table [9, stride] (v0,
+// e1, e2; stride and k0 multiples of kTile): a 512-byte segment of each
+// row, 32 16-byte pieces a row.
 template <>
 struct TileKind<K_TRI> {
   static constexpr int kFloats = 9 * kTile;
   static __device__ __forceinline__ void fetch(float* dst, const float* tab,
                                                int stride, int k0) {
-    const int l = lane_id();
 #pragma unroll
-    for (int row = 0; row < 9; ++row)
-      cp_async16(dst + row * kTile + 4 * l,
-                 tab + (size_t)row * stride + k0 + 4 * l);
+    for (int p = lane_id(); p < 9 * (kTile / 4); p += 32) {
+      const int row = p / (kTile / 4), q = 4 * (p % (kTile / 4));
+      cp_async16(dst + row * kTile + q, tab + (size_t)row * stride + k0 + q);
+    }
   }
   static __device__ __forceinline__ void test(const float* t, int pid0,
                                               const Ray& r, float& t_best,
                                               int& pid) {
 #pragma unroll 2
     for (int j = 0; j < kTile; ++j)
-      fold(tri_t(r, t[j], t[kTile + j], t[2 * kTile + j], t[3 * kTile + j],
-                 t[4 * kTile + j], t[5 * kTile + j], t[6 * kTile + j],
-                 t[7 * kTile + j], t[8 * kTile + j]),
+      fold(tri_t<true>(r, t[j], t[kTile + j], t[2 * kTile + j],
+                       t[3 * kTile + j], t[4 * kTile + j], t[5 * kTile + j],
+                       t[6 * kTile + j], t[7 * kTile + j], t[8 * kTile + j]),
            pid0 + j, t_best, pid);
   }
 };
@@ -476,20 +425,20 @@ __device__ __forceinline__ int stream_tiles(float* ring, const float* tab,
                                             int stride, int pid0, Cursor& cur,
                                             const Ray& r, float& t_best,
                                             int& pid) {
-  constexpr int kF = TileKind<Kind>::kFloats;
+  using TK = TileKind<Kind>;
+  constexpr int kF = TK::kFloats;
   int k = cur.first(t_best);
   if (k < 0) return 0;
-  TileKind<Kind>::fetch(ring, tab, stride, k);
+  TK::fetch(ring, tab, stride, k);
   cp_async_commit();
   int s = 0, tested = 0;
   for (;;) {
     const int next = cur.ahead();
-    if (next >= 0) TileKind<Kind>::fetch(ring + (s ^ 1) * kF, tab, stride,
-                                         next);
+    if (next >= 0) TK::fetch(ring + (s ^ 1) * kF, tab, stride, next);
     cp_async_commit();
     cp_async_wait<1>();       // this lane's copies of tile k have landed
     __syncwarp();             // ... and every lane's
-    TileKind<Kind>::test(ring + s * kF, pid0 + k, r, t_best, pid);
+    TK::test(ring + s * kF, pid0 + k, r, t_best, pid);
     ++tested;
     __syncwarp();             // stage s is read before it is refilled
     if (!cur.advance(t_best)) break;
@@ -501,15 +450,15 @@ __device__ __forceinline__ int stream_tiles(float* ring, const float* tab,
   return tested;
 }
 
-// Every tile of a class padded to whole tiles, in order.
+// Tiles [k0, k1) of a class padded to whole tiles, in order.
 struct AllCursor {
-  int n_t, k;
+  int k0, k1, k;
   __device__ int first(float) {
-    k = 0;
-    return n_t > 0 ? 0 : -1;
+    k = k0;
+    return k0 < k1 ? k0 * kTile : -1;
   }
-  __device__ int ahead() const { return k + 1 < n_t ? (k + 1) * kTile : -1; }
-  __device__ bool advance(float) { return ++k < n_t; }
+  __device__ int ahead() const { return k + 1 < k1 ? (k + 1) * kTile : -1; }
+  __device__ bool advance(float) { return ++k < k1; }
 };
 
 struct List {
@@ -636,9 +585,9 @@ __device__ __forceinline__ int tiles_of(int count) {
   return (count + kTile - 1) / kTile;
 }
 
-// Tables of B6 and B8: T.sph is the array-of-structs sphere table [S', 4]
-// and T.tri the [9, T'] triangle table, both padded to whole (super)tiles
-// (S', T' their strides); boxes as in B4.
+// Tables of B4, B6 and B8: T.sph is the array-of-structs sphere table
+// [S', 4] and T.tri the [9, T'] triangle edge table, both padded to whole
+// (super)tiles (S', T' their strides); boxes as in B3.
 __global__ void __launch_bounds__(kBlock)
 nh_listed_kernel(Tables T, const float* __restrict__ org,
                  const float* __restrict__ dir, long long n,
@@ -683,7 +632,7 @@ nh_listed_kernel(Tables T, const float* __restrict__ org,
     stream_tiles<K_SPH>(ring, T.sph, T.s_stride, 0, c, r, t_best, pid);
     slots_s = c.j;
   } else {
-    AllCursor c{tiles_of(T.n_sph), 0};
+    AllCursor c{0, tiles_of(T.n_sph), 0};
     stream_tiles<K_SPH>(ring, T.sph, T.s_stride, 0, c, r, t_best, pid);
   }
   box_scan(ring, T, r, t_best, pid);
@@ -695,7 +644,7 @@ nh_listed_kernel(Tables T, const float* __restrict__ org,
     stream_tiles<K_TRI>(ring, T.tri, T.t_stride, tri0, c, r, t_best, pid);
     slots_t = c.j;
   } else {
-    AllCursor c{tiles_of(T.n_tri), 0};
+    AllCursor c{0, tiles_of(T.n_tri), 0};
     stream_tiles<K_TRI>(ring, T.tri, T.t_stride, tri0, c, r, t_best, pid);
   }
   if (wk != nullptr && lane_id() == 0) {
@@ -708,31 +657,28 @@ nh_listed_kernel(Tables T, const float* __restrict__ org,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-nh_culled_kernel(Tables T, const float* __restrict__ org,
-                 const float* __restrict__ dir, long long n,
-                 const int* __restrict__ n_live,
-                 const float* __restrict__ tb, int warp_floats,
-                 float* __restrict__ t_out, int* __restrict__ pid_out,
-                 int* __restrict__ work) {
-  extern __shared__ float4 smem4[];
-  const int warp = threadIdx.x >> 5;
-  float* ring = reinterpret_cast<float*>(smem4) + warp * warp_floats;
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const long long live = min(n, (long long)__ldg(n_live));
-  int* wk = work == nullptr ? nullptr : work + blockIdx.x * kWarps + warp;
-  if (i - lane_id() >= live) {      // no live ray in this warp
-    if (i < n) {
-      t_out[i] = kInf;
-      pid_out[i] = -1;
-    }
-    if (wk != nullptr && lane_id() == 0) *wk = 0;
-    return;
-  }
-  const bool active = i < live;
-  const Ray r = load_ray(org, dir, active ? i : 0);
+// Split y of a dense scan's gridDim.y splits: its share [k0, k1) of a
+// class's n_t tiles (all of them with one split).
+__device__ __forceinline__ AllCursor split_range(int n_t) {
+  return AllCursor{(int)((long long)n_t * blockIdx.y / gridDim.y),
+                   (int)((long long)n_t * (blockIdx.y + 1) / gridDim.y), 0};
+}
 
-  // the warp's ball-cone over its live rays
+// The sphere cursor of each search: B4 streams every tile; B8 the tiles the
+// warp's ball-cone over its live rays reaches (tb: one row (cx, cy, cz, r)
+// per 128-sphere tile).
+__device__ __forceinline__ AllCursor sphere_cursor(AllCursor*,
+                                                   const Tables& T,
+                                                   const float*, const Ray&,
+                                                   bool) {
+  return split_range(tiles_of(T.n_sph));
+}
+
+__device__ __forceinline__ ConeCursor sphere_cursor(ConeCursor*,
+                                                    const Tables& T,
+                                                    const float* tb,
+                                                    const Ray& r,
+                                                    bool active) {
   const float r_inv = 1.0f / fmaxf(warp_sum(active ? 1.0f : 0.0f), 1.0f);
   ConeCursor c;
   c.tb = tb;
@@ -755,13 +701,47 @@ nh_culled_kernel(Tables T, const float* __restrict__ org,
       active ? (r.dx * c.axm + r.dy * c.aym + r.dz * c.azm) * d_inv : 1.0f);
   c.use_cone = c.cos_t >= 0.25f;
   c.sin_t = sqrtf(fmaxf(1.0f - c.cos_t * c.cos_t, 0.0f));
+  return c;
+}
 
+// The body of B4 and B8: spheres through the cursor, boxes, then every
+// triangle tile. `ring` holds warp_floats floats a warp, and a warp with
+// no live ray exits at once. B4 may split its scan over gridDim.y
+// (split_range; the boxes go to split 0): split y writes its (t, pid) to
+// row y of t_out / pid_out [splits, n]. `work` (B8; may be null) receives
+// the sphere tiles each warp streamed, [blocks, 4].
+template <class Cursor>
+__device__ __forceinline__ void search_all(
+    const Tables& T, const float* __restrict__ org,
+    const float* __restrict__ dir, long long n,
+    const int* __restrict__ n_live, const float* __restrict__ tb,
+    int warp_floats, float* __restrict__ t_out, int* __restrict__ pid_out,
+    int* __restrict__ work) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  float* ring = reinterpret_cast<float*>(smem4) + warp * warp_floats;
+  t_out += (size_t)blockIdx.y * n;
+  pid_out += (size_t)blockIdx.y * n;
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long live = min(n, (long long)__ldg(n_live));
+  int* wk = work == nullptr ? nullptr : work + blockIdx.x * kWarps + warp;
+  if (i - lane_id() >= live) {      // no live ray in this warp
+    if (i < n) {
+      t_out[i] = kInf;
+      pid_out[i] = -1;
+    }
+    if (wk != nullptr && lane_id() == 0) *wk = 0;
+    return;
+  }
+  const bool active = i < live;
+  const Ray r = load_ray(org, dir, active ? i : 0);
   float t_best = kInf;
   int pid = -1;
+  Cursor c = sphere_cursor(static_cast<Cursor*>(nullptr), T, tb, r, active);
   const int streamed =
       stream_tiles<K_SPH>(ring, T.sph, T.s_stride, 0, c, r, t_best, pid);
-  box_scan(ring, T, r, t_best, pid);
-  AllCursor all{tiles_of(T.n_tri), 0};
+  if (blockIdx.y == 0) box_scan(ring, T, r, t_best, pid);
+  AllCursor all = split_range(tiles_of(T.n_tri));
   stream_tiles<K_TRI>(ring, T.tri, T.t_stride, T.n_sph + T.n_box, all, r,
                       t_best, pid);
   if (wk != nullptr && lane_id() == 0) *wk = streamed;
@@ -769,6 +749,51 @@ nh_culled_kernel(Tables T, const float* __restrict__ org,
     t_out[i] = active ? t_best : kInf;
     pid_out[i] = active && t_best < kInf ? pid : -1;
   }
+}
+
+__global__ void __launch_bounds__(kBlock)
+nh_dense_kernel(Tables T, const float* __restrict__ org,
+                const float* __restrict__ dir, long long n,
+                const int* __restrict__ n_live, int warp_floats,
+                float* __restrict__ t_out, int* __restrict__ pid_out) {
+  search_all<AllCursor>(T, org, dir, n, n_live, nullptr, warp_floats, t_out,
+                        pid_out, nullptr);
+}
+
+// B4's merge of its splits' (t, pid) [splits, n]: the least t, a tie to
+// the lowest pid. Each split folded its prims in pid order with a strict <,
+// so its result is its first prim at its least t; the lexicographic
+// minimum over the splits is the first prim at the least t over all of
+// them: the unsplit scan's t and pid, bit for bit.
+__global__ void nh_merge_kernel(const float* __restrict__ t_part,
+                                const int* __restrict__ pid_part, int splits,
+                                long long n, float* __restrict__ t_out,
+                                int* __restrict__ pid_out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = kInf;
+  int pid = -1;
+  for (int s = 0; s < splits; ++s) {
+    const float ts = t_part[(size_t)s * n + i];
+    const int ps = pid_part[(size_t)s * n + i];
+    if (ps >= 0 && (pid < 0 || ts < t || (ts == t && ps < pid))) {
+      t = ts;
+      pid = ps;
+    }
+  }
+  t_out[i] = t;
+  pid_out[i] = pid;
+}
+
+__global__ void __launch_bounds__(kBlock)
+nh_culled_kernel(Tables T, const float* __restrict__ org,
+                 const float* __restrict__ dir, long long n,
+                 const int* __restrict__ n_live,
+                 const float* __restrict__ tb, int warp_floats,
+                 float* __restrict__ t_out, int* __restrict__ pid_out,
+                 int* __restrict__ work) {
+  search_all<ConeCursor>(T, org, dir, n, n_live, tb, warp_floats, t_out,
+                         pid_out, work);
 }
 
 // Floats of one warp's staging area: a ring of two tiles of the widest
@@ -822,21 +847,38 @@ extern "C" int rt_nearest_hit_scalar(const float* sph, int n_sph,
   return (int)cudaGetLastError();
 }
 
+// B4. Tables as for B6 and B8 (padded to whole tiles, 16-byte aligned).
+// splits > 1 divides each class's tiles among that many blocks per 128
+// rays (t_part / pid_part [splits, n] receive their results, which
+// nh_merge_kernel folds into t_out / pid_out); else t_part and pid_part
+// are unused.
 extern "C" int rt_nearest_hit_dense(const float* sph, int n_sph, int s_stride,
                                     const float* box, int n_box, int b_stride,
                                     const float* tri, int n_tri, int t_stride,
                                     const float* org, const float* dir,
                                     long long n, const int* n_live,
+                                    int splits, float* t_part, int* pid_part,
                                     float* t_out, int* pid_out, int device,
                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
+  if (splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
   const Tables T = make_tables(sph, n_sph, s_stride, box, n_box, b_stride,
                                tri, n_tri, t_stride);
-  const long long grid = (n + kBlock - 1) / kBlock;
-  nh_dense_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
-      T, org, dir, n, n_live, t_out, pid_out);
+  const int wf = warp_floats_for(n_tri);
+  const dim3 grid((unsigned)((n + kBlock - 1) / kBlock), (unsigned)splits);
+  float* td = splits > 1 ? t_part : t_out;
+  int* pd = splits > 1 ? pid_part : pid_out;
+  cudaStream_t st = (cudaStream_t)stream;
+  nh_dense_kernel<<<grid, kBlock, (size_t)kWarps * wf * sizeof(float), st>>>(
+      T, org, dir, n, n_live, wf, td, pd);
+  if (splits > 1) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    nh_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        t_part, pid_part, splits, n, t_out, pid_out);
+  }
   return (int)cudaGetLastError();
 }
 

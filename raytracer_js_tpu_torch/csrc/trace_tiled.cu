@@ -23,30 +23,53 @@
 //       box and triangle segments at fixed rows (static bases).
 // Their plain PyTorch twin is kernels/trace_tiled.bounce_tile_plain
 // (entries frame_bounce0_plain and wave_bounce_plain), which runs the same
-// expressions in the same order.
+// expressions in the same order, with the exit group as its `group`
+// argument (32 rays here).
 //
-// What bounds it on this card: per-ray ALU work over the scanned candidates
-// (an IEEE sqrt per sphere candidate, a slab test per box, a Moeller-Trumbore
-// test with an IEEE divide per triangle). A tile's table is c_max x 80 bytes
-// (hundreds of KB at 100k prims), far past shared memory, but a tile stops
-// after the few chunks its rays need; device-memory traffic is the scanned
-// rows plus 15 (or 18) output planes of 4 bytes a ray. The wavefront entry
-// adds 11 input planes a ray; its packets of divergent rays scan more of
-// their tables than camera tiles do, so it is ALU-bound too.
+// What bounds them on this card: per-ray ALU work over the scanned
+// candidates (an IEEE sqrt per sphere candidate, a slab test per box, a
+// Moeller-Trumbore test with an IEEE divide per triangle). A table is
+// c_max x 80 bytes (hundreds of KB at 100k prims), far past shared memory,
+// but an exit group stops after the few chunks its rays need; device-memory
+// traffic is the scanned rows plus 15 (or 18) output planes of 4 bytes a
+// ray, and, for the wavefront, 11 input planes.
 //
-// What this first design does about it: one thread per ray, ray state in
-// registers. A 4096-ray tile is served by 16 blocks of 2 rows x 128 rays,
-// each of which streams CHUNK-row slices (16 x 80 bytes) of the tile's table
-// through shared memory and takes the early exit on its own 256 rays with
-// __syncthreads_and: the exit test is conservative, so a smaller group only
-// stops where the rest of the scan could not change its rays (the plain
-// version exits per the same groups). The winner's attributes are a direct
-// read of its table row (the reference's chunked "pick by index match"
-// becomes one load). No wgmma, no TMA, no prefetch of the next chunk yet.
-// The wavefront entry runs the same blocks over packets: a packet of
-// wave_sub rows is served by wave_sub / 2 blocks of 256 rays, or by
-// wave_sub blocks of 128 rays when wave_sub is odd (the reference's
-// one-row straggler packets), so an exit group never spans two packets.
+// Design (both entries share bounce_tile and its scan):
+//  - The exit group is one warp of 32 rays: a warp stops a segment once
+//    every live lane's min(t_best, scene-bbox exit) + d_c is at or below
+//    the next chunk's t_lo (__all_sync). That t_lo arrives with the chunk
+//    (one more 4-byte copy into the stage) and is read as a shared-memory
+//    broadcast: a read of it from the table would wait on L2 once a chunk
+//    of 16 tests. The test is conservative (each segment is
+//    sorted by t_lo, a lower bound of any hit's distance from the table's
+//    apex, and every fold is a strict < in row order), so a warp stops only
+//    where the rest of the segment holds no strictly nearer hit for its
+//    live rays: their t and winner are those of any coarser group, such as
+//    the first design's 256-ray blocks. Rays that are not alive fold
+//    nothing (t = +inf, no winner), so no plane depends on the group.
+//  - Each warp stages its chunks into its own two-stage ring of shared
+//    memory with cp.async, copying chunk k+1 while it tests chunk k (and
+//    only while some live lane's horizon still exceeds its t_lo: horizons
+//    only shrink, so a chunk refused then is never scanned);
+//    synchronization is cp.async.wait_group and __syncwarp only, no
+//    __syncthreads. Only the columns the segment's test reads are staged:
+//    spheres cols 2-5 as one 16-byte entry (a broadcast float4 load),
+//    boxes cols 2-7, triangles cols 2-10. The rows are 80 bytes apart and
+//    col 2 sits 8 bytes into a 16-byte unit, so the copies are 8-byte
+//    pieces (and one 4-byte piece a triangle). The winner's attributes
+//    stay one direct read of its row after the scan.
+//  - The sphere test skips its IEEE sqrt and tail when no live lane of the
+//    warp has disc >= 0 (__any_sync): such a lane never folds, so the
+//    result is bit-identical. It takes four discriminants before their
+//    votes and roots: the profiler's kernel times on config 4's packet
+//    rounds showed a warp waiting on each test's chain in turn (a launch
+//    of 800 scanning warps took over half the time of one of 4,096).
+//  - Blocks are one row of 128 rays (four independent warps): the frame's
+//    32x128 tile is 32 blocks, a packet of wave_sub rows wave_sub blocks,
+//    so a warp never spans two tables. `work` receives the chunks each
+//    warp scanned per class. ptxas (sm_90a): the wave kernel 64 registers
+//    (capped, below), the frame kernel 70, no spills; 5.1 KB of rings a
+//    block.
 //
 // Precision: built with --fmad=false and without fast math, so every
 // expression rounds operation for operation like the plain version; sqrtf,
@@ -72,6 +95,8 @@
 
 namespace {
 
+#include "stream.cuh"
+
 constexpr float kInf = std::numeric_limits<float>::infinity();
 constexpr float kSlabEps = 1e-12f;
 constexpr float kMtEps = 1e-9f;
@@ -89,9 +114,8 @@ constexpr int kLane = 128;
 constexpr int kTileSub = 32;
 constexpr int kChunk = 16;
 constexpr int kAttr = 20;
-constexpr int kGroupSub = 2;                        // rows per block
-constexpr int kBlock = kGroupSub * kLane;           // 256 threads
-constexpr int kGroups = kTileSub / kGroupSub;       // blocks per tile
+constexpr int kBlock = kLane;                       // one row of rays
+constexpr int kWarps = kBlock / 32;
 
 enum { ALIVE = 0, LIGHT = 1, KEEP = 2, MISS = 3 };
 enum { SEG_SPH = 0, SEG_BOX = 1, SEG_TRI = 2 };
@@ -110,97 +134,196 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / ds;
 }
 
-// Chunked early-exit scan of candidate rows [base, base + cnt) of one
-// tile's table (base a kChunk multiple). Every thread of the block calls it.
+// A staged chunk: kChunk entries of the columns a segment's test reads,
+// kEntry floats apart, copied as kPieces pieces a row (8 bytes each from
+// col 2 on; a triangle's col 10 is a 4-byte piece).
 template <int Seg>
-__device__ void scan_segment(const float* __restrict__ tab, int c_max,
-                             int base, int cnt, bool any_alive, bool alive,
-                             const Ray& r, float ix, float iy, float iz,
-                             float o_dot_o, float o_dot_d, float t_exit_bb,
-                             float d_c, float& t_best, int& jwin,
-                             float (*chunk)[kAttr], int& chunks) {
-  const int end = base + cnt;
-  bool open = cnt > 0 && any_alive;
-  for (int ci = 0; open; ++ci) {
-    const int j0 = base + ci * kChunk;
-    __syncthreads();
-    for (int e = threadIdx.x; e < kChunk * kAttr; e += blockDim.x)
-      (&chunk[0][0])[e] = __ldg(tab + (size_t)j0 * kAttr + e);
-    __syncthreads();
-    for (int k = 0; k < kChunk; ++k) {
-      const float* c = chunk[k];
-      float t;
-      bool valid;
-      if (Seg == SEG_SPH) {
-        const float cx = c[2], cy = c[3], cz = c[4], ccmr = c[5];
-        const float b_half = o_dot_d - (r.dx * cx + r.dy * cy + r.dz * cz);
+struct Staged;
+template <>
+struct Staged<SEG_SPH> {    // cx cy cz ccmr: one float4
+  static constexpr int kEntry = 4, kPieces = 2;
+};
+template <>
+struct Staged<SEG_BOX> {    // cx cy cz hx hy hz
+  static constexpr int kEntry = 6, kPieces = 3;
+};
+template <>
+struct Staged<SEG_TRI> {    // v0, e1, e2 and a pad
+  static constexpr int kEntry = 10, kPieces = 5;
+};
+// A stage: the widest chunk's entries, then the next chunk's first t_lo
+// (slot kTlo), padded to 16 bytes.
+constexpr int kTlo = kChunk * Staged<SEG_TRI>::kEntry;
+constexpr int kStage = kTlo + 4;                  // floats a stage
+
+// Copy rows [j0, j0 + kChunk) of a table into a stage (one warp), and the
+// t_lo of row j0 + kChunk when it lies before `end`.
+template <int Seg>
+__device__ __forceinline__ void fetch_chunk(float* dst,
+                                            const float* __restrict__ tab,
+                                            int j0, int end) {
+  constexpr int kE = Staged<Seg>::kEntry, kP = Staged<Seg>::kPieces;
+  for (int p = lane_id(); p < kChunk * kP; p += 32) {
+    const int row = p / kP, part = p % kP;
+    const float* src = tab + (size_t)(j0 + row) * kAttr + 2 + 2 * part;
+    float* d = dst + row * kE + 2 * part;
+    if (Seg == SEG_TRI && part == 4)
+      cp_async4(d, src);
+    else
+      cp_async8(d, src);
+  }
+  if (lane_id() == 0 && j0 + kChunk < end)
+    cp_async4(dst + kTlo, tab + (size_t)(j0 + kChunk) * kAttr);
+}
+
+// The ray terms a scan reads.
+struct ScanRay {
+  Ray r;
+  float ix, iy, iz, o_dot_o, o_dot_d;
+  bool alive;
+};
+
+// Test the m (<= kChunk) staged rows of rows [j0, j0 + m) and fold each
+// valid hit of a live ray with a strict < in row order.
+template <int Seg>
+__device__ __forceinline__ void test_chunk(const float* st, int j0, int m,
+                                           const ScanRay& s, float& t_best,
+                                           int& jwin) {
+  const Ray& r = s.r;
+  if constexpr (Seg == SEG_SPH) {
+    // Four discriminants in straight-line code before their votes and
+    // roots, so that a warp overlaps four independent chains; the folds
+    // keep their row order. Rows [m, kChunk) are staged but never fold.
+    constexpr int kQuad = 4;
+    const float4* sp = reinterpret_cast<const float4*>(st);
+    for (int k0 = 0; k0 < m; k0 += kQuad) {
+      float b_half[kQuad], disc[kQuad];
+      bool any[kQuad];
+#pragma unroll
+      for (int q = 0; q < kQuad; ++q) {
+        const float4 c = sp[k0 + q];
+        b_half[q] = s.o_dot_d - (r.dx * c.x + r.dy * c.y + r.dz * c.z);
         const float cc =
-            o_dot_o - 2.0f * (r.ox * cx + r.oy * cy + r.oz * cz) + ccmr;
-        const float disc = b_half * b_half - cc;
-        const float sq = sqrtf(fmaxf(disc, 0.0f));
-        t = -b_half - sq >= 0.0f ? -b_half - sq : sq - b_half;
-        valid = disc >= 0.0f && t >= 0.0f;
-      } else if (Seg == SEG_BOX) {
-        const float cx = c[2], cy = c[3], cz = c[4];
-        const float hx = c[5], hy = c[6], hz = c[7];
-        const float tax = (cx - hx - r.ox) * ix;
-        const float tbx = (cx + hx - r.ox) * ix;
-        const float tay = (cy - hy - r.oy) * iy;
-        const float tby = (cy + hy - r.oy) * iy;
-        const float taz = (cz - hz - r.oz) * iz;
-        const float tbz = (cz + hz - r.oz) * iz;
-        const float t_en = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)),
-                                 fminf(taz, tbz));
-        const float t_ex = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)),
-                                 fmaxf(taz, tbz));
-        t = t_en >= 0.0f ? t_en : t_ex;
-        valid = t_en <= t_ex && t >= 0.0f;
-      } else {
-        const float v0x = c[2], v0y = c[3], v0z = c[4];
-        const float e1x = c[5], e1y = c[6], e1z = c[7];
-        const float e2x = c[8], e2y = c[9], e2z = c[10];
-        const float px = r.dy * e2z - r.dz * e2y;
-        const float py = r.dz * e2x - r.dx * e2z;
-        const float pz = r.dx * e2y - r.dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv_det = 1.0f / (fabsf(det) < kMtEps ? kMtEps : det);
-        const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-        const float u = (sx * px + sy * py + sz * pz) * inv_det;
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        valid = fabsf(det) >= kMtEps && u >= 0.0f && v >= 0.0f &&
-                u + v <= 1.0f && t >= 0.0f;
+            s.o_dot_o - 2.0f * (r.ox * c.x + r.oy * c.y + r.oz * c.z) + c.w;
+        disc[q] = b_half[q] * b_half[q] - cc;
+        any[q] = __any_sync(kFull, s.alive && k0 + q < m && disc[q] >= 0.0f);
       }
-      const int j = j0 + k;
-      if (t < t_best && valid && j < end) {
+#pragma unroll
+      for (int q = 0; q < kQuad; ++q) {
+        if (!any[q]) continue;
+        const float sq = sqrtf(fmaxf(disc[q], 0.0f));
+        const float t = -b_half[q] - sq >= 0.0f ? -b_half[q] - sq
+                                                : sq - b_half[q];
+        if (s.alive && disc[q] >= 0.0f && t >= 0.0f && t < t_best) {
+          t_best = t;
+          jwin = j0 + k0 + q;
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll 2
+  for (int k = 0; k < m; ++k) {
+    const int j = j0 + k;
+    if constexpr (Seg == SEG_BOX) {
+      const float2* e = reinterpret_cast<const float2*>(st + 6 * k);
+      const float2 a = e[0], b = e[1], c = e[2];
+      const float cx = a.x, cy = a.y, cz = b.x;
+      const float hx = b.y, hy = c.x, hz = c.y;
+      const float tax = (cx - hx - r.ox) * s.ix;
+      const float tbx = (cx + hx - r.ox) * s.ix;
+      const float tay = (cy - hy - r.oy) * s.iy;
+      const float tby = (cy + hy - r.oy) * s.iy;
+      const float taz = (cz - hz - r.oz) * s.iz;
+      const float tbz = (cz + hz - r.oz) * s.iz;
+      const float t_en = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)),
+                               fminf(taz, tbz));
+      const float t_ex = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)),
+                               fmaxf(taz, tbz));
+      const float t = t_en >= 0.0f ? t_en : t_ex;
+      if (s.alive && t_en <= t_ex && t >= 0.0f && t < t_best) {
+        t_best = t;
+        jwin = j;
+      }
+    } else {
+      const float2* e = reinterpret_cast<const float2*>(st + 10 * k);
+      const float2 a = e[0], b = e[1], c = e[2], d = e[3];
+      const float v0x = a.x, v0y = a.y, v0z = b.x;
+      const float e1x = b.y, e1y = c.x, e1z = c.y;
+      const float e2x = d.x, e2y = d.y, e2z = st[10 * k + 8];
+      const float px = r.dy * e2z - r.dz * e2y;
+      const float py = r.dz * e2x - r.dx * e2z;
+      const float pz = r.dx * e2y - r.dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const float inv_det = 1.0f / (fabsf(det) < kMtEps ? kMtEps : det);
+      const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
+      const float u = (sx * px + sy * py + sz * pz) * inv_det;
+      const float qx = sy * e1z - sz * e1y;
+      const float qy = sz * e1x - sx * e1z;
+      const float qz = sx * e1y - sy * e1x;
+      const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      if (s.alive && fabsf(det) >= kMtEps && u >= 0.0f && v >= 0.0f &&
+          u + v <= 1.0f && t >= 0.0f && t < t_best) {
         t_best = t;
         jwin = j;
       }
     }
-    ++chunks;
-    const int nxt = base + (ci + 1) * kChunk;
-    const float next_tlo = __ldg(tab + (size_t)min(nxt, c_max - 1) * kAttr);
-    const bool mine = !alive || (fminf(t_best, t_exit_bb) + d_c <= next_tlo);
-    const bool done = __syncthreads_and(mine);
-    open = !done && nxt < end;
   }
 }
 
+// One warp's chunked early-exit scan of candidate rows [base, base + cnt)
+// of its table (base a kChunk multiple) through its two-stage ring. Every
+// lane of the warp calls it (every branch below is warp-uniform). Returns
+// the chunks scanned.
+template <int Seg>
+__device__ int scan_segment(const float* __restrict__ tab, int base, int cnt,
+                            bool any_alive, const ScanRay& s,
+                            float t_exit_bb, float d_c, float* ring,
+                            float& t_best, int& jwin) {
+  if (cnt <= 0 || !any_alive) return 0;
+  const int end = base + cnt;
+  fetch_chunk<Seg>(ring, tab, base, end);
+  cp_async_commit();
+  int chunks = 0, st = 0;
+  for (int j0 = base;; j0 += kChunk) {
+    const int nxt = j0 + kChunk;
+    const bool more = nxt < end;
+    cp_async_wait<0>();       // this lane's copies of chunk j0 have landed
+    __syncwarp();             // ... and every lane's
+    const float* stage = ring + st * kStage;
+    const float next_tlo = more ? stage[kTlo] : 0.0f;
+    // copy the next chunk ahead unless every live lane's horizon is already
+    // at or below its t_lo (horizons only shrink: such a chunk is never
+    // scanned)
+    if (more && !__all_sync(kFull, !s.alive || fminf(t_best, t_exit_bb) +
+                                                      d_c <= next_tlo))
+      fetch_chunk<Seg>(ring + (st ^ 1) * kStage, tab, nxt, end);
+    cp_async_commit();
+    test_chunk<Seg>(stage, j0, min(kChunk, end - j0), s, t_best, jwin);
+    ++chunks;
+    __syncwarp();             // stage st is read before it is refilled
+    if (!more || __all_sync(kFull, !s.alive || fminf(t_best, t_exit_bb) +
+                                                       d_c <= next_tlo))
+      break;
+    st ^= 1;
+  }
+  cp_async_wait<0>();         // drain a copy the scan did not use
+  __syncwarp();
+  return chunks;
+}
+
 // One traverse -> intersect -> shade -> respawn pass for this thread's ray
-// against its tile's table (the reference's _bounce_tile). Writes the
-// outputs of pixel `pix` and, if `work`, the block's chunk counts. The box
-// and triangle segments start at rows sb_b and sb_t, or (-1) after the
-// padded counts.
-__device__ void bounce_tile(const float* __restrict__ tab, int c_max,
+// against its warp's table (the reference's _bounce_tile). Writes the
+// outputs of pixel `pix` and, if `work`, the warp's chunk counts per class
+// (work[0..2]). The box and triangle segments start at rows sb_b and sb_t,
+// or (-1) after the padded counts. `ring` is the warp's staging ring.
+__device__ void bounce_tile(const float* __restrict__ tab,
                             const float* __restrict__ cnt_row,
                             const float* __restrict__ cam, Flags f, Ray r,
                             int sb_b, int sb_t, float* __restrict__ out,
-                            size_t plane, size_t pix,
+                            size_t plane, size_t pix, float* ring,
                             int* __restrict__ work) {
-  __shared__ float chunk[kChunk][kAttr];
   const int cnt_s = (int)__ldg(cnt_row + 0);
   const int cnt_b = (int)__ldg(cnt_row + 1);
   const int cnt_t = (int)__ldg(cnt_row + 2);
@@ -209,10 +332,16 @@ __device__ void bounce_tile(const float* __restrict__ tab, int c_max,
               o0z = __ldg(cnt_row + 6);
 
   const bool alive = r.status == ALIVE;
-  const bool any_alive = __syncthreads_or(alive);
-  const float o_dot_d = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-  const float o_dot_o = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  const bool any_alive = __any_sync(kFull, alive);
+  ScanRay s;
+  s.r = r;
+  s.alive = alive;
+  s.o_dot_d = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+  s.o_dot_o = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+  s.ix = ix;
+  s.iy = iy;
+  s.iz = iz;
   const float dcx = r.ox - o0x, dcy = r.oy - o0y, dcz = r.oz - o0z;
   const float d_c = sqrtf(dcx * dcx + dcy * dcy + dcz * dcz);
   const float ex_x = fmaxf((__ldg(cam + 21) - r.ox) * ix,
@@ -229,21 +358,19 @@ __device__ void bounce_tile(const float* __restrict__ tab, int c_max,
       sb_t >= 0 ? sb_t : base_b + (cnt_b + kChunk - 1) / kChunk * kChunk;
   float t_best = kInf;
   int jwin = -1;
-  int chunks[3] = {0, 0, 0};
-  scan_segment<SEG_SPH>(tab, c_max, 0, cnt_s, any_alive, alive, r, ix, iy,
-                        iz, o_dot_o, o_dot_d, t_exit_bb, d_c, t_best, jwin,
-                        chunk, chunks[0]);
-  scan_segment<SEG_BOX>(tab, c_max, base_b, cnt_b, any_alive, alive, r, ix,
-                        iy, iz, o_dot_o, o_dot_d, t_exit_bb, d_c, t_best,
-                        jwin, chunk, chunks[1]);
-  scan_segment<SEG_TRI>(tab, c_max, base_t, cnt_t, any_alive, alive, r, ix,
-                        iy, iz, o_dot_o, o_dot_d, t_exit_bb, d_c, t_best,
-                        jwin, chunk, chunks[2]);
-  if (work != nullptr && threadIdx.x == 0) {
-    for (int s = 0; s < 3; ++s) work[3 * blockIdx.x + s] = chunks[s];
+  const int ch_s = scan_segment<SEG_SPH>(tab, 0, cnt_s, any_alive, s,
+                                         t_exit_bb, d_c, ring, t_best, jwin);
+  const int ch_b = scan_segment<SEG_BOX>(tab, base_b, cnt_b, any_alive, s,
+                                         t_exit_bb, d_c, ring, t_best, jwin);
+  const int ch_t = scan_segment<SEG_TRI>(tab, base_t, cnt_t, any_alive, s,
+                                         t_exit_bb, d_c, ring, t_best, jwin);
+  if (work != nullptr && lane_id() == 0) {
+    work[0] = ch_s;
+    work[1] = ch_b;
+    work[2] = ch_t;
   }
 
-  // ---- winner attributes: row jwin of the tile's table --------------------
+// ---- winner attributes: row jwin of the warp's table --------------------
   const bool win = jwin >= 0;
   const bool is_sph = win && jwin < base_b;
   const bool is_box = jwin >= base_b && jwin < base_t;
@@ -400,18 +527,19 @@ __device__ void bounce_tile(const float* __restrict__ tab, int c_max,
   }
 }
 
+// Bounce 0 over the frame: block b serves row b % 32 of tile b / 32.
 __global__ void __launch_bounds__(kBlock)
 tiled_frame_kernel(const float* __restrict__ tab, int c_max,
                    const float* __restrict__ cnts,
                    const float* __restrict__ cam, int nbx, int w_pad,
                    size_t plane, Flags f, float* __restrict__ out,
                    int* __restrict__ work) {
-  const int tile = blockIdx.x / kGroups;
-  const int gi = blockIdx.x % kGroups;
+  __shared__ __align__(16) float rings[kWarps][2 * kStage];
+  const int tile = blockIdx.x / kTileSub;
+  const int sub = blockIdx.x % kTileSub;
   const int by = tile / nbx, bx = tile % nbx;
-  const int sub = gi * kGroupSub + (int)threadIdx.x / kLane;
-  const int lane = (int)threadIdx.x % kLane;
-  const int px = bx * kLane + lane, py = by * kTileSub + sub;
+  const int warp = (int)threadIdx.x >> 5;
+  const int px = bx * kLane + (int)threadIdx.x, py = by * kTileSub + sub;
   const float x = (float)px, y = (float)py;
   // the closed form of models/camera.pixel_rays (as trace_fused.cu builds)
   const float th_h = (x - __ldg(cam + 14)) * __ldg(cam + 12);
@@ -430,22 +558,30 @@ tiled_frame_kernel(const float* __restrict__ tab, int c_max,
   r.path = 0.0f;
   // padding pixels of partial edge tiles start as MISS
   r.status = (x >= __ldg(cam + 19) || y >= __ldg(cam + 20)) ? MISS : ALIVE;
-  bounce_tile(tab + (size_t)tile * c_max * kAttr, c_max, cnts + 8 * tile,
-              cam, f, r, -1, -1, out, plane, (size_t)py * w_pad + px, work);
+  bounce_tile(tab + (size_t)tile * c_max * kAttr, cnts + 8 * tile, cam, f, r,
+              -1, -1, out, plane, (size_t)py * w_pad + px, rings[warp],
+              work == nullptr ? nullptr
+                              : work + 3 * ((size_t)blockIdx.x * kWarps +
+                                            warp));
 }
 
-// One bounce of a packetized wavefront: block b serves rays
-// [b * blockDim.x, (b + 1) * blockDim.x) of the [rows, 128] planes, a group
-// of blockDim.x / 128 rows inside packet b / groups_per_packet.
-__global__ void __launch_bounds__(kBlock)
+// One bounce of a packetized wavefront: block b serves row b of the
+// [rows, 128] planes, in packet b / wave_sub. A launch is one segment of
+// 1024 rows, whose warps all scan about as long (their chunks' max over
+// mean is 1.00-1.07 on config 4's packet rounds): at 66 registers a thread
+// 7 blocks fit an SM, 924 on the card, and the last 100 rows ran as a
+// second wave; capped at 64 registers, 8 fit, 1056, one wave.
+__global__ void __launch_bounds__(kBlock, 8)
 tiled_wave_kernel(const float* __restrict__ tab, int c_max,
                   const float* __restrict__ cnts,
                   const float* __restrict__ cam,
-                  const float* __restrict__ in, size_t plane,
-                  int groups_per_packet, int sb_b, int sb_t, Flags f,
-                  float* __restrict__ out, int* __restrict__ work) {
-  const int packet = blockIdx.x / groups_per_packet;
-  const size_t pix = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+                  const float* __restrict__ in, size_t plane, int wave_sub,
+                  int sb_b, int sb_t, Flags f, float* __restrict__ out,
+                  int* __restrict__ work) {
+  __shared__ __align__(16) float rings[kWarps][2 * kStage];
+  const int packet = blockIdx.x / wave_sub;
+  const int warp = (int)threadIdx.x >> 5;
+  const size_t pix = (size_t)blockIdx.x * kBlock + threadIdx.x;
   Ray r;
   r.ox = __ldg(in + 0 * plane + pix);
   r.oy = __ldg(in + 1 * plane + pix);
@@ -458,16 +594,21 @@ tiled_wave_kernel(const float* __restrict__ tab, int c_max,
   r.cb = __ldg(in + 8 * plane + pix);
   r.path = __ldg(in + 9 * plane + pix);
   r.status = __float_as_int(__ldg(in + 10 * plane + pix));
-  bounce_tile(tab + (size_t)packet * c_max * kAttr, c_max, cnts + 8 * packet,
-              cam, f, r, sb_b, sb_t, out, plane, pix, work);
+  bounce_tile(tab + (size_t)packet * c_max * kAttr, cnts + 8 * packet, cam,
+              f, r, sb_b, sb_t, out, plane, pix, rings[warp],
+              work == nullptr ? nullptr
+                              : work + 3 * ((size_t)blockIdx.x * kWarps +
+                                            warp));
 }
 
 }  // namespace
 
-// ---- C entry point (loaded with ctypes by kernels/_build.py) --------------
-// Launches on the given stream, does not synchronize, and returns
-// cudaGetLastError() (0 on success). `work` may be null; else it receives
-// the chunks each block scanned per class, [blocks, 3].
+// ---- C entry points (loaded with ctypes by kernels/_build.py) --------------
+// Each launches on the given stream, does not synchronize, and returns
+// cudaGetLastError() (0 on success). The table must start on a 16-byte
+// boundary (the scans copy 8-byte pieces of its rows). `work` may be null;
+// else it receives the chunks each warp scanned per class, [warps, 3], in
+// launch order (block-major, four warps a block).
 extern "C" int rt_tiled_frame(const float* tab, int c_max, const float* cnts,
                               const float* cam, int nby, int nbx, int want_uv,
                               int sky_solid, int has_trans, int want_normal,
@@ -483,7 +624,7 @@ extern "C" int rt_tiled_frame(const float* tab, int c_max, const float* cnts,
   f.want_normal = want_normal != 0;
   const int w_pad = nbx * kLane;
   const size_t plane = (size_t)nby * kTileSub * w_pad;
-  const long long blocks = (long long)nby * nbx * kGroups;
+  const long long blocks = (long long)nby * nbx * kTileSub;
   tiled_frame_kernel<<<(unsigned int)blocks, kBlock, 0,
                        (cudaStream_t)stream>>>(tab, c_max, cnts, cam, nbx,
                                                w_pad, plane, f, out, work);
@@ -491,22 +632,18 @@ extern "C" int rt_tiled_frame(const float* tab, int c_max, const float* cnts,
 }
 
 // The wavefront entry: `in` holds the 11 state planes [11, rows, 128], tab
-// and cnts one table and one counts row per packet of wave_sub rows,
-// served by blocks of group_rows rows (group_rows divides wave_sub).
-// sb_b/sb_t are the static segment bases, -1 to follow the counts. `work`
-// may be null; else it receives the chunks each block scanned per class,
-// [rows / group_rows, 3].
+// and cnts one table and one counts row per packet of wave_sub rows.
+// sb_b/sb_t are the static segment bases, -1 to follow the counts.
 extern "C" int rt_tiled_wave(const float* tab, int c_max, const float* cnts,
                              const float* cam, const float* in, int rows,
-                             int wave_sub, int group_rows, int sb_b, int sb_t,
-                             int want_uv, int sky_solid, int has_trans,
-                             int want_normal, float* out, int* work,
-                             int device, void* stream) {
+                             int wave_sub, int sb_b, int sb_t, int want_uv,
+                             int sky_solid, int has_trans, int want_normal,
+                             float* out, int* work, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rows <= 0) return 0;
-  if (group_rows <= 0 || group_rows * kLane > kBlock ||
-      wave_sub % group_rows != 0 || rows % wave_sub != 0)
+  if (wave_sub <= 0 || rows % wave_sub != 0)
     return (int)cudaErrorInvalidValue;
   Flags f;
   f.want_uv = want_uv != 0;
@@ -514,9 +651,7 @@ extern "C" int rt_tiled_wave(const float* tab, int c_max, const float* cnts,
   f.has_trans = has_trans != 0;
   f.want_normal = want_normal != 0;
   const size_t plane = (size_t)rows * kLane;
-  tiled_wave_kernel<<<(unsigned int)(rows / group_rows), group_rows * kLane,
-                      0, (cudaStream_t)stream>>>(
-      tab, c_max, cnts, cam, in, plane, wave_sub / group_rows, sb_b, sb_t, f,
-      out, work);
+  tiled_wave_kernel<<<(unsigned int)rows, kBlock, 0, (cudaStream_t)stream>>>(
+      tab, c_max, cnts, cam, in, plane, wave_sub, sb_b, sb_t, f, out, work);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. Each ``csrc/*.cu`` is
-compiled by its own ``nvcc`` process (all started together) into an object
-file, and the objects are linked into one shared library under
-``build/torch_kernels/`` at the root of the checkout, at first use, and
-loaded with ``ctypes``. The library's file name carries a hash of every
-source and of the flags, so a stale library is never loaded. Without
-``nvcc`` the build raises: there is no fallback.
+The sources under ``csrc/`` have a plain C interface (``csrc/*.cuh`` are
+headers they include). Each ``csrc/*.cu`` is compiled by its own ``nvcc``
+process (all started together) into an object file, and the objects are
+linked into one shared library under ``build/torch_kernels/`` at the root
+of the checkout, at first use, and loaded with ``ctypes``. The library's
+file name carries a hash of every source, header and flag, so a stale
+library is never loaded. Without ``nvcc`` the build raises: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+#: headers the sources include (part of the hash, not compiled alone)
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -57,7 +60,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update("\0".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -121,8 +124,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _LL, _I, _F, _I, _I, _U, _P, _P, _P, _I, _P], _I),
     "rt_nearest_hit_scalar": (_HIT_TABLES + [
         _P, _P, _LL, _P, _P, _I, _P], _I),
+    # org, dir, n, n_live, splits, t and pid of the splits, t, pid, device,
+    # stream
     "rt_nearest_hit_dense": (_HIT_TABLES + [
-        _P, _P, _LL, _P, _P, _P, _I, _P], _I),
+        _P, _P, _LL, _P, _I, _P, _P, _P, _P, _I, _P], _I),
     # org, dir, n, n_live, bbox, sphere list (ids, tlo, cols, fan), triangle
     # list, t, pid, work, device, stream
     "rt_nearest_hit_listed": (_HIT_TABLES + [
@@ -134,10 +139,10 @@ SIGNATURES = {
     # tab, c_max, cnts, cam, nby, nbx, 4 flags, out, work, device, stream
     "rt_tiled_frame": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                         _P], _I),
-    # tab, c_max, cnts, cam, state, rows, wave_sub, group_rows, 2 static
-    # bases, 4 flags, out, work, device, stream
+    # tab, c_max, cnts, cam, state, rows, wave_sub, 2 static bases, 4
+    # flags, out, work, device, stream
     "rt_tiled_wave": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P, _P, _I, _P], _I),
+                       _P, _P, _I, _P], _I),
     "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
     "rt_replay_bwd": (_REPLAY_ARGS + [
         _F, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I),

@@ -57,6 +57,11 @@ LAUNCHES = {"scalar": 0, "dense": 0, "listed": 0, "culled": 0}
 SCALAR_MAX_PRIMS = 384
 #: elements of one [rays, prims] temporary in a plain version
 PLAIN_CHUNK_ELEMS = 1 << 25
+#: B4 splits each 128-ray block's scan over about this many sphere and
+#: triangle tiles a block (a rescue round's few live rays then keep the
+#: card busy), with at most DENSE_PART_ELEMS partial results [splits, N]
+DENSE_SPLIT_TILES = 32
+DENSE_PART_ELEMS = 1 << 22
 #: B6: rays per list row (one CUDA block of four warps), prims per listed
 #: tile, and list slots streamed between early-exit checks
 BLOCK_R = 128
@@ -197,17 +202,32 @@ def _box(r: _Rays, b: Tensor) -> Tensor:
 
 
 def _tri(r: _Rays, tr: Tensor) -> Tensor:
-    """Moeller-Trumbore with the 1e-9 determinant floor."""
+    """Moeller-Trumbore with the 1e-9 determinant floor, from the vertex
+    rows v0 v1 v2."""
     v0x, v0y, v0z = tr[0], tr[1], tr[2]
-    e1x, e1y, e1z = tr[3] - v0x, tr[4] - v0y, tr[5] - v0z
-    e2x, e2y, e2z = tr[6] - v0x, tr[7] - v0y, tr[8] - v0z
+    return _tri_edges(r, (v0x, v0y, v0z, tr[3] - v0x, tr[4] - v0y,
+                          tr[5] - v0z, tr[6] - v0x, tr[7] - v0y,
+                          tr[8] - v0z))
+
+
+def _tri_head(r: _Rays, te):
+    """The test's terms up to u's numerator: (p, det, s, u_num)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (te[k] for k in range(9))
     px = r.dy * e2z - r.dz * e2y
     py = r.dz * e2x - r.dx * e2z
     pz = r.dx * e2y - r.dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    inv_det = 1.0 / torch.where(det.abs() < _MT_EPS, _MT_EPS, det)
     sx, sy, sz = r.ox - v0x, r.oy - v0y, r.oz - v0z
-    u = (sx * px + sy * py + sz * pz) * inv_det
+    return (px, py, pz), det, (sx, sy, sz), sx * px + sy * py + sz * pz
+
+
+def _tri_edges(r: _Rays, te) -> Tensor:
+    """The same test from the edge rows v0, e1 = v1 - v0, e2 = v2 - v0 (the
+    kernels' triangle table, :func:`edge_table`)."""
+    e1x, e1y, e1z, e2x, e2y, e2z = (te[k] for k in range(3, 9))
+    _p, det, (sx, sy, sz), u_num = _tri_head(r, te)
+    inv_det = 1.0 / torch.where(det.abs() < _MT_EPS, _MT_EPS, det)
+    u = u_num * inv_det
     qx = sy * e1z - sz * e1y
     qy = sz * e1x - sx * e1z
     qz = sx * e1y - sy * e1x
@@ -216,6 +236,19 @@ def _tri(r: _Rays, tr: Tensor) -> Tensor:
     ok = ((det.abs() >= _MT_EPS) & (u >= 0.0) & (v >= 0.0)
           & (u + v <= 1.0) & (t >= 0.0))
     return torch.where(ok, t, _INF)
+
+
+def tri_certain_miss(r: _Rays, te) -> Tensor:
+    """The streaming kernels' predicate that a triangle test certainly
+    fails (``csrc/nearest_hit.cu`` ``tri_certain_miss``, whose note proves
+    it): |det| < 1e-9 (or NaN), or u = u_num / det certainly below 0 or
+    above 1. A warp whose every lane certainly fails skips 1 / det and the
+    rest of the test. -> bool, the shape of :func:`_tri_edges`' result."""
+    _p, det, _s, u_num = _tri_head(r, te)
+    ad, au = det.abs(), u_num.abs()
+    opposite = (u_num < 0.0) != (det < 0.0)
+    return ~(ad >= _MT_EPS) | torch.where(opposite, au >= ad * 2.0 ** -64,
+                                          au >= ad * (1.0 + 2.0 ** -20))
 
 
 def _search_plain(tabs: HitTables, org: Tensor, dir: Tensor,
@@ -444,22 +477,50 @@ def launch_scalar(tabs: HitTables, org: Tensor,
     return t, pid
 
 
-def launch_dense(tabs: HitTables, org: Tensor, dir: Tensor,
+def dense_splits(st: StreamTables, n: int) -> int:
+    """How many blocks share each 128-ray block's dense scan (B4): about
+    ``DENSE_SPLIT_TILES`` sphere and triangle tiles each, so that a scan of
+    few live rays over many prims still fills the card, but at most
+    ``DENSE_PART_ELEMS / n``. The splits' results merge to the unsplit
+    scan's t and pid bit for bit (the kernel's note)."""
+    tiles = -(-st.n_sph // BLOCK_K) + -(-st.n_tri // BLOCK_K)
+    return max(1, min(-(-tiles // DENSE_SPLIT_TILES),
+                      DENSE_PART_ELEMS // max(n, 1), 65535))
+
+
+def launch_dense(st: StreamTables, org: Tensor, dir: Tensor,
                  n_live: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Launch B4 on the current stream -> (t [N], pid [N]); ``n_live`` is a
-    [1] int32 device tensor (None: every row), so the count never syncs to
-    the host. Does not synchronize."""
-    args, t, pid = _launch_args(tabs, org, dir)
-    n = org.shape[0]
-    if n == 0 or tabs.n_prims == 0:
-        return t, pid
+    """Launch B4 on the current stream -> (t [N], pid [N]); ``st`` from
+    :func:`stream_tables`, ``n_live`` a [1] int32 device tensor (None:
+    every row), so the count never syncs to the host. The scan is split
+    over :func:`dense_splits` blocks per 128 rays. No rays or no prims is
+    answered here without a launch. Does not synchronize."""
     dev = org.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
+                         f"{dev}")
+    n = org.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _build.need(org, "org", f32, (n, 3), dev)
+    _build.need(dir, "dir", f32, (n, 3), dev)
+    t = torch.full((n,), _INF, dtype=f32, device=dev)
+    pid = torch.full((n,), -1, dtype=i32, device=dev)
+    if n == 0 or st.n_prims == 0:
+        return t, pid
+    args = _stream_table_args(st, dev)
     if n_live is None:
-        n_live = torch.full((1,), n, dtype=torch.int32, device=dev)
-    _build.need(n_live, "n_live", torch.int32, (1,), dev)
+        n_live = torch.full((1,), n, dtype=i32, device=dev)
+    _build.need(n_live, "n_live", i32, (1,), dev)
+    splits = dense_splits(st, n)
+    t_part = pid_part = None
+    if splits > 1:
+        t_part = torch.empty((splits, n), dtype=f32, device=dev)
+        pid_part = torch.empty((splits, n), dtype=i32, device=dev)
     lib = _build.load()
-    err = lib.rt_nearest_hit_dense(*args, _build.ptr(n_live), _build.ptr(t),
-                                   _build.ptr(pid), dev.index,
+    err = lib.rt_nearest_hit_dense(*args, _build.ptr(org), _build.ptr(dir), n,
+                                   _build.ptr(n_live), splits,
+                                   _build.ptr(t_part), _build.ptr(pid_part),
+                                   _build.ptr(t), _build.ptr(pid), dev.index,
                                    _build.stream(dev))
     _build.check(lib, err, "nh_dense_kernel")
     LAUNCHES["dense"] += 1
@@ -494,18 +555,59 @@ def _pad_tiles(tab: Tensor, count: int, fan: int = 1,
     return out
 
 
+def edge_table(tri: Tensor) -> Tensor:
+    """A [9, T] vertex table (v0 v1 v2) -> the edge table (v0, e1 = v1 -
+    v0, e2 = v2 - v0), subtracted in float32 on the table's device, each
+    element rounded once as the vertex-form test rounds it. All-zero
+    (padded) triangles stay all-zero."""
+    v0 = tri[0:3]
+    return torch.cat([v0, tri[3:6] - v0, tri[6:9] - v0]).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamTables:
+    """What B4, B6 and B8 stream: the array-of-structs sphere table
+    ``sph4`` [S', 4] (cx cy cz ccmr) and the triangle edge table ``tri``
+    [9, T'] (:func:`edge_table`), both padded to whole (super)tiles of
+    ``BLOCK_K`` prims (padded spheres poisoned with ``ccmr = +inf``,
+    padded triangles all-zero: neither can be hit) on fresh, 16-byte
+    aligned allocations; the box table as :class:`HitTables` has it."""
+
+    sph4: Tensor
+    box: Tensor
+    tri: Tensor
+    n_sph: int
+    n_box: int
+    n_tri: int
+
+    @property
+    def n_prims(self) -> int:
+        return self.n_sph + self.n_box + self.n_tri
+
+
+def stream_tables(tabs: HitTables, sph_fan: int = 1,
+                  tri_fan: int = 1) -> StreamTables:
+    """The kernels' copies of :func:`pack_tables`' tables, padded to
+    supertiles of ``fan`` 128-prim tiles."""
+    sph = _pad_tiles(tabs.sph, tabs.n_sph, sph_fan, poison_row=3)
+    return StreamTables(
+        sph4=sph.T.contiguous(), box=tabs.box,
+        tri=edge_table(_pad_tiles(tabs.tri, tabs.n_tri, tri_fan)),
+        n_sph=tabs.n_sph, n_box=tabs.n_box, n_tri=tabs.n_tri)
+
+
 @dataclasses.dataclass(frozen=True)
 class ListedInputs:
-    """What B6 and its plain version read: the tables, spheres and
-    triangles padded to whole (super)tiles (padded spheres poisoned with
-    ``ccmr = +inf``, padded triangles all-zero: neither can be hit), the
-    kernel's array-of-structs copy of the padded sphere table (``sph4``
-    [S', 4]), the lists ([rows, cols] ids i32 / t_lo f32, rows >= ceil(N /
-    BLOCK_R), cols a CHUNK_T multiple; None scans that class dense) and the
-    scene-bbox row [8] (lo xyz, hi xyz, 0, 0)."""
+    """What B6 and its plain version read: the plain version's tables,
+    spheres and triangles padded to whole (super)tiles (padded spheres
+    poisoned with ``ccmr = +inf``, padded triangles all-zero: neither can
+    be hit), the kernel's copies of them (``stream``), the lists ([rows,
+    cols] ids i32 / t_lo f32, rows >= ceil(N / BLOCK_R), cols a CHUNK_T
+    multiple; None scans that class dense) and the scene-bbox row [8] (lo
+    xyz, hi xyz, 0, 0)."""
 
     tabs: HitTables
-    sph4: Tensor
+    stream: StreamTables
     sph_list: Optional[Tuple[Tensor, Tensor]]
     tri_list: Optional[Tuple[Tensor, Tensor]]
     sph_fan: int
@@ -534,6 +636,7 @@ def listed_inputs(scene: Scene, n: int, tile_ids=None, tri_tile_ids=None,
     from ..models.scene import prim_aabbs
 
     tabs = pack_tables(scene)
+    stream = stream_tables(tabs, sph_fan, tri_fan)
     tabs = dataclasses.replace(
         tabs, sph=_pad_tiles(tabs.sph, tabs.n_sph, sph_fan, 3),
         tri=_pad_tiles(tabs.tri, tabs.n_tri, tri_fan))
@@ -541,7 +644,7 @@ def listed_inputs(scene: Scene, n: int, tile_ids=None, tri_tile_ids=None,
     bbox = torch.cat([lo.min(dim=0).values, hi.max(dim=0).values,
                       torch.zeros(2, device=lo.device)]).contiguous()
     return ListedInputs(
-        tabs=tabs, sph4=tabs.sph.T.contiguous(),
+        tabs=tabs, stream=stream,
         sph_list=None if tile_ids is None else _prep_list(tile_ids, n),
         tri_list=None if tri_tile_ids is None else _prep_list(tri_tile_ids,
                                                               n),
@@ -749,9 +852,7 @@ def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
                          f"{dev}")
     n = org.shape[0]
     f32, i32 = torch.float32, torch.int32
-    tabs = li.tabs
-    args = _stream_table_args(li.sph4, tabs.n_sph, tabs.box, tabs.n_box,
-                              tabs.tri, tabs.n_tri, dev)
+    args = _stream_table_args(li.stream, dev)
     _build.need(org, "org", f32, (n, 3), dev)
     _build.need(dir, "dir", f32, (n, 3), dev)
     _build.need(li.bbox, "bbox", f32, (8,), dev)
@@ -787,35 +888,34 @@ def launch_listed(li: ListedInputs, org: Tensor, dir: Tensor,
     return (t, pid, slots) if work else (t, pid)
 
 
-def _stream_table_args(sph4: Tensor, n_sph: int, box: Tensor, n_box: int,
-                       tri: Tensor, n_tri: int, dev) -> list:
-    """B6's and B8's table arguments: the array-of-structs sphere table
-    [S', 4] and the triangle table [9, T'], padded to whole tiles and
-    16-byte aligned (the kernels copy them in 16-byte pieces), and the box
-    table as B4 takes it."""
+def _stream_table_args(st: StreamTables, dev) -> list:
+    """B4's, B6's and B8's table arguments, checked: the kernels copy the
+    sphere and triangle tables in 16-byte pieces of whole tiles."""
     f32 = torch.float32
-    _build.need(sph4, "sphere table", f32, (sph4.shape[0], 4), dev)
-    _build.need(box, "box table", f32, (6, max(n_box, 1)), dev)
-    _build.need(tri, "triangle table", f32, (9, tri.shape[1]), dev)
-    for name, tab, width, count in (("sphere table", sph4, sph4.shape[0],
-                                     n_sph),
-                                    ("triangle table", tri, tri.shape[1],
-                                     n_tri)):
+    _build.need(st.sph4, "sphere table", f32, (st.sph4.shape[0], 4), dev)
+    _build.need(st.box, "box table", f32, (6, max(st.n_box, 1)), dev)
+    _build.need(st.tri, "triangle table", f32, (9, st.tri.shape[1]), dev)
+    for name, tab, width, count in (("sphere table", st.sph4,
+                                     st.sph4.shape[0], st.n_sph),
+                                    ("triangle table", st.tri,
+                                     st.tri.shape[1], st.n_tri)):
         if width % BLOCK_K or width < count:
             raise ValueError(f"{name} is not padded to whole tiles: "
                              f"{width} for {count} prims")
         if tab.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    return [_build.ptr(sph4), n_sph, sph4.shape[0], _build.ptr(box), n_box,
-            box.shape[1], _build.ptr(tri), n_tri, tri.shape[1]]
+    return [_build.ptr(st.sph4), st.n_sph, st.sph4.shape[0],
+            _build.ptr(st.box), st.n_box, st.box.shape[1],
+            _build.ptr(st.tri), st.n_tri, st.tri.shape[1]]
 
 
-def launch_culled(tabs: HitTables, org: Tensor, dir: Tensor,
+def launch_culled(st: StreamTables, org: Tensor, dir: Tensor,
                   tile_bounds: Tensor, n_live: Optional[Tensor] = None,
                   work: bool = False):
     """Launch B8 on the current stream -> (t [N], pid [N]) (+ ``tiles``
     [B, 4] i32, the sphere tiles each warp streamed, when ``work``);
-    ``n_live`` as for :func:`launch_dense`. Does not synchronize."""
+    ``st`` and ``n_live`` as for :func:`launch_dense`. Does not
+    synchronize."""
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
@@ -823,22 +923,19 @@ def launch_culled(tabs: HitTables, org: Tensor, dir: Tensor,
     n = org.shape[0]
     _build.need(org, "org", torch.float32, (n, 3), dev)
     _build.need(dir, "dir", torch.float32, (n, 3), dev)
-    n_t = -(-tabs.n_sph // BLOCK_K)
+    n_t = -(-st.n_sph // BLOCK_K)
     if tile_bounds.shape[0] < n_t:
         raise ValueError(f"{tile_bounds.shape[0]} tile bounds cover fewer "
-                         f"than {tabs.n_sph} spheres")
+                         f"than {st.n_sph} spheres")
     tb = _build.need(tile_bounds[:max(n_t, 1)].contiguous(), "tile bounds",
                      torch.float32, (max(n_t, 1), 4), dev)
     t = torch.full((n,), _INF, dtype=torch.float32, device=dev)
     pid = torch.full((n,), -1, dtype=torch.int32, device=dev)
     tiles = (torch.zeros((-(-n // BLOCK_R), BLOCK_R // 32), dtype=torch.int32,
                          device=dev) if work else None)
-    if n == 0 or tabs.n_prims == 0:
+    if n == 0 or st.n_prims == 0:
         return (t, pid, tiles) if work else (t, pid)
-    args = _stream_table_args(
-        _pad_tiles(tabs.sph, tabs.n_sph, poison_row=3).T.contiguous(),
-        tabs.n_sph, tabs.box, tabs.n_box, _pad_tiles(tabs.tri, tabs.n_tri),
-        tabs.n_tri, dev)
+    args = _stream_table_args(st, dev)
     if n_live is None:
         n_live = torch.full((1,), n, dtype=torch.int32, device=dev)
     _build.need(n_live, "n_live", torch.int32, (1,), dev)
@@ -887,8 +984,9 @@ def nearest_hit_pallas(scene: Scene, org: Tensor, dir: Tensor,
         if on_cpu:
             return nearest_hit_culled_plain(scene, org, dir, tile_bounds,
                                             n_live)
-        return launch_culled(pack_tables(scene), org, dir, tile_bounds,
-                             n_live=nl)
+        return launch_culled(stream_tables(pack_tables(scene)), org, dir,
+                             tile_bounds, n_live=nl)
     if on_cpu:
         return nearest_hit_pallas_plain(scene, org, dir, n_live=n_live)
-    return launch_dense(pack_tables(scene), org, dir, n_live=nl)
+    return launch_dense(stream_tables(pack_tables(scene)), org, dir,
+                        n_live=nl)

@@ -13,11 +13,16 @@ shading, mirror respawn — and returns the whole ray state. Directions must
 be unit (camera rays are; mirror reflections keep them so), which drops the
 |d|^2 terms of the sphere quadratic.
 
-The early exit is taken per *exit group* of ``GROUP_SUB`` x ``LANE`` rays
-(one CUDA block) rather than per 4096-ray tile: the exit is conservative,
-so a smaller group can only stop sooner where the rest of the scan could
-not change its rays' results. The plain version exits per the same groups,
-so the kernel and the plain version agree bit for bit.
+The early exit is taken per *exit group* of ``GROUP`` = 32 rays (one
+warp) rather than per 4096-ray tile: the exit is conservative, so a smaller
+group can only stop sooner where the rest of the scan could not change its
+live rays' results, and rays that are not alive fold nothing. The plain
+versions take the group's size as ``group`` (32, the kernels'; 256 = two
+rows of ``LANE``, the first design's blocks): every plane is the same
+whatever the group, and the chunks scanned per group differ. They exit per
+the same groups as the kernels, so the two agree bit for bit.
+:func:`wave_need` and :func:`frame_need` count the chunks each ray needs:
+those up to its own exit, given its final hit.
 
 - :func:`frame_bounce0` — bounce 0 over the frame, rays built in the kernel
   from the camera pose (the closed form of ``models/camera.pixel_rays``).
@@ -29,7 +34,7 @@ so the kernel and the plain version agree bit for bit.
   packet of ``wave_sub`` rows scanning its own table. CUDA tensors launch
   ``tiled_wave_kernel``; CPU tensors run :func:`wave_bounce_plain`.
   ``LAUNCHES["wave"]`` counts launches. An exit group never spans two
-  packets: groups are ``GROUP_SUB`` rows, or one row for odd ``wave_sub``.
+  packets.
 
 The shading is ``ops/trace._bounce``'s for this path's in-kernel part:
 solid colors modulate, emissive hits end LIGHT, mirrors reflect and
@@ -60,12 +65,14 @@ TILE_SUB = 32
 LANE = 128
 #: candidates per early-exit check == the tables' segment alignment
 CHUNK = SEG_ALIGN
-#: rows of LANE rays per exit group (one CUDA block of 256 threads)
+#: rays per exit group: one warp of the kernels
+GROUP = 32
+#: rows of LANE rays per exit group of the first design (256-thread blocks)
 GROUP_SUB = 2
 #: wavefront packet height in rows (packet = WAVE_SUB * LANE rays): smaller
 #: than a frame tile, since packets of divergent rays need tight cones
 WAVE_SUB = 8
-GROUPS_PER_TILE = TILE_SUB // GROUP_SUB
+GROUPS_PER_TILE = TILE_SUB * LANE // GROUP
 
 # camera/constants layout (f32): 0-2 pos, 3-5 front, 6-8 left, 9-11 up,
 # 12 step_h, 13 step_v, 14 off_h, 15 off_v, 16-18 sky rgb, 19 w, 20 h,
@@ -134,21 +141,41 @@ def _safe_inv(d: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Group layout: frame planes [h_pad, w_pad] <-> exit groups [G, GROUP_RAYS]
+# Group layout: frame planes [h_pad, w_pad] <-> exit groups [G, group]
 # ---------------------------------------------------------------------------
 
-def to_groups(plane: Tensor, nby: int, nbx: int) -> Tensor:
-    """[h_pad, w_pad] -> [tiles * GROUPS_PER_TILE, GROUP_SUB * LANE], group
-    g = tile * GROUPS_PER_TILE + (row in tile) // GROUP_SUB, tile =
-    by * nbx + bx."""
-    p = plane.reshape(nby, GROUPS_PER_TILE, GROUP_SUB, nbx, LANE)
-    return p.permute(0, 3, 1, 2, 4).reshape(-1, GROUP_SUB * LANE)
+def _check_group(group: int, rays: int) -> None:
+    """An exit group is a run of at most LANE rays of one row, or whole
+    rows, and never spans two tables of ``rays`` rays."""
+    ok = (group >= 1 and rays % group == 0
+          and (LANE % group == 0 if group <= LANE else group % LANE == 0))
+    if not ok:
+        raise ValueError(f"an exit group of {group} rays does not tile "
+                         f"{rays}-ray tables of {LANE}-ray rows")
 
 
-def from_groups(groups: Tensor, nby: int, nbx: int) -> Tensor:
+def _group_shape(group: int):
+    """(rows, lanes) of an exit group of ``group`` rays."""
+    return max(group // LANE, 1), min(group, LANE)
+
+
+def to_groups(plane: Tensor, nby: int, nbx: int,
+              group: int = GROUP) -> Tensor:
+    """[h_pad, w_pad] -> [tiles * groups per tile, group]: group g =
+    (tile * TILE_SUB + row) * (LANE / group) + run for groups within a row,
+    tile * (TILE_SUB / rows) + row block for groups of whole rows; tile =
+    by * nbx + bx (the kernels' order of work rows)."""
+    gr, gl = _group_shape(group)
+    p = plane.reshape(nby, TILE_SUB // gr, gr, nbx, LANE // gl, gl)
+    return p.permute(0, 3, 1, 4, 2, 5).reshape(-1, group)
+
+
+def from_groups(groups: Tensor, nby: int, nbx: int,
+                group: int = GROUP) -> Tensor:
     """Inverse of :func:`to_groups`."""
-    p = groups.reshape(nby, nbx, GROUPS_PER_TILE, GROUP_SUB, LANE)
-    return p.permute(0, 2, 3, 1, 4).reshape(nby * TILE_SUB, nbx * LANE)
+    gr, gl = _group_shape(group)
+    p = groups.reshape(nby, nbx, TILE_SUB // gr, LANE // gl, gr, gl)
+    return p.permute(0, 2, 4, 1, 3, 5).reshape(nby * TILE_SUB, nbx * LANE)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +232,74 @@ def _tri_t(blk, ox, oy, oz, dx, dy, dz):
     return t, ok
 
 
+def _exit_terms(state: dict, cnts: Tensor, bb_lo: Tensor, bb_hi: Tensor):
+    """Each ray's distance d_c from its table's cone apex and its
+    scene-bbox exit t_exit_bb, [G, R] each: its exit horizon is
+    min(t_best, t_exit_bb) + d_c."""
+    ox, oy, oz = state["ox"], state["oy"], state["oz"]
+    ix, iy, iz = (_safe_inv(state[k]) for k in ("dx", "dy", "dz"))
+    o0x, o0y, o0z = cnts[:, 4:5], cnts[:, 5:6], cnts[:, 6:7]
+    d_c = torch.sqrt((ox - o0x) ** 2 + (oy - o0y) ** 2 + (oz - o0z) ** 2)
+    ex_x = torch.maximum((bb_lo[0] - ox) * ix, (bb_hi[0] - ox) * ix)
+    ex_y = torch.maximum((bb_lo[1] - oy) * iy, (bb_hi[1] - oy) * iy)
+    ex_z = torch.maximum((bb_lo[2] - oz) * iz, (bb_hi[2] - oz) * iz)
+    return d_c, torch.minimum(torch.minimum(ex_x, ex_y), ex_z)
+
+
+def _segments(cnts: Tensor, static_bases):
+    """(counts [G, 3], box base [G], triangle base [G]) of each group's
+    table: the segments at ``static_bases`` or after the padded counts."""
+    cnt = cnts[:, 0:3].to(torch.int64)
+
+    def pad_chunk(x):
+        return (x + CHUNK - 1) // CHUNK * CHUNK
+
+    if static_bases is None:
+        base_b = pad_chunk(cnt[:, 0])
+        base_t = base_b + pad_chunk(cnt[:, 1])
+    else:
+        base_b = torch.full_like(cnt[:, 0], int(static_bases[0]))
+        base_t = torch.full_like(cnt[:, 0], int(static_bases[1]))
+    return cnt, base_b, base_t
+
+
+def need_plain(tab: Tensor, c_max: int, g_tile: Tensor, cnts: Tensor,
+               bb_lo: Tensor, bb_hi: Tensor, state: dict, t: Tensor,
+               static_bases=None) -> Tensor:
+    """The chunks of each segment each ray needs -> [G, R, 3] i32 (state
+    and ``t`` [G, R] as :func:`bounce_tile_plain` takes and gives them).
+
+    A ray's need is what its own exit rule scans given its final hit ``t``
+    (the least any exit group scans for it): chunk 0, then each next chunk
+    while min(t, t_exit_bb) + d_c exceeds that chunk's first t_lo; 0 for a
+    ray that is not alive and for an empty segment. It never exceeds the
+    chunks its exit group scanned, whatever the group's size."""
+    tab3 = tab.reshape(-1, c_max, N_ATTR)
+    dev = t.device
+    alive = state["status"] == _ALIVE
+    d_c, t_exit_bb = _exit_terms(state, cnts, bb_lo, bb_hi)
+    reach = (torch.minimum(t, t_exit_bb) + d_c).contiguous()
+    cnt, base_b, base_t = _segments(cnts, static_bases)
+    out = []
+    for base, count in ((torch.zeros_like(base_b), cnt[:, 0]),
+                        (base_b, cnt[:, 1]), (base_t, cnt[:, 2])):
+        n_ch = (count + CHUNK - 1) // CHUNK                   # [G]
+        width = int(n_ch.max()) - 1 if n_ch.numel() else 0
+        need = n_ch[:, None].expand_as(reach)
+        if width > 0:
+            c = torch.arange(1, width + 1, device=dev)
+            rows = torch.clamp(base[:, None] + CHUNK * c, max=c_max - 1)
+            tlo = torch.where(c < n_ch[:, None],
+                              tab3[g_tile[:, None], rows, 0], _INF)
+            # the first chunk c >= 1 whose t_lo is at least the reach ends
+            # the scan: the first c whose running maximum of t_lo is
+            top = torch.cummax(tlo, dim=1).values.contiguous()
+            need = torch.minimum(1 + torch.searchsorted(top, reach),
+                                 n_ch[:, None])
+        out.append(torch.where(alive & (count[:, None] > 0), need, 0))
+    return torch.stack(out, -1).to(torch.int32)
+
+
 def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
                       cnts: Tensor, bb_lo: Tensor, bb_hi: Tensor,
                       sky: Tensor, state: dict, *, want_uv: bool,
@@ -216,9 +311,10 @@ def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
     ``tab`` is the [tiles * c_max, N_ATTR] candidate table; group g reads
     tile ``g_tile[g]``'s rows and its ``cnts`` row [G, 8] (cnt_s, cnt_b,
     cnt_t, t_safe, o0x, o0y, o0z, ro). ``state`` holds the 11 ray columns
-    (``STATE_NAMES[:11]``) as [G, R] tensors. Returns ``(planes, chunks)``:
-    the 15 (+3 normal) output columns by name and the chunks each group
-    scanned per class [G, 3].
+    (``STATE_NAMES[:11]``) as [G, R] tensors: R rays per exit group. Returns
+    ``(planes, chunks)``: the 15 (+3 normal) output columns by name and the
+    chunks each group scanned per class [G, 3]. Rays that are not alive
+    fold nothing (t = +inf, no winner), so no plane depends on R.
 
     Resolution: a hit is final iff it precedes ``t_safe - d_c`` (d_c: the
     ray's distance from the table's cone apex), a miss iff the ray leaves
@@ -236,24 +332,9 @@ def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
     o_dot_d = ox * dx + oy * dy + oz * dz
     o_dot_o = ox * ox + oy * oy + oz * oz
     ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-    cnt = cnts[:, 0:3].to(torch.int64)                       # [G, 3]
     t_safe = cnts[:, 3:4]
-    o0x, o0y, o0z = cnts[:, 4:5], cnts[:, 5:6], cnts[:, 6:7]
-    d_c = torch.sqrt((ox - o0x) ** 2 + (oy - o0y) ** 2 + (oz - o0z) ** 2)
-    ex_x = torch.maximum((bb_lo[0] - ox) * ix, (bb_hi[0] - ox) * ix)
-    ex_y = torch.maximum((bb_lo[1] - oy) * iy, (bb_hi[1] - oy) * iy)
-    ex_z = torch.maximum((bb_lo[2] - oz) * iz, (bb_hi[2] - oz) * iz)
-    t_exit_bb = torch.minimum(torch.minimum(ex_x, ex_y), ex_z)
-
-    def pad_chunk(x):
-        return (x + CHUNK - 1) // CHUNK * CHUNK
-
-    if static_bases is None:
-        base_b = pad_chunk(cnt[:, 0])
-        base_t = base_b + pad_chunk(cnt[:, 1])
-    else:
-        base_b = torch.full_like(cnt[:, 0], int(static_bases[0]))
-        base_t = torch.full_like(cnt[:, 0], int(static_bases[1]))
+    d_c, t_exit_bb = _exit_terms(state, cnts, bb_lo, bb_hi)
+    cnt, base_b, base_t = _segments(cnts, static_bases)
     t_best = torch.full_like(ox, _INF)
     jwin = torch.full(ox.shape, -1, dtype=torch.int64, device=dev)
     chunks = torch.zeros((n_g, 3), dtype=torch.int32, device=dev)
@@ -284,7 +365,8 @@ def bounce_tile_plain(tab: Tensor, c_max: int, g_tile: Tensor,
             else:
                 t, valid = _tri_t(blk, ray(ox, gi), ray(oy, gi), ray(oz, gi),
                                   ray(dx, gi), ray(dy, gi), ray(dz, gi))
-            valid = valid & (rows < end[gi][:, None])[:, None, :]
+            valid = (valid & (rows < end[gi][:, None])[:, None, :]
+                     & alive[gi][:, :, None])
             # the first minimum of the chunk, then the kernel's strict <
             t_c, k_c = torch.where(valid, t, _INF).min(dim=2)
             tb = t_best[gi]
@@ -468,12 +550,10 @@ def _frame_inputs(scene: Scene, cam: Camera, tab: Tensor, cnts: Tensor,
     return _cam_array(cam, sky_rgb, bb_lo, bb_hi), nby, nbx
 
 
-def frame_bounce0_plain(scene: Scene, cam: Camera, tab: Tensor,
-                        cnts: Tensor, c_max: int, work: bool = False):
-    """Plain version of the frame kernel -> dict of [h_pad, w_pad] state
-    planes (``STATE_NAMES``; 15, or 18 with normals), plus ``"chunks"``
-    [groups, 3] (chunks scanned per exit group and class) when ``work``."""
-    ca, nby, nbx = _frame_inputs(scene, cam, tab, cnts, c_max)
+def _frame_state(ca: Tensor, nby: int, nbx: int) -> dict:
+    """Bounce 0's 11 state planes [h_pad, w_pad] from the camera array:
+    the closed form of ``models/camera.pixel_rays``, padding pixels of
+    partial edge tiles MISS."""
     dev = ca.device
     hp, wp = nby * TILE_SUB, nbx * LANE
     f32 = torch.float32
@@ -491,19 +571,56 @@ def frame_bounce0_plain(scene: Scene, cam: Camera, tab: Tensor,
     zero = torch.zeros((hp, wp), dtype=f32, device=dev)
     planes.update(ox=zero + ca[0], oy=zero + ca[1], oz=zero + ca[2],
                   cr=zero + 1.0, cg=zero + 1.0, cb=zero + 1.0, path=zero)
-    # padding pixels of partial edge tiles start as MISS
     pad = (x >= ca[19]) | (y >= ca[20])
     planes["status"] = torch.where(pad, _MISS, _ALIVE).to(torch.int32)
-    state = {k: to_groups(planes[k], nby, nbx) for k in STATE_NAMES[:11]}
-    n_g = nby * nbx * GROUPS_PER_TILE
-    g_tile = torch.arange(n_g, device=dev) // GROUPS_PER_TILE
+    return planes
+
+
+def _frame_groups(scene: Scene, cam: Camera, tab: Tensor, cnts: Tensor,
+                  c_max: int, group: int):
+    """The frame's bounce-0 state as exit groups -> (camera array, nby,
+    nbx, state {name: [G, group]}, g_tile [G])."""
+    _check_group(group, TILE_SUB * LANE)
+    ca, nby, nbx = _frame_inputs(scene, cam, tab, cnts, c_max)
+    planes = _frame_state(ca, nby, nbx)
+    state = {k: to_groups(planes[k], nby, nbx, group)
+             for k in STATE_NAMES[:11]}
+    n_g = nby * nbx * TILE_SUB * LANE // group
+    g_tile = torch.arange(n_g, device=ca.device) // (TILE_SUB * LANE
+                                                     // group)
+    return ca, nby, nbx, state, g_tile
+
+
+def frame_bounce0_plain(scene: Scene, cam: Camera, tab: Tensor,
+                        cnts: Tensor, c_max: int, work: bool = False,
+                        group: int = GROUP):
+    """Plain version of the frame kernel -> dict of [h_pad, w_pad] state
+    planes (``STATE_NAMES``; 15, or 18 with normals), plus ``"chunks"``
+    [groups, 3] (chunks scanned per exit group of ``group`` rays and class,
+    in :func:`to_groups` order) when ``work``."""
+    ca, nby, nbx, state, g_tile = _frame_groups(scene, cam, tab, cnts, c_max,
+                                                group)
     out, chunks = bounce_tile_plain(
         tab, c_max, g_tile, cnts[g_tile], ca[21:24], ca[24:27], ca[16:19],
         state, **_flags(scene))
-    res = {k: from_groups(v, nby, nbx) for k, v in out.items()}
+    res = {k: from_groups(v, nby, nbx, group) for k, v in out.items()}
     if work:
         res["chunks"] = chunks
     return res
+
+
+def frame_need(scene: Scene, cam: Camera, tab: Tensor, cnts: Tensor,
+               c_max: int, t: Tensor) -> Tensor:
+    """The chunks of each segment each bounce-0 ray needs, given its final
+    ``t`` plane [h_pad, w_pad] (:func:`need_plain`) -> [h_pad, w_pad, 3]
+    i32."""
+    ca, nby, nbx, state, g_tile = _frame_groups(scene, cam, tab, cnts, c_max,
+                                                TILE_SUB * LANE)
+    need = need_plain(tab, c_max, g_tile, cnts[g_tile], ca[21:24],
+                      ca[24:27], state, to_groups(t, nby, nbx,
+                                                  TILE_SUB * LANE))
+    return torch.stack([from_groups(need[..., k], nby, nbx, TILE_SUB * LANE)
+                        for k in range(3)], -1)
 
 
 def launch_frame(tab: Tensor, cnts: Tensor, cam_arr: Tensor, c_max: int,
@@ -511,7 +628,8 @@ def launch_frame(tab: Tensor, cnts: Tensor, cam_arr: Tensor, c_max: int,
                  has_trans: bool, want_normal: bool, work: bool = False):
     """Launch ``tiled_frame_kernel`` (B7) on the current stream -> dict of
     [h_pad, w_pad] planes (status and pid are int32 views), plus
-    ``"chunks"`` when ``work``. Does not synchronize."""
+    ``"chunks"`` (per warp, as :func:`frame_bounce0_plain` gives them for
+    ``group=GROUP``) when ``work``. Does not synchronize."""
     dev = cam_arr.device
     if dev.type != "cuda":
         raise ValueError(f"the tiled frame kernel needs CUDA tensors, got "
@@ -520,6 +638,7 @@ def launch_frame(tab: Tensor, cnts: Tensor, cam_arr: Tensor, c_max: int,
           (nby * nbx * c_max, N_ATTR), dev)
     _need(cnts, "candidate counts", torch.float32, (nby * nbx, 8), dev)
     _need(cam_arr, "camera array", torch.float32, (TCAM_SLOTS,), dev)
+    _aligned(tab)
     hp, wp = nby * TILE_SUB, nbx * LANE
     n_out = 18 if want_normal else 15
     out = torch.empty((n_out, hp, wp), dtype=torch.float32, device=dev)
@@ -562,9 +681,17 @@ def frame_bounce0(scene: Scene, cam: Camera, tab: Tensor, cnts: Tensor,
 # ---------------------------------------------------------------------------
 
 def group_rows(wave_sub: int) -> int:
-    """Rows per exit group for packets of ``wave_sub`` rows: GROUP_SUB
-    when it divides the packet, else one (a group never spans packets)."""
+    """Rows per exit group of the first design (256-thread blocks) for
+    packets of ``wave_sub`` rows: GROUP_SUB when it divides the packet,
+    else one (a group never spans packets)."""
     return GROUP_SUB if wave_sub % GROUP_SUB == 0 else 1
+
+
+def _aligned(tab: Tensor) -> None:
+    if tab.data_ptr() % 16:
+        raise ValueError("the candidate table must start on a 16-byte "
+                         "boundary (the kernels copy 8-byte pieces of its "
+                         "rows)")
 
 
 def _wave_inputs(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
@@ -596,21 +723,28 @@ def _wave_inputs(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
     return arr.contiguous(), rows
 
 
+def _wave_groups(cols, rows: int, wave_sub: int, group: int, dev):
+    """The wavefront's state as exit groups -> (state {name: [G,
+    group]}, g_tile [G])."""
+    _check_group(group, wave_sub * LANE)
+    n_g = rows * LANE // group
+    g_tile = torch.arange(n_g, device=dev) // (wave_sub * LANE // group)
+    state = {k: c.reshape(n_g, group) for k, c in zip(STATE_NAMES[:11], cols)}
+    return state, g_tile
+
+
 def wave_bounce_plain(scene: Scene, cols, tab: Tensor, cnts: Tensor,
                       c_max: int, wave_sub: int = WAVE_SUB,
-                      static_bases=None, work: bool = False):
+                      static_bases=None, work: bool = False,
+                      group: int = GROUP):
     """Plain version of the wavefront kernel -> dict of [rows, LANE] planes
-    (``STATE_NAMES``; 15, or 18 with normals), plus ``"chunks"`` [groups,
-    3] when ``work``. ``cols`` holds the 11 input planes (ox .. path,
-    status), packet p = rows [p * wave_sub, (p + 1) * wave_sub) with table
-    p and counts row p."""
+    (``STATE_NAMES``; 15, or 18 with normals), plus ``"chunks"`` [rays /
+    group, 3] (chunks scanned per exit group of ``group`` consecutive rays
+    and class) when ``work``. ``cols`` holds the 11 input planes (ox ..
+    path, status), packet p = rows [p * wave_sub, (p + 1) * wave_sub) with
+    table p and counts row p; ``group`` divides the packet's rays."""
     arr, rows = _wave_inputs(scene, cols, tab, cnts, c_max, wave_sub)
-    gr = group_rows(wave_sub)
-    n_g = rows // gr
-    dev = arr.device
-    g_tile = torch.arange(n_g, device=dev) // (wave_sub // gr)
-    state = {k: c.reshape(n_g, gr * LANE)
-             for k, c in zip(STATE_NAMES[:11], cols)}
+    state, g_tile = _wave_groups(cols, rows, wave_sub, group, arr.device)
     out, chunks = bounce_tile_plain(
         tab, c_max, g_tile, cnts[g_tile], arr[21:24], arr[24:27], arr[16:19],
         state, static_bases=static_bases, **_flags(scene))
@@ -620,32 +754,48 @@ def wave_bounce_plain(scene: Scene, cols, tab: Tensor, cnts: Tensor,
     return res
 
 
+def wave_need(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
+              t: Tensor, wave_sub: int = WAVE_SUB,
+              static_bases=None) -> Tensor:
+    """The chunks of each segment each ray of a wavefront needs, given its
+    final ``t`` plane [rows, LANE] (:func:`need_plain`; the counterpart of
+    ``nearest_hit.listed_need``) -> [rows * LANE, 3] i32."""
+    arr, rows = _wave_inputs(scene, cols, tab, cnts, c_max, wave_sub)
+    packet = wave_sub * LANE
+    state, g_tile = _wave_groups(cols, rows, wave_sub, packet, arr.device)
+    need = need_plain(tab, c_max, g_tile, cnts[g_tile], arr[21:24],
+                      arr[24:27], state, t.reshape(-1, packet),
+                      static_bases)
+    return need.reshape(-1, 3)
+
+
 def launch_wave(scene: Scene, cols, tab: Tensor, cnts: Tensor, c_max: int,
                 wave_sub: int = WAVE_SUB, static_bases=None,
                 work: bool = False):
     """Launch ``tiled_wave_kernel`` (B7-wave) on the current stream -> the
-    planes of :func:`wave_bounce_plain` (status and pid are int32 views).
-    Does not synchronize."""
+    planes of :func:`wave_bounce_plain` (status and pid are int32 views;
+    ``"chunks"`` per warp, as the plain version gives them for
+    ``group=GROUP``). Does not synchronize."""
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"the tiled wavefront kernel needs CUDA tensors, "
                          f"got {dev}")
     arr, rows = _wave_inputs(scene, cols, tab, cnts, c_max, wave_sub)
+    _aligned(tab)
     f32 = torch.float32
     state = torch.stack([c if c.dtype == f32 else c.to(torch.int32).view(f32)
                          for c in cols]).contiguous()
     flags = _flags(scene)
     n_out = 18 if flags["want_normal"] else 15
     out = torch.empty((n_out, rows, LANE), dtype=f32, device=dev)
-    gr = group_rows(wave_sub)
-    chunks = (torch.zeros((rows // gr, 3), dtype=torch.int32, device=dev)
-              if work else None)
+    chunks = (torch.zeros((rows * LANE // GROUP, 3), dtype=torch.int32,
+                          device=dev) if work else None)
     sb = (-1, -1) if static_bases is None else tuple(int(b)
                                                      for b in static_bases)
     lib = _build.load()
     err = lib.rt_tiled_wave(
         _ptr(tab), c_max, _ptr(cnts), _ptr(arr), _ptr(state), rows, wave_sub,
-        gr, sb[0], sb[1], int(flags["want_uv"]), int(flags["sky_solid"]),
+        sb[0], sb[1], int(flags["want_uv"]), int(flags["sky_solid"]),
         int(flags["has_trans"]), int(flags["want_normal"]), _ptr(out),
         _ptr(chunks), dev.index, _build.stream(dev))
     _build.check(lib, err, "tiled_wave_kernel")

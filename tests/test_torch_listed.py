@@ -233,8 +233,11 @@ def test_listed_dispatch_padding_and_refusals():
     assert torch.isinf(l_tlo[3:]).all() and (l_ids[3:] == 0).all()
     assert torch.isinf(li.tabs.sph[3, ps.n_spheres:]).all()
     assert li.tabs.sph.shape[1] % nh.BLOCK_K == 0
-    # the kernel's array-of-structs copy of the padded sphere table
-    assert torch.equal(li.sph4, li.tabs.sph.T) and li.sph4.is_contiguous()
+    # the kernel's array-of-structs copy of the padded sphere table, and its
+    # edge form of the padded triangle table
+    st = li.stream
+    assert torch.equal(st.sph4, li.tabs.sph.T) and st.sph4.is_contiguous()
+    assert torch.equal(st.tri, nh.edge_table(li.tabs.tri))
     with pytest.raises(ValueError, match="power of two"):
         nh.nearest_hit_listed_plain(sw[0], org, d, tile_ids=ids, group=48)
     with pytest.raises(ValueError, match="CUDA"):
@@ -245,7 +248,8 @@ def test_listed_dispatch_padding_and_refusals():
     t4, pid4 = nh.nearest_hit_culled_plain(sw[0], org, d, sw[1][1])
     assert torch.equal(t3, t4) and torch.equal(pid3, pid4)
     with pytest.raises(ValueError, match="CUDA"):
-        nh.launch_culled(nh.pack_tables(sw[0]), org, d, sw[1][1])
+        nh.launch_culled(nh.stream_tables(nh.pack_tables(sw[0])), org, d,
+                         sw[1][1])
     assert nh.LAUNCHES == {"scalar": 0, "dense": 0, "listed": 0,
                            "culled": 0}
 

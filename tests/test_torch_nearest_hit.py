@@ -1,9 +1,13 @@
 """Kernels B3 (scalar) and B4 (dense): their plain versions against the
 reference's Pallas kernels (interpret mode on the CPU), the CPU dispatch,
-and the PALLAS routing of ``ops/trace.nearest_hit``.
+the PALLAS routing of ``ops/trace.nearest_hit``, and the edge form of the
+triangle table the streaming kernels (B4, B6, B8) read.
 
 Tolerance: t within rtol 1e-5 / atol 1e-6 and equal pids, except proven
-winner flips (``utils/parity.compare_hits``), at most 0.1% of the rays."""
+winner flips (``utils/parity.compare_hits``), at most 0.1% of the rays; the
+edge form against the vertex form: bit for bit."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +24,7 @@ from raytracer_js_tpu_torch.ops import trace as ptrace
 from raytracer_js_tpu_torch.utils import parity
 
 from scenes import config1_scene
-from test_torch_parity import to_port_scene
+from test_torch_parity import ROOT, load_by_path, to_port_scene
 
 _KERNELS = {
     "scalar": (nh.nearest_hit_pallas_scalar_plain,
@@ -206,7 +210,7 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         nh.launch_scalar(tabs, org, d)
     with pytest.raises(ValueError, match="CUDA"):
-        nh.launch_dense(tabs, org, d)
+        nh.launch_dense(nh.stream_tables(tabs), org, d)
     assert nh.LAUNCHES == {"scalar": 0, "dense": 0, "listed": 0,
                            "culled": 0}
 
@@ -270,3 +274,113 @@ def test_pallas_dispatch_by_prim_count(monkeypatch, n, want):
     assert not t.requires_grad
     bt, bpid = ptrace.nearest_hit_brute(ps, org.detach(), d)
     assert torch.equal(pid, bpid)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _edge_fields():
+    """The triangle edge/vertex field of ``chip_smoke.py`` (rays aimed at
+    shared grid vertices and edge midpoints, and at free triangles'
+    vertices) and a near-miss field: camera rays over the same triangles,
+    most of which pass close to an edge -> {name: (scene, org, dir)}."""
+    smoke = load_by_path("chip_smoke", ROOT / "chip_smoke.py")
+    scene, org, d = smoke.tri_edge_field(device="cpu")
+    co, cd = camera_rays(48, 40)
+    return {"edge_vertex": (scene, org, d),
+            "near_miss": (scene, torch.as_tensor(co), torch.as_tensor(cd))}
+
+
+@pytest.mark.parametrize("field", ["edge_vertex", "near_miss"])
+def test_triangle_edge_form_is_the_vertex_form(field):
+    """The streaming kernels read triangles as (v0, e1 = v1 - v0, e2 = v2 -
+    v0), subtracted once on the table's device: the edge table equals the
+    in-test subtraction bit for bit, the test on it equals the vertex-form
+    test bit for bit, and padded triangles are never hit."""
+    scene, org, d = _edge_fields()[field]
+    tabs = nh.pack_tables(scene)
+    tri = tabs.tri
+    edges = nh.edge_table(tri)
+    assert torch.equal(_bits(edges[0:3]), _bits(tri[0:3]))
+    assert torch.equal(_bits(edges[3:6]), _bits(tri[3:6] - tri[0:3]))
+    assert torch.equal(_bits(edges[6:9]), _bits(tri[6:9] - tri[0:3]))
+    r = nh._rays(org, d)
+    t_v, t_e = nh._tri(r, tri), nh._tri_edges(r, edges)
+    assert torch.equal(_bits(t_v), _bits(t_e))
+    hits = torch.isfinite(t_v).any(dim=1)
+    assert 0.05 < float(hits.float().mean()) < 0.99
+    # the streaming tables: padded to whole tiles, padding all-zero edges
+    st = nh.stream_tables(tabs)
+    assert st.tri.shape == (9, -(-tabs.n_tri // nh.BLOCK_K) * nh.BLOCK_K)
+    assert torch.equal(_bits(st.tri[:, :tabs.n_tri]), _bits(edges))
+    assert not st.tri[:, tabs.n_tri:].any()
+    pad = nh._tri_edges(r, st.tri[:, tabs.n_tri:])
+    assert bool(torch.isinf(pad).all())
+
+
+@pytest.mark.parametrize("field", ["edge_vertex", "near_miss"])
+def test_divide_skip_never_rejects_a_hit(field):
+    """The kernels' warp-uniform skip of 1 / det and the tail: its
+    predicate holds on no lane whose test passes (so a warp that skips
+    folds nothing it would have), and it holds on many lanes that miss."""
+    scene, org, d = _edge_fields()[field]
+    edges = nh.edge_table(nh.pack_tables(scene).tri)
+    r = nh._rays(org, d)
+    t = nh._tri_edges(r, edges)
+    miss = nh.tri_certain_miss(r, edges)
+    assert not bool((miss & torch.isfinite(t)).any())
+    assert float(miss.float().mean()) > 0.5
+    # on padded (all-zero) triangles every lane certainly misses
+    assert bool(nh.tri_certain_miss(r, torch.zeros((9, 3))).all())
+
+
+def test_dense_splits_merge_to_the_unsplit_scan():
+    """B4 splits each block's scan over tile ranges of every class (boxes
+    in split 0) and merges the splits' (t, pid) by the least t, a tie to
+    the lowest pid: that rule, written out here on the plain side, gives
+    the unsplit scan's t and pid bit for bit, with ties in t across a split
+    present. This checks the rule, not the CUDA merge (nh_merge_kernel has
+    no CPU form): chip_smoke.py holds the kernel to the plain scan bit for
+    bit on split scans, ties across a split among them (B4 case i). The
+    split count follows the tiles and is capped by the partial results'
+    size."""
+    ps = to_port_scene(near_miss_field(600))
+    org, d = map(torch.as_tensor, camera_rays(24, 24))
+    tabs = nh.pack_tables(ps)
+    # sphere 256 (the first of tile 2) is a copy of sphere 255 (the last of
+    # tile 1): exact ties in t across a split boundary
+    tabs = dataclasses.replace(tabs, sph=torch.cat(
+        [tabs.sph[:, :256], tabs.sph[:, 255:599]], 1))
+    off = torch.tensor([[-0.3, 0.02 * k, -0.01 * k] for k in range(8)])
+    org = torch.cat([org, ps.sphere_center[255] + off])
+    d = torch.cat([d, torch.tensor([[1.0, 0.0, 0.0]]).expand(8, 3)])
+    want_t, want_pid = nh._search_plain(tabs, org, d, nh._sphere_dense)
+    r = nh._rays(org, d)
+    t_all = nh._sphere_dense(r, tabs.sph)                  # [rays, 600]
+    n_t = -(-tabs.n_sph // nh.BLOCK_K)
+    for splits in (2, 3, 5):
+        t_best = torch.full_like(want_t, float("inf"))
+        pid = torch.full_like(want_pid, -1)
+        for s in range(splits):
+            lo = n_t * s // splits * nh.BLOCK_K
+            hi = min(n_t * (s + 1) // splits * nh.BLOCK_K, tabs.n_sph)
+            if lo >= hi:
+                continue
+            ts, ks = t_all[:, lo:hi].min(dim=1)
+            ps_ = torch.where(torch.isfinite(ts), ks + lo, -1)
+            take = (ps_ >= 0) & ((pid < 0) | (ts < t_best)
+                                 | ((ts == t_best) & (ps_ < pid)))
+            t_best = torch.where(take, ts, t_best)
+            pid = torch.where(take, ps_, pid)
+        assert torch.equal(_bits(t_best), _bits(want_t))
+        assert torch.equal(pid.to(torch.int32), want_pid)
+    # the copy's ties go to the lower pid
+    assert bool((want_pid == 255).any()) and not bool((want_pid == 256).any())
+    st = nh.stream_tables(nh.pack_tables(to_port_scene(near_miss_field(
+        5000))))
+    assert nh.dense_splits(st, 65536) == 2
+    assert nh.dense_splits(st, 1 << 21) == 2
+    assert nh.dense_splits(st, 1 << 22) == 1
+    small = nh.stream_tables(nh.pack_tables(ps))
+    assert nh.dense_splits(small, 1000) == 1

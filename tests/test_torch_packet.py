@@ -21,6 +21,7 @@ Tolerances, each with its reason:
   hits whose difference float32 rounding explains (the mirror map of
   ``test_torch_tiled._assert_planes``)."""
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -267,12 +268,13 @@ def _assert_wave_planes(ps, org, dirs, port, ref):
         assert rep["ok"], (group, rep)
 
 
-@pytest.mark.parametrize("name", sorted(_WAVE))
-def test_wave_bounce_plain_matches_reference(name):
+@functools.lru_cache(maxsize=None)
+def _wave_case(name):
+    """One wavefront case, its packet tables and the reference's planes
+    (computed once per module worker)."""
     make, wavefront, kind, size, wave_sub = _WAVE[name]
     js = make()
     ps, cols = wavefront(js, _CAM)
-    n = cols[0].numel()
     packet = wave_sub * tt.LANE
     org = torch.stack([c.reshape(-1) for c in cols[0:3]], -1)
     dirs = torch.stack([c.reshape(-1) for c in cols[3:6]], -1)
@@ -286,17 +288,36 @@ def test_wave_bounce_plain_matches_reference(name):
         tab, cnts, t_safe = pcand.packet_candidates(ps, org, dirs, alive,
                                                     packet, size)
         c_max, bases = size, None
-    port = tt.wave_bounce(ps, cols, tab, cnts, c_max, wave_sub=wave_sub,
-                          static_bases=bases, work=True)
     ref = jtt.wave_bounce(js, [jnp.asarray(c.numpy()) for c in cols],
                           jnp.asarray(tab.numpy()), jnp.asarray(cnts.numpy()),
                           c_max, wave_sub=wave_sub, static_bases=bases)
+    return ps, cols, org, dirs, (tab, cnts, t_safe, c_max, bases), ref
+
+
+@pytest.mark.parametrize("rule", ["warp", "block"])
+@pytest.mark.parametrize("name", sorted(_WAVE))
+def test_wave_bounce_plain_matches_reference(name, rule):
+    """Exit groups of one warp (32 rays, the kernel's) or of the first
+    design's blocks (two rows of 128, one row for one-row packets): every
+    plane against the reference's."""
+    wave_sub = _WAVE[name][4]
+    ps, cols, org, dirs, (tab, cnts, t_safe, c_max, bases), ref = \
+        _wave_case(name)
+    n = cols[0].numel()
+    group = tt.GROUP if rule == "warp" else tt.LANE * tt.group_rows(wave_sub)
+    port = tt.wave_bounce_plain(ps, cols, tab, cnts, c_max, wave_sub=wave_sub,
+                                static_bases=bases, work=True, group=group)
+    if rule == "warp":
+        # the CPU wrapper is the plain version with the kernel's group
+        same = tt.wave_bounce(ps, cols, tab, cnts, c_max, wave_sub=wave_sub,
+                              static_bases=bases, work=True)
+        assert all(torch.equal(same[k], port[k]) for k in port)
     flags = tt._flags(ps)
     assert set(port) == set(tt.STATE_NAMES[:18 if flags["want_normal"]
                                            else 15]) | {"chunks"}
     assert port["status"].dtype == torch.int32 and tt.LAUNCHES["wave"] == 0
     chunks = port.pop("chunks")
-    assert chunks.shape == (n // (tt.LANE * tt.group_rows(wave_sub)), 3)
+    assert chunks.shape == (n // group, 3)
     assert int(chunks.sum()) > 0
     _assert_wave_planes(ps, org, dirs, port, ref)
     # rays the tables leave unresolved pass through unchanged
@@ -308,13 +329,51 @@ def test_wave_bounce_plain_matches_reference(name):
     for k in tt.STATE_NAMES[:10]:
         assert torch.equal(port[k].reshape(-1)[unres],
                            cols[tt.STATE_NAMES.index(k)].reshape(-1)[unres])
-    # rays at the bounce cap, and dead rays, are not touched
+    # rays at the bounce cap, and dead rays, are not touched and fold
+    # nothing
     keep = st_in != _ALIVE
     assert torch.equal(st_out[keep], st_in[keep])
+    assert bool(torch.isinf(port["t"].reshape(-1)[keep]).all())
     if name == "image":
         assert flags["want_uv"]
     if name == "rough_glass":
         assert flags["want_normal"] and flags["has_trans"]
+
+
+def _per_ray(chunks, group):
+    """Chunks per exit group [G, 3] -> per ray [G * group, 3]."""
+    return chunks.repeat_interleave(group, dim=0)
+
+
+@pytest.mark.parametrize("name", ["image", "wave_sub_1"])
+def test_wave_need_within_warp_within_block(name):
+    """On a divergent wavefront (mirror continuations out of bounce 0): the
+    exit group changes no plane (bit for bit), and each ray needs no more
+    chunks than its warp scans, which scans no more than the first
+    design's block; the warps scan less than the blocks."""
+    ps, cols, _org, _dirs, (tab, cnts, _ts, c_max, bases), _ref = \
+        _wave_case(name)
+    wave_sub = _WAVE[name][4]
+    blk = tt.LANE * tt.group_rows(wave_sub)
+    run = {g: tt.wave_bounce_plain(ps, cols, tab, cnts, c_max, wave_sub,
+                                   bases, work=True, group=g)
+           for g in (tt.GROUP, blk)}
+    warp, block = run[tt.GROUP].pop("chunks"), run[blk].pop("chunks")
+    assert all(torch.equal(parity_bits(run[tt.GROUP][k]),
+                           parity_bits(run[blk][k])) for k in run[blk])
+    need = tt.wave_need(ps, cols, tab, cnts, c_max, run[tt.GROUP]["t"],
+                        wave_sub, bases)
+    assert need.shape == (cols[0].numel(), 3) and need.dtype == torch.int32
+    w, b = _per_ray(warp, tt.GROUP), _per_ray(block, blk)
+    assert bool((need <= w).all()) and bool((w <= b).all())
+    assert int(w.sum()) < int(b.sum())
+    alive = (cols[10] == _ALIVE).reshape(-1)
+    assert bool((need[~alive] == 0).all()) and int(need.sum()) > 0
+
+
+def parity_bits(x):
+    """A plane as int32 bits, so a bit-for-bit comparison holds NaNs."""
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
 
 
 def test_wave_inputs_are_checked():
@@ -333,3 +392,5 @@ def test_wave_inputs_are_checked():
         tt.launch_wave(ps, cols, tab, cnts, grid.c_max,
                        static_bases=grid.base[1:])
     assert (tt.group_rows(8), tt.group_rows(1), tt.group_rows(3)) == (2, 1, 1)
+    with pytest.raises(ValueError, match="exit group"):
+        tt.wave_bounce_plain(ps, cols, tab, cnts, grid.c_max, group=2048)

@@ -141,13 +141,51 @@ def test_frame_bounce0_plain_matches_reference(name):
 
 
 def test_group_layout_round_trips():
+    """Warps (the kernels' exit groups: 32 rays of a row, in the order of
+    their work rows) and the first design's 256-ray blocks (two rows)."""
     x = torch.arange(64 * 256, dtype=torch.float32).reshape(64, 256)
     g = tt.to_groups(x, 2, 2)
-    assert g.shape == (2 * 2 * tt.GROUPS_PER_TILE, tt.GROUP_SUB * tt.LANE)
-    # group 1 of tile (0, 1): rows 2-3, columns 128-255
-    assert torch.equal(g[tt.GROUPS_PER_TILE + 1],
-                       x[2:4, 128:256].reshape(-1))
+    assert g.shape == (2 * 2 * tt.GROUPS_PER_TILE, tt.GROUP)
+    assert tt.GROUPS_PER_TILE == tt.TILE_SUB * tt.LANE // 32
+    # warp 3 of row 2 of tile (0, 1): row 2, columns 224-255
+    assert torch.equal(g[tt.GROUPS_PER_TILE + 2 * 4 + 3], x[2, 224:256])
     assert torch.equal(tt.from_groups(g, 2, 2), x)
+    blk = tt.to_groups(x, 2, 2, group=tt.GROUP_SUB * tt.LANE)
+    per_tile = tt.TILE_SUB // tt.GROUP_SUB
+    assert blk.shape == (2 * 2 * per_tile, 256)
+    # block 1 of tile (0, 1): rows 2-3, columns 128-255
+    assert torch.equal(blk[per_tile + 1], x[2:4, 128:256].reshape(-1))
+    assert torch.equal(tt.from_groups(blk, 2, 2, group=256), x)
+    with pytest.raises(ValueError, match="exit group"):
+        tt.frame_bounce0_plain(None, None, None, None, 16, group=96)
+
+
+@pytest.mark.parametrize("name", ["edge_tiles", "image_uv_trans"])
+def test_frame_need_within_warp_within_block(name):
+    """Bounce 0 with the kernel's warps and with the first design's 256-ray
+    blocks: every plane bit for bit; each ray needs no more chunks than its
+    warp scans (``frame_need``), which scans no more than its block."""
+    make, cam_args = _B0_CASES[name]
+    ps, pc = to_port_scene(make()), to_port_camera(make_camera(*cam_args))
+    tab, cnts, c_max, _ = prtl.frame_tables(ps, pc)
+    run = {g: tt.frame_bounce0_plain(ps, pc, tab, cnts, c_max, work=True,
+                                     group=g) for g in (tt.GROUP, 256)}
+    warp, block = run[tt.GROUP].pop("chunks"), run[256].pop("chunks")
+    for k in run[256]:
+        a, b = run[tt.GROUP][k], run[256][k]
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
+    nby, nbx = -(-pc.h // 32), -(-pc.w // 128)
+    need = tt.frame_need(ps, pc, tab, cnts, c_max, run[tt.GROUP]["t"])
+    assert need.shape == (nby * 32, nbx * 128, 3)
+    per_ray = [torch.stack([tt.from_groups(c[:, k:k + 1].expand(-1, g)
+                                           .contiguous(), nby, nbx, g)
+                            for k in range(3)], -1)
+               for c, g in ((warp, tt.GROUP), (block, 256))]
+    assert bool((need <= per_ray[0]).all())
+    assert bool((per_ray[0] <= per_ray[1]).all())
+    pad = torch.ones_like(run[256]["status"], dtype=torch.bool)
+    pad[:pc.h, :pc.w] = False
+    assert bool((need[pad] == 0).all()) and int(need.sum()) > 0
 
 
 @pytest.fixture(scope="module")
