@@ -18,9 +18,12 @@ Phases, one JSON line each:
   3. B2       — the wavefront kernel against its plain version on (b), (c)
                 and (d), and ``render_rays`` with FUSED; (f) a ray on a
                 mirror box's edge (the x > y > z face tie).
-  4. B3       — the scalar nearest-hit kernel against its plain version:
-                (a) the headline scene's 1920x1088 bounce-0 rays; (b) config
-                1 with glass and a triangle, camera and random rays; (c) a
+  4. B3       — the scalar nearest-hit kernel against its plain version,
+                t and pid bit for bit and the spheres each warp tested equal
+                to the plain form of its cone cull (``nh.scalar_cull``):
+                (a) the headline scene's 1920x1088 bounce-0 and bounce-1
+                rays (as ``record_paths`` searches them); (b) config 1 with
+                glass and a triangle, camera and random rays; (c) a
                 384-sphere near-miss field at 512x512.
   5. B4       — the dense nearest-hit kernel against its plain version, t
                 and pid bit for bit: (a) BASELINE config 3's 512x512
@@ -33,11 +36,14 @@ Phases, one JSON line each:
                 n_live, the scan split).
   6. B5       — the replay forward and backward kernels against their plain
                 versions: (a) a headline 1920x1088 view, winners recorded
-                by B3, a random target; (b) the 9-sphere replay scene at
-                refmax 3 and 4; (c) a 600-sphere listed-class field at
-                512x512, recorded by B4; (d) all-miss rays and rays
-                exhausted at refmax. Then B5's gradients against autograd
-                through the search path on view (a).
+                by B3, a random target; (e) its all-ground pixels packed,
+                so that every warp has one winner; (b) the 9-sphere replay
+                scene at refmax 3 and 4; (c) a 600-sphere listed-class
+                field at 512x512, recorded by B4; (d) all-miss rays and
+                rays exhausted at refmax. Up to 192 prims the backward's
+                sums equal the float32 model of its order
+                (``rg.bwd_sums_model``) bit for bit. Then B5's gradients
+                against autograd through the search path on view (a).
  6b. B7       — the tiled frame kernel against its plain version, every
                 plane bit for bit (and the chunks each warp scanned), and
                 every plane bit for bit against the plain version with the
@@ -115,7 +121,10 @@ Phases, one JSON line each:
                 B7-wave on config 4's first packet round (the need: each
                 ray's chunks up to its own exit, ``wave_need``).
  10. times    — CUDA-event medians of each kernel and its plain version at
-                the main paths' shapes, ``render_hdr`` end to end, and the
+                the main paths' shapes; B3 and B5 also alone, by the
+                profiler (``kernel_ms``), each with its spread and the
+                device work one call issues;
+                ``render_hdr`` end to end, and the
                 gradient path: a replay step for one view, an 8-view fit
                 step and an 8-view recording; config 4's TILED frame, B7,
                 B6 per sweep round, and its PALLAS frame; the packet frames
@@ -125,9 +134,10 @@ Phases, one JSON line each:
                 Then each kernel's bound: the larger of its tests'
                 operations over 67 TFLOP/s (float32) and its bytes in and
                 out over 3.35 TB/s, counted from this run's inputs
-                (``OPS``); B6's, B7's, B7-wave's and B8's from the work the
-                rays need (9e, ``frame_need``), printed beside the bound of
-                what the warps streamed and the time of one streamed test;
+                (``OPS``); B3's, B6's, B7's, B7-wave's and B8's from the
+                work the rays need (9e, ``frame_need``; B3: each ray's own
+                cone), printed beside the bound of what the warps streamed
+                and the time of one streamed test;
                 B7-wave's chunks per warp and time per launch.
 Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
 pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
@@ -632,6 +642,49 @@ def compare_hits(phase, name, scene, org, dir, kernel, plain, **kw):
     return rep, (k_t, k_pid)
 
 
+def compare_scalar(name, scene, org, dir):
+    """B3 against its plain version on one set of rays, both on the card: t
+    and pid bit for bit, and the spheres each warp tested equal to the
+    plain form of its cone cull (``nh.scalar_cull``) -> report."""
+    tabs = nh.pack_tables(scene)
+    k_t, k_pid, k_tested = nh.launch_scalar(tabs, org, dir, work=True)
+    p_t, p_pid = nh.nearest_hit_pallas_scalar_plain(scene, org, dir)
+    kept = nh.scalar_cull(tabs, org, dir)
+    torch.cuda.synchronize()
+    p_tested = kept.sum(dim=1).to(torch.int32)
+    exact = torch.equal(bits(k_t), bits(p_t)) and torch.equal(k_pid, p_pid)
+    work_equal = torch.equal(k_tested, p_tested)
+    rep = dict(rays=org.shape[0], prims=scene.n_prims,
+               spheres=scene.n_spheres, hits=int((k_pid >= 0).sum()),
+               bit_exact=exact, work_equal=work_equal,
+               warps=int(k_tested.numel()),
+               spheres_tested=int(k_tested.sum()),
+               warps_keeping_all=int((k_tested == scene.n_spheres).sum()),
+               max_abs_err=float(torch.where(torch.isfinite(p_t),
+                                             (k_t - p_t).abs(), 0.0).max())
+               if org.shape[0] else 0.0)
+    emit(phase="B3", case=name, **rep)
+    check(exact and work_equal, f"B3 {name}: {rep}")
+    return rep
+
+
+def scalar_inputs(scene, cfg, org, dir):
+    """The rays of each B3 search of a ``record_paths`` run (one a bounce)
+    -> [(org, dir)]."""
+    real, seen = nh.nearest_hit_pallas_scalar, []
+
+    def keep(sc, o, d):
+        seen.append((o.clone(), d.clone()))
+        return real(sc, o, d)
+
+    nh.nearest_hit_pallas_scalar = keep
+    try:
+        record_paths(scene, cfg, org, dir)
+    finally:
+        nh.nearest_hit_pallas_scalar = real
+    return seen
+
+
 def compare_dense(name, scene, org, dir, n_live=None):
     """B4 against its plain version on one set of rays, both on the card: t
     and pid bit for bit; -> (report, (t, pid))."""
@@ -684,21 +737,30 @@ def compare_replay(name, scene, org, dir, pid_seq, refmax, g_color=None):
     sums_ok = all(bool(((a - b).abs() <= 1e-5 * m).all())
                   for a, b, m in zip(k[2:], p[2:], mag))
     repro = [bool(torch.equal(a, b)) for a, b in zip(k, k2)]
-    # above SCAN_MAX_PRIMS the kernel sums spheres with atomics
+    # above SCAN_MAX_PRIMS the kernel sums spheres with atomics; below it,
+    # its sums are the float32 model of its order, bit for bit
     listed = tabs.n_prims > rg.SCAN_MAX_PRIMS
     repro_ok = all(r for i, r in enumerate(repro) if not (listed and i == 2))
+    grid = rg.launch_grid(tabs, org.shape[0], refmax, org.device)
+    model_equal = None
+    if not listed:
+        model = rg.bwd_sums_model(tabs, keys, rows, skies,
+                                  (pid_seq >= 0).T, grid)
+        model_equal = all(torch.equal(bits(a), bits(b))
+                          for a, b in zip(k[2:], model))
     rep = dict(rays=org.shape[0], prims=scene.n_prims, refmax=refmax,
-               hits=int((pid_seq >= 0).sum()), listed=listed,
+               hits=int((pid_seq >= 0).sum()), listed=listed, grid=grid,
                colors_equal=bool(torch.equal(k_col, p_col)),
                color_max_abs_err=err(k_col, p_col),
                g_org_equal=bool(torch.equal(k[0], p[0])),
                g_dir_equal=bool(torch.equal(k[1], p[1])),
                sums_max_err_over_abs_sum=sums_rel, sums_ok=sums_ok,
-               reproducible=repro,
+               sums_equal_order_model=model_equal, reproducible=repro,
                bwd_max_abs_err=max(err(a, b) for a, b in zip(k, p)))
     emit(phase="B5", case=name, **rep)
     check(rep["colors_equal"] and rep["g_org_equal"] and rep["g_dir_equal"]
-          and sums_ok and repro_ok, f"B5 {name}: {rep}")
+          and sums_ok and repro_ok and model_equal is not False,
+          f"B5 {name}: {rep}")
     return rep, k_col
 
 
@@ -1144,9 +1206,9 @@ def launches_now() -> dict:
             "tiled_wave": tt.LAUNCHES["wave"]}
 
 
-def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
-    """Median over ``timed`` runs of one call, each bracketed by CUDA
-    events, after ``warmup`` calls."""
+def event_ms(fn, warmup=WARMUP, timed=TIMED) -> list:
+    """``timed`` runs of one call, each bracketed by CUDA events, after
+    ``warmup`` calls -> their ms."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1159,15 +1221,24 @@ def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
         b.record()
         pairs.append((a, b))
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    return [a.elapsed_time(b) for a, b in pairs]
 
 
-def device_ms_per_call(calls, name, reps=3):
-    """Each call's device time (ms, the mean of ``reps`` runs) of the CUDA
-    kernel whose name holds ``name``, from one ``torch.profiler`` trace of
-    the card: the kernel's own time, without its wrapper's host work or
-    the small kernels that prepare its inputs. None when the trace does
-    not hold one such kernel a run."""
+def cuda_median_ms(fn, warmup=WARMUP, timed=TIMED) -> float:
+    """Median of :func:`event_ms`."""
+    return statistics.median(event_ms(fn, warmup, timed))
+
+
+def spread(xs) -> dict:
+    """Min, median and max of one call's timed runs."""
+    return dict(min=min(xs), median=statistics.median(xs), max=max(xs),
+                runs=len(xs))
+
+
+def device_events(calls, reps):
+    """Run each of ``calls`` ``reps`` times in turn under one
+    ``torch.profiler`` trace of the card -> its device operations as
+    (name, ms) in start order."""
     act = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
@@ -1175,12 +1246,92 @@ def device_ms_per_call(calls, name, reps=3):
             for _ in range(reps):
                 fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if name in e.name and "CUDA" in str(e.device_type)]
-    if len(us) != reps * len(calls):
+    evs = sorted((e for e in prof.events()
+                  if "CUDA" in str(e.device_type)),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() * 1e-3) for e in evs]
+
+
+def device_work(fn, reps=TIMED):
+    """The device operations of each of ``reps`` calls of ``fn`` (after one
+    call outside the trace) -> per call a list of (name, ms) in start
+    order; None when the trace holds no device operation or the calls
+    issue differing counts."""
+    fn()
+    evs = device_events([fn], reps)
+    if not evs or len(evs) % reps:
         return None
-    return [statistics.mean(us[reps * i:reps * (i + 1)]) * 1e-3
-            for i in range(len(calls))]
+    k = len(evs) // reps
+    return [evs[i * k:(i + 1) * k] for i in range(reps)]
+
+
+def kernel_report(fn, family, reps=TIMED):
+    """One wrapper call's time two ways: ``ms`` (CUDA events around the
+    call, which hold its host work) and ``kernel_ms`` (the device time of
+    its kernels whose names hold ``family``, from the profiler), each as
+    the min, median and max over ``reps`` calls in this run; ``device_ms``
+    all its device operations (fills, copies, gathers included), and the
+    list of them with their mean ms. ``kernel_ms`` is None without a
+    device trace."""
+    rep = dict(ms=spread(event_ms(fn, timed=reps)), kernel_ms=None,
+               device_ms=None, device_ops=None)
+    calls = device_work(fn, reps)
+    if calls is None:
+        return rep
+    fam = [sum(ms for n, ms in c if family in n) for c in calls]
+    if min(fam) <= 0.0:
+        return rep
+    rep.update(kernel_ms=spread(fam),
+               device_ms=spread([sum(ms for _, ms in c) for c in calls]),
+               device_ops=[dict(name=n[:96], ms=statistics.mean(
+                   c[j][1] for c in calls)) for j, (n, _) in
+                   enumerate(calls[0])])
+    return rep
+
+
+def median_of(rep):
+    """The median ``kernel_ms`` of a :func:`kernel_report` (None without a
+    device trace)."""
+    return None if rep["kernel_ms"] is None else rep["kernel_ms"]["median"]
+
+
+def ptxas_of(log: str, names) -> dict:
+    """ptxas's report (``-Xptxas=-v``: registers, spills, stack, shared
+    memory) of each entry function whose mangled name holds one of
+    ``names`` -> {name: [lines]}."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if "'" in ln else ln
+            continue
+        if cur is None or not any(k in ln for k in ("registers", "spill",
+                                                     "stack frame")):
+            continue
+        for n in names:
+            if n in cur:
+                out.setdefault(n, []).append(ln.strip())
+    return out
+
+
+#: the entry functions whose ptxas report is printed: B5's kernels at
+#: refmax 2 (the fit's) and B3
+PTXAS_KERNELS = ("replay_bwd_kernelILi2E", "replay_fwd_kernelILi2E",
+                 "nh_scalar_kernel")
+
+
+def device_ms_per_call(calls, name, reps=3):
+    """Each call's device time (ms, the mean of ``reps`` runs) of the CUDA
+    kernel whose name holds ``name``, from one ``torch.profiler`` trace of
+    the card: the kernel's own time, without its wrapper's host work or
+    the small kernels that prepare its inputs. None when two traces in
+    turn do not hold one such kernel a run (a trace has been seen to miss
+    some of a long list of launches)."""
+    for _ in range(2):
+        ms = [t for n, t in device_events(calls, reps) if name in n]
+        if len(ms) == reps * len(calls):
+            return [statistics.mean(ms[reps * i:reps * (i + 1)])
+                    for i in range(len(calls))]
+    return None
 
 
 def main() -> int:
@@ -1215,7 +1366,8 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=build.seconds, library=build.path.name,
          ptxas=[ln.strip() for ln in build.log.splitlines()
-                if "registers" in ln or "spill" in ln])
+                if "registers" in ln or "spill" in ln],
+         ptxas_b3_b5=ptxas_of(build.log, PTXAS_KERNELS))
 
     # ---- 2. B1 against its plain version -----------------------------------
     head = headline_scene(device=dev)
@@ -1262,18 +1414,20 @@ def main() -> int:
 
     # ---- 4. B3 against its plain version -----------------------------------
     org, dir = pixel_rays(head_cam)
-    scalar = (nh.nearest_hit_pallas_scalar, nh.nearest_hit_pallas_scalar_plain)
-    b3 = [compare_hits("B3", "a_headline_bounce0", head, org, dir,
-                       *scalar)[0]]
+    cfg_rep = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    head_b0, head_b1 = scalar_inputs(head, cfg_rep, org, dir)
+    b3 = [compare_scalar("a_headline_bounce0", head, *head_b0)]
+    b3.append(compare_scalar("a_headline_bounce1", head, *head_b1))
     o256, d256 = pixel_rays(cam256)
     o_r, d_r = random_rays(3001, seed=5, device=dev)
-    b3.append(compare_hits("B3", "b_config1_glass_tri", glass,
-                           torch.cat([o256, o_r]), torch.cat([d256, d_r]),
-                           *scalar)[0])
+    b3.append(compare_scalar("b_config1_glass_tri", glass,
+                             torch.cat([o256, o_r]), torch.cat([d256, d_r])))
     o512, d512 = pixel_rays(cam512)
-    b3.append(compare_hits("B3", "c_near_miss_384", near_miss_field(384,
-                                                                    device=dev),
-                           o512, d512, *scalar)[0])
+    b3.append(compare_scalar("c_near_miss_384", near_miss_field(384,
+                                                                device=dev),
+                             o512, d512))
+    check(b3[0]["spheres_tested"] < b3[0]["warps"] * head.n_spheres,
+          "B3 (a): the headline's bounce-0 warps culled no sphere")
 
     # ---- 5. B4 against its plain version -----------------------------------
     dense = (nh.nearest_hit_pallas, nh.nearest_hit_pallas_plain)
@@ -1303,7 +1457,6 @@ def main() -> int:
           f"B4 (i): the ties did not cross a split to the lower pid: {rep}")
 
     # ---- 6. B5 against its plain version -----------------------------------
-    cfg_rep = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
     pid_head = record_paths(head, cfg_rep, org, dir)            # B3
     n_head = org.shape[0]
     target = torch.as_tensor(np.random.default_rng(11).uniform(
@@ -1313,6 +1466,15 @@ def main() -> int:
                     - target) / n_head
     b5 = [compare_replay("a_headline", head, org, dir, pid_head, 2,
                          g_head)[0]]
+    # (e) the headline's all-ground pixels, packed: every warp's lanes share
+    # one winner at bounce 0 (the ground is diffuse: no bounce 1)
+    ground = torch.nonzero(pid_head[:, 0] == head.n_spheres).flatten()
+    ground = ground[:ground.numel() // 32 * 32]
+    b5.append(compare_replay("e_headline_uniform_ground", head, org[ground],
+                             dir[ground], pid_head[ground], 2,
+                             g_head[ground])[0])
+    check(ground.numel() >= 1 << 19 and bool(
+        (pid_head[ground, 1] < 0).all()), "B5 (e): too few ground pixels")
     rsc = replay_scene(device=dev)
     o64, d64 = pixel_rays(make_camera((0.0, 0.0, 0.5), 64, 64, np.pi / 2,
                                       np.pi / 2, device=dev))
@@ -1956,7 +2118,11 @@ def main() -> int:
     # B3 on the headline wavefront, B4 on config 3's; render_hdr PALLAS
     head_tabs = nh.pack_tables(head)
     c3_st = nh.stream_tables(nh.pack_tables(c3))
-    b3_ms = cuda_median_ms(lambda: nh.launch_scalar(head_tabs, org, dir))
+    # B3 and B5 alone (profiler) beside the events around their wrappers,
+    # each with its spread over this run's timed calls
+    b3_rep = kernel_report(lambda: nh.launch_scalar(head_tabs, org, dir),
+                           "nh_scalar")
+    b3_ms, b3_kernel_ms = b3_rep["ms"]["median"], median_of(b3_rep)
     b3_plain_ms = cuda_median_ms(
         lambda: nh.nearest_hit_pallas_scalar_plain(head, org, dir))
     b4_ms = cuda_median_ms(lambda: nh.launch_dense(c3_st, org3, dir3))
@@ -1969,7 +2135,7 @@ def main() -> int:
         lambda: rt.render_hdr(head, head_cam, cfg_head_p), warmup=2,
         timed=10)
     for what, ms, scene, cam, refmax, frames in (
-            ("B3 kernel (one search)", b3_ms, head, head_cam, 1, TIMED),
+            ("B3 wrapper (one search)", b3_ms, head, head_cam, 1, TIMED),
             ("B3 plain (one search)", b3_plain_ms, head, head_cam, 1, TIMED),
             ("render_hdr PALLAS headline", head_pallas_ms, head, head_cam,
              cfg_head_p.refmax, 10),
@@ -1984,12 +2150,19 @@ def main() -> int:
 
     # B5 on one headline view; the replay step with B5 and with autograd;
     # an 8-view fit step and an 8-view recording
-    b5_fwd_ms = cuda_median_ms(lambda: rg.launch_fwd(
-        tabs_head, org, dir, pid_head, 2, 1.0))
+    b5f_rep = kernel_report(lambda: rg.launch_fwd(
+        tabs_head, org, dir, pid_head, 2, 1.0), "replay_fwd")
+    b5_fwd_ms, b5_fwd_kernel_ms = b5f_rep["ms"]["median"], median_of(b5f_rep)
     b5_fwd_plain_ms = cuda_median_ms(lambda: rg.replay_fwd_plain(
         tabs_head, org, dir, pid_head, 2, 1.0), warmup=1, timed=5)
-    b5_bwd_ms = cuda_median_ms(lambda: rg.launch_bwd(
-        tabs_head, org, dir, pid_head, g_head, 2, 1.0))
+    b5b_rep = kernel_report(lambda: rg.launch_bwd(
+        tabs_head, org, dir, pid_head, g_head, 2, 1.0), "replay_")
+    b5_bwd_ms, b5_bwd_kernel_ms = b5b_rep["ms"]["median"], median_of(b5b_rep)
+    for what, rep in (("B3 alone (one headline search)", b3_rep),
+                      ("B5 fwd alone (one view)", b5f_rep),
+                      ("B5 bwd alone (one view)", b5b_rep)):
+        emit(phase="times", what=what, **rep, timing=MS_TIMING,
+             kernel_timing=KERNEL_MS_TIMING, card=name, nvidia_smi=smi)
     b5_bwd_plain_ms = cuda_median_ms(lambda: rg.replay_bwd_plain(
         tabs_head, org, dir, pid_head, g_head, 2, 1.0), warmup=1, timed=5)
     step_b5_ms = cuda_median_ms(lambda: replay_grads(
@@ -2012,9 +2185,9 @@ def main() -> int:
     fit_step_ms = host_median_ms(fit_step)
     views = len(cams)
     for what, ms, n_views, frames in (
-            ("B5 fwd kernel (one view)", b5_fwd_ms, 1, TIMED),
+            ("B5 fwd wrapper (one view)", b5_fwd_ms, 1, TIMED),
             ("B5 fwd plain (one view)", b5_fwd_plain_ms, 1, 5),
-            ("B5 bwd kernel (one view)", b5_bwd_ms, 1, TIMED),
+            ("B5 bwd wrapper (one view)", b5_bwd_ms, 1, TIMED),
             ("B5 bwd plain (one view)", b5_bwd_plain_ms, 1, 5),
             ("replay value_and_grad step, B5 (one view)", step_b5_ms, 1,
              10),
@@ -2202,7 +2375,29 @@ def main() -> int:
     head_tab = 4 * (13 * head.n_spheres + 13 * head.n_boxes + 17 * head.n_tris)
     b1_bound = bound(alive * class_ops(head), 16 * n_head + head_tab)
     b2_bound = bound(alive * class_ops(head), 44 * n_head + head_tab)
-    b3_bound = bound(n_head * class_ops(head), 32 * n_head + head_tab)
+    # B3 on the headline's bounce-0 rays: every ray against every prim; the
+    # tests the rays need (each ray's own cone, ``group=1``: its spheres;
+    # boxes and triangles dense); those the warps ran (each warp's kept
+    # spheres against its rays)
+    b3_bytes = 32 * n_head + head_tab + 16 * head.n_spheres
+    b3_bound = bound(n_head * class_ops(head), b3_bytes)
+    b3_dense = n_head * (head.n_boxes * OPS["box"] + head.n_tris * OPS["tri"])
+    b3_need = int(nh.scalar_cull(head_tabs, org, dir, group=1).sum())
+    warp_rays = torch.full((-(-n_head // 32),), 32.0, device=dev)
+    warp_rays[-1] = n_head - 32 * (warp_rays.numel() - 1)
+    b3_streamed = float((nh.scalar_cull(head_tabs, org, dir).sum(1)
+                         * warp_rays).sum())
+    b3_bound_need = bound(b3_need * OPS["sphere"] + b3_dense, b3_bytes)
+    b3_bound_streamed = bound(b3_streamed * OPS["sphere"] + b3_dense,
+                              b3_bytes)
+    emit(phase="bounds", kernel="B3", rays=n_head,
+         sphere_tests_all=n_head * head.n_spheres,
+         sphere_tests_streamed=b3_streamed, sphere_tests_needed=b3_need,
+         bound_ms=b3_bound_need[0], bound_by=b3_bound_need[1],
+         bound_ms_needed=b3_bound_need[0],
+         bound_ms_streamed=b3_bound_streamed[0],
+         bound_ms_all_tests=b3_bound[0],
+         ms=b3_ms, kernel_ms=b3_kernel_ms, card=name, nvidia_smi=smi)
     b4_bound = bound(n_c3 * class_ops(c3), 32 * n_c3 + 4 * (
         4 * c3.n_spheres + 6 * c3.n_boxes + 9 * c3.n_tris))
     b5f_bound = bound(n_head * 2 * OPS["replay_fwd"], n_head * (24 + 8 + 12))
@@ -2350,15 +2545,21 @@ def main() -> int:
             launches["rays"], worst(b2), b2_ms, b2_plain_ms, b2_bound),
         row("nh_scalar_kernel", NH_SOURCE, src + "nearest_hit.py:702",
             head_launches["scalar"], worst(b3), b3_ms, b3_plain_ms,
-            b3_bound),
+            b3_bound_need, kernel_ms=b3_kernel_ms,
+            kernel_timing=KERNEL_MS_TIMING,
+            bound_ms_needed=b3_bound_need[0],
+            bound_ms_streamed=b3_bound_streamed[0],
+            bound_ms_all_tests=b3_bound[0]),
         row("nh_dense_kernel", NH_SOURCE, src + "nearest_hit.py:91",
             c3_launches["dense"], worst(b4), b4_ms, b4_plain_ms, b4_bound),
         row("replay_fwd_kernel", REPLAY_SOURCE, src + "replay_grad.py:399",
             fit_launches["fwd"], worst(b5, "color_max_abs_err"), b5_fwd_ms,
-            b5_fwd_plain_ms, b5f_bound),
+            b5_fwd_plain_ms, b5f_bound, kernel_ms=b5_fwd_kernel_ms,
+            kernel_timing=KERNEL_MS_TIMING),
         row("replay_bwd_kernel", REPLAY_SOURCE, src + "replay_grad.py:592",
             fit_launches["bwd"], worst(b5, "bwd_max_abs_err"), b5_bwd_ms,
-            b5_bwd_plain_ms, b5b_bound),
+            b5_bwd_plain_ms, b5b_bound, kernel_ms=b5_bwd_kernel_ms,
+            kernel_timing=KERNEL_MS_TIMING),
         row("nh_listed_kernel", NH_SOURCE, src + "nearest_hit.py:155",
             c4_launches["listed"], worst(b6), b6_ms, b6_plain_ms, b6_bound),
         row("tiled_frame_kernel", TILED_SOURCE, src + "trace_tiled.py:468",
@@ -2377,15 +2578,66 @@ def main() -> int:
     return 0
 
 
-def frame_times() -> int:
-    """``python3 chip_smoke.py --frame-times``: the frames whose time is
-    mostly host work, each a median of CUDA events around ``render_hdr``,
-    and nothing else: config 4 TILED in sweep mode (B6), in packet mode and
-    through B8 (tables cached), the 1.1M-sphere packet frame, and config 3
-    PALLAS. It calls only entry points that earlier trees of the port share,
-    so a copy of this script placed at the root of another checkout times
-    that checkout's package: run two trees in turns in one session to tell
-    a change from the host's drift. Prints the card and one JSON line."""
+def headline_times(dev) -> dict:
+    """The headline's rows of ``--frame-times``: B3 (one bounce-0 search)
+    and B5 (one view's forward and backward) alone, each by CUDA events
+    around the wrapper and by the profiler (:func:`kernel_report`); the
+    PALLAS frame; the 8-view recording; the one-view replay step through
+    B5; the 8-view fit step (B5 and Adam on recorded winners). Only entry
+    points and signatures that earlier trees of the port share."""
+    head, cam = headline_scene(device=dev), headline_camera(dev)
+    org, dir = pixel_rays(cam)
+    cfg_p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    cfg_f = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+    n = org.shape[0]
+    pid = record_paths(head, cfg_p, org, dir)
+    target = torch.as_tensor(np.random.default_rng(11).uniform(
+        0.0, 1.0, (n, 3)).astype(np.float32), device=dev)
+    tabs_r = rg.scene_tables(head)
+    g = 2.0 * (rg.launch_fwd(tabs_r, org, dir, pid, 2, 1.0) - target) / n
+    tabs_h = nh.pack_tables(head)
+    cams = fit_cameras(HEADLINE_W, HEADLINE_H, device=dev)
+    targets = torch.stack([rt.render_hdr(head, c, cfg_f).reshape(-1, 3)
+                           for c in cams])
+    start = perturbed(head)
+    recs = record_views(start, cfg_p, cams)
+    params, rebuild = float_partition(start)
+    params = [p.detach().clone().requires_grad_(True) for p in params]
+    adam = torch.optim.Adam(params, lr=1e-2)
+
+    def fit_step():
+        adam.zero_grad(set_to_none=True)
+        replay_loss(rebuild(params), cfg_p, cams, targets, recs).backward()
+        adam.step()
+
+    return dict(
+        b3=kernel_report(lambda: nh.launch_scalar(tabs_h, org, dir),
+                         "nh_scalar"),
+        b5_fwd=kernel_report(lambda: rg.launch_fwd(tabs_r, org, dir, pid, 2,
+                                                   1.0), "replay_fwd"),
+        b5_bwd=kernel_report(lambda: rg.launch_bwd(tabs_r, org, dir, pid, g,
+                                                   2, 1.0), "replay_"),
+        pallas_headline_ms=cuda_median_ms(
+            lambda: rt.render_hdr(head, cam, cfg_p), warmup=2, timed=10),
+        recording_8_views_host_ms=host_median_ms(
+            lambda: record_views(start, cfg_p, cams)),
+        replay_step_b5_ms=cuda_median_ms(lambda: replay_grads(
+            head, cfg_p, org, dir, target, pid), warmup=2, timed=10),
+        fit_step_8_views_host_ms=host_median_ms(fit_step))
+
+
+def frame_times(headline_only: bool = False) -> int:
+    """``python3 chip_smoke.py --frame-times [--headline-only]``: the rows
+    whose time holds host work, and B3 and B5 alone, and nothing else: the
+    headline's rows (:func:`headline_times`), the ptxas report of B3's and
+    B5's kernels, then (unless ``--headline-only``) config 4 TILED in sweep
+    mode (B6), in packet mode and through B8 (tables cached), the
+    1.1M-sphere packet frame, and config 3 PALLAS, each a median of CUDA
+    events around ``render_hdr``. It calls only entry points that earlier
+    trees of the port share, so a copy of this script placed at the root
+    of another checkout times that checkout's package: run two trees in
+    turns in one session to tell a change from the host's drift. Prints
+    the card and one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -2397,40 +2649,47 @@ def frame_times() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    _build.build()
+    build = _build.build()
     _build.load()
-    c3, c3_cam = config3_scene(device=dev), config3_camera(dev)
-    cam = config4_camera(dev)
-    cfg = RenderConfig(refmax=2, backend=HitBackend.TILED)
-    c4 = config4_scene(device=dev)
-    tables = rtl.frame_tables(c4, cam)
-    c4b = config4_scene(C4B_PRIMS, device=dev)
-    tables_b = rtl.frame_tables(c4b, cam)
+    ms = headline_times(dev)
+    ptxas = ptxas_of(build.log, PTXAS_KERNELS)
+    if not headline_only:
+        c3, c3_cam = config3_scene(device=dev), config3_camera(dev)
+        cam = config4_camera(dev)
+        cfg = RenderConfig(refmax=2, backend=HitBackend.TILED)
+        c4 = config4_scene(device=dev)
+        tables = rtl.frame_tables(c4, cam)
+        c4b = config4_scene(C4B_PRIMS, device=dev)
+        tables_b = rtl.frame_tables(c4b, cam)
 
-    def frame_ms(scene, tbl, timed, threshold=SWEEP_MAX_PRIMS, listed=True,
-                 cull=False):
-        rtl.SWEEP_MAX_PRIMS = threshold
-        rtl.SWEEP_LISTED, rtl.SWEEP_CULL = listed, cull
-        try:
-            return cuda_median_ms(lambda: rt.render_hdr(
-                scene, cam, cfg, tables=tbl), warmup=1, timed=timed)
-        finally:
-            rtl.SWEEP_MAX_PRIMS = SWEEP_MAX_PRIMS
-            rtl.SWEEP_LISTED, rtl.SWEEP_CULL = True, False
+        def frame_ms(scene, tbl, timed, threshold=SWEEP_MAX_PRIMS,
+                     listed=True, cull=False):
+            rtl.SWEEP_MAX_PRIMS = threshold
+            rtl.SWEEP_LISTED, rtl.SWEEP_CULL = listed, cull
+            try:
+                return cuda_median_ms(lambda: rt.render_hdr(
+                    scene, cam, cfg, tables=tbl), warmup=1, timed=timed)
+            finally:
+                rtl.SWEEP_MAX_PRIMS = SWEEP_MAX_PRIMS
+                rtl.SWEEP_LISTED, rtl.SWEEP_CULL = True, False
 
-    ms = dict(
-        sweep_config4=frame_ms(c4, tables, 5),
-        packet_config4=frame_ms(c4, tables, 5, threshold=0),
-        cull_config4=frame_ms(c4, tables, 5, listed=False, cull=True),
-        packet_1_1m=frame_ms(c4b, tables_b, 3),
-        pallas_config3=cuda_median_ms(lambda: rt.render_hdr(
-            c3, c3_cam, RenderConfig(refmax=3, backend=HitBackend.PALLAS)),
-            warmup=2, timed=10))
+        ms.update(
+            sweep_config4=frame_ms(c4, tables, 5),
+            packet_config4=frame_ms(c4, tables, 5, threshold=0),
+            cull_config4=frame_ms(c4, tables, 5, listed=False, cull=True),
+            packet_1_1m=frame_ms(c4b, tables_b, 3),
+            pallas_config3=cuda_median_ms(lambda: rt.render_hdr(
+                c3, c3_cam, RenderConfig(refmax=3,
+                                         backend=HitBackend.PALLAS)),
+                warmup=2, timed=10))
     emit(phase="frame_times",
          tree=str(pathlib.Path(rt.__file__).resolve().parent.parent),
-         ms_per_frame=ms, timing=MS_TIMING, card=smi)
+         times=ms, ptxas=ptxas, timing=MS_TIMING,
+         kernel_timing=KERNEL_MS_TIMING, card=smi)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(frame_times() if sys.argv[1:] == ["--frame-times"] else main())
+    if sys.argv[1:2] == ["--frame-times"]:
+        sys.exit(frame_times(sys.argv[2:] == ["--headline-only"]))
+    sys.exit(main())

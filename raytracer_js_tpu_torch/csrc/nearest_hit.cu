@@ -5,7 +5,7 @@
 //
 // What they replace (the reference package's TPU kernels):
 //   nh_scalar_kernel (B3) -> _nh_scalar_kernel
-//       (raytracer_js_tpu/kernels/nearest_hit.py:702, entry
+//       (raytracer_js_tpu/kernels/nearest_hit.py:702, call :834, entry
 //       nearest_hit_pallas_scalar :863): prims streamed one at a time,
 //       for scenes of at most 384 prims.
 //   nh_dense_kernel (B4)  -> _nearest_hit_kernel, body _nearest_hit_block
@@ -18,16 +18,21 @@
 // nearest_hit_pallas_plain, which run the same expressions in the same
 // order; the two kernels differ in their sphere test, as the TPU kernels do.
 //
-// What bounds them on this card: per-ray ALU work. Each thread tests every
-// primitive: an IEEE sqrt per sphere, a slab test per box, and a
+// What bounds them on this card: per-ray ALU work, the tests. B4 tests
+// every primitive: an IEEE sqrt per sphere, a slab test per box, and a
 // Moeller-Trumbore test with an IEEE divide per triangle (config 3: 5124
 // prims, 5120 of them triangles, for each of 262,144 rays per bounce).
 // Device-memory traffic is 24 bytes of ray in and 8 bytes of result out per
 // ray; the tables are at most a few hundred KB and stay in L1/L2.
 //
-// B3: one thread per ray, no ray state outside registers; it reads its (at
-// most 384-prim) tables with __ldg: all threads of a warp read the same
-// address, so each load is one broadcast.
+// B3: one thread per ray, no ray state outside registers. Testing every
+// prim (the headline: 51 spheres and the ground box for each of 2,088,960
+// rays a bounce) it took 0.2395 ms against an all-tests bound of 0.0472
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --frame-times), though a
+// warp's 32 rays are a thin bundle that most spheres miss. So each warp
+// culls the spheres by B8's ball-cone, one sphere at a time, and skips the
+// sqrt of a sphere no lane can hit (described beside its code below); the
+// tests the rays need set its bound (chip_smoke.py phase 10).
 //
 // Precision: built with --fmad=false and without fast math, so every
 // expression rounds once, as in PyTorch; sqrtf and division are IEEE. The
@@ -36,7 +41,7 @@
 // Tables (row-major float32):
 //   B3: one [rows, stride] table per class: spheres cx cy cz ccmr (ccmr =
 //     c.c - r^2, packed on the host), boxes cx cy cz hx hy hz, triangles
-//     v0(3) v1(3) v2(3).
+//     v0(3) v1(3) v2(3); and the sphere bounds [S, 4] cx cy cz r.
 //   B4, B6, B8 (kernels/nearest_hit.StreamTables): spheres as the
 //     array-of-structs [S', 4], triangles as edges [9, T'] = v0(3),
 //     e1 = v1 - v0 (3), e2 = v2 - v0 (3), both padded to whole 128-prim
@@ -59,6 +64,7 @@ constexpr float kSlabEps = 1e-12f;
 constexpr float kMtEps = 1e-9f;
 constexpr int kTile = 128;        // prims per shared-memory tile
 constexpr int kBlock = 128;       // rays per block (four warps)
+constexpr int kScalarBlock = 128; // B3's threads per block
 
 struct Tables {
   const float* sph;
@@ -99,13 +105,17 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
 }
 
 // B3's sphere test (nearest_hit.py:728-736): clamped discriminant and an
-// explicit disc >= 0 mask.
-__device__ __forceinline__ float sphere_scalar(const Ray& r, float cx,
-                                               float cy, float cz,
-                                               float ccmr) {
-  float b_half = r.o_dot_d - (r.dx * cx + r.dy * cy + r.dz * cz);
-  float c = r.o_dot_o - 2.0f * (r.ox * cx + r.oy * cy + r.oz * cz) + ccmr;
-  float disc = b_half * b_half - r.a * c;
+// explicit disc >= 0 mask, in two parts so that B3 can skip the root for a
+// warp that misses (a negative or NaN disc gives +inf either way).
+__device__ __forceinline__ float scalar_disc(const Ray& r, float4 s,
+                                             float& b_half) {
+  b_half = r.o_dot_d - (r.dx * s.x + r.dy * s.y + r.dz * s.z);
+  float c = r.o_dot_o - 2.0f * (r.ox * s.x + r.oy * s.y + r.oz * s.z) + s.w;
+  return b_half * b_half - r.a * c;
+}
+
+__device__ __forceinline__ float scalar_root(const Ray& r, float b_half,
+                                             float disc) {
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float t_near = (-b_half - sq) * r.inv_a;
   float t_far = (-b_half + sq) * r.inv_a;
@@ -216,41 +226,6 @@ __device__ __forceinline__ void fold(float t, int pid, float& t_best,
 __device__ __forceinline__ float ld(const float* tab, int row, int stride,
                                     int p) {
   return __ldg(tab + (long long)row * stride + p);
-}
-
-__global__ void nh_scalar_kernel(Tables T, const float* __restrict__ org,
-                                 const float* __restrict__ dir, long long n,
-                                 float* __restrict__ t_out,
-                                 int* __restrict__ pid_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(org, dir, i);
-  float t_best = kInf;
-  int pid = -1;
-  for (int p = 0; p < T.n_sph; ++p) {
-    const int s = T.s_stride;
-    fold(sphere_scalar(r, ld(T.sph, 0, s, p), ld(T.sph, 1, s, p),
-                       ld(T.sph, 2, s, p), ld(T.sph, 3, s, p)),
-         p, t_best, pid);
-  }
-  for (int p = 0; p < T.n_box; ++p) {
-    const int s = T.b_stride;
-    fold(box_t(r, ld(T.box, 0, s, p), ld(T.box, 1, s, p), ld(T.box, 2, s, p),
-               ld(T.box, 3, s, p), ld(T.box, 4, s, p), ld(T.box, 5, s, p)),
-         T.n_sph + p, t_best, pid);
-  }
-  for (int p = 0; p < T.n_tri; ++p) {
-    const int s = T.t_stride;
-    const float v0x = ld(T.tri, 0, s, p), v0y = ld(T.tri, 1, s, p),
-                v0z = ld(T.tri, 2, s, p);
-    fold(tri_t(r, v0x, v0y, v0z, ld(T.tri, 3, s, p) - v0x,
-               ld(T.tri, 4, s, p) - v0y, ld(T.tri, 5, s, p) - v0z,
-               ld(T.tri, 6, s, p) - v0x, ld(T.tri, 7, s, p) - v0y,
-               ld(T.tri, 8, s, p) - v0z),
-         T.n_sph + T.n_box + p, t_best, pid);
-  }
-  t_out[i] = t_best;
-  pid_out[i] = t_best < kInf ? pid : -1;
 }
 
 // ---- B4, B6 and B8: the streaming searches --------------------------------
@@ -674,15 +649,15 @@ __device__ __forceinline__ AllCursor sphere_cursor(AllCursor*,
   return split_range(tiles_of(T.n_sph));
 }
 
-__device__ __forceinline__ ConeCursor sphere_cursor(ConeCursor*,
-                                                    const Tables& T,
-                                                    const float* tb,
-                                                    const Ray& r,
-                                                    bool active) {
+// The ball-cone of the warp's live rays (the lanes with `active`) over the
+// n_t balls tb [n_t, 4] (center, radius): B8's 128-sphere tiles, B3's
+// spheres.
+__device__ __forceinline__ ConeCursor warp_cone(const float* tb, int n_t,
+                                                const Ray& r, bool active) {
   const float r_inv = 1.0f / fmaxf(warp_sum(active ? 1.0f : 0.0f), 1.0f);
   ConeCursor c;
   c.tb = tb;
-  c.n_t = tiles_of(T.n_sph);
+  c.n_t = n_t;
   c.o0x = warp_sum(active ? r.ox : 0.0f) * r_inv;
   c.o0y = warp_sum(active ? r.oy : 0.0f) * r_inv;
   c.o0z = warp_sum(active ? r.oz : 0.0f) * r_inv;
@@ -702,6 +677,14 @@ __device__ __forceinline__ ConeCursor sphere_cursor(ConeCursor*,
   c.use_cone = c.cos_t >= 0.25f;
   c.sin_t = sqrtf(fmaxf(1.0f - c.cos_t * c.cos_t, 0.0f));
   return c;
+}
+
+__device__ __forceinline__ ConeCursor sphere_cursor(ConeCursor*,
+                                                    const Tables& T,
+                                                    const float* tb,
+                                                    const Ray& r,
+                                                    bool active) {
+  return warp_cone(tb, tiles_of(T.n_sph), r, active);
 }
 
 // The body of B4 and B8: spheres through the cursor, boxes, then every
@@ -796,6 +779,88 @@ nh_culled_kernel(Tables T, const float* __restrict__ org,
                          pid_out, work);
 }
 
+// ---- B3: the scalar search ---------------------------------------------------
+// nh_scalar_kernel (B3): one thread a ray, for scenes of at most 384 prims
+// (the note at the top of this file). Each warp of 32 rays
+//  - bounds its live rays by B8's ball-cone (warp_cone) and evaluates the
+//    cone predicate for 32 spheres at once, lane l on sphere w0 + l's own
+//    ball (`bounds`: cx cy cz r, one row a sphere), one __ballot_sync a
+//    window; it tests only the kept spheres, in pid order. A sphere left
+//    out misses every lane (the predicate is conservative, as B8's for its
+//    tiles), so it would fold +inf: t and pid are the dense loop's, bit for
+//    bit. cos_t < 0.25 (an incoherent warp, such as many a bounce-1 mirror
+//    warp) keeps every sphere;
+//  - skips the sqrt and the tail of a kept sphere's test when no lane has
+//    disc >= 0 (__any_sync): a negative or NaN discriminant gives +inf
+//    either way;
+//  - reads the sphere table from shared memory, staged once per block as
+//    an array of structs (one 16-byte broadcast a sphere, 6 KB at 384
+//    spheres); boxes (the headline's ground) and triangles stay dense,
+//    read with __ldg broadcasts.
+// Lanes at or past n join the warp's votes but take no part in its cone and
+// write nothing; a warp with no ray exits after the staging. `work` (may be
+// null) receives the spheres each warp tested, [ceil(n / 32)]. On the
+// headline's bounce 0 a warp tests 0.34 spheres on average and the kernel
+// takes 0.0528 ms against a bound of 0.0200 set by its bytes (H100 80GB
+// HBM3, 700 W; chip_smoke.py): the per-warp cone set-up, the box test and
+// the ray loads are what is left. Blocks of 128 (kScalarBlock) measured
+// best of 64, 128, 256 and 512 (PERF.md).
+__global__ void __launch_bounds__(kScalarBlock)
+nh_scalar_kernel(Tables T, const float* __restrict__ bounds,
+                 const float* __restrict__ org, const float* __restrict__ dir,
+                 long long n, float* __restrict__ t_out,
+                 int* __restrict__ pid_out, int* __restrict__ work) {
+  extern __shared__ float4 sph_aos[];    // [n_sph] cx cy cz ccmr
+  for (int k = threadIdx.x; k < T.n_sph; k += blockDim.x)
+    sph_aos[k] = make_float4(ld(T.sph, 0, T.s_stride, k),
+                             ld(T.sph, 1, T.s_stride, k),
+                             ld(T.sph, 2, T.s_stride, k),
+                             ld(T.sph, 3, T.s_stride, k));
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i - lane_id() >= n) return;        // no ray in this warp
+  const bool active = i < n;
+  const Ray r = load_ray(org, dir, active ? i : 0);
+  float t_best = kInf;
+  int pid = -1, tested = 0;
+  if (T.n_sph > 0) {
+    const ConeCursor cone = warp_cone(bounds, T.n_sph, r, active);
+    for (int w0 = 0; w0 < T.n_sph; w0 += 32) {
+      unsigned kept = cone.window(w0);
+      tested += __popc(kept);
+      while (kept) {                     // warp-uniform
+        const int p = w0 + __ffs(kept) - 1;
+        kept &= kept - 1;
+        float b_half;
+        const float disc = scalar_disc(r, sph_aos[p], b_half);
+        if (__any_sync(kFull, disc >= 0.0f))
+          fold(scalar_root(r, b_half, disc), p, t_best, pid);
+      }
+    }
+  }
+  for (int p = 0; p < T.n_box; ++p) {
+    const int s = T.b_stride;
+    fold(box_t(r, ld(T.box, 0, s, p), ld(T.box, 1, s, p), ld(T.box, 2, s, p),
+               ld(T.box, 3, s, p), ld(T.box, 4, s, p), ld(T.box, 5, s, p)),
+         T.n_sph + p, t_best, pid);
+  }
+  for (int p = 0; p < T.n_tri; ++p) {
+    const int s = T.t_stride;
+    const float v0x = ld(T.tri, 0, s, p), v0y = ld(T.tri, 1, s, p),
+                v0z = ld(T.tri, 2, s, p);
+    fold(tri_t(r, v0x, v0y, v0z, ld(T.tri, 3, s, p) - v0x,
+               ld(T.tri, 4, s, p) - v0y, ld(T.tri, 5, s, p) - v0z,
+               ld(T.tri, 6, s, p) - v0x, ld(T.tri, 7, s, p) - v0y,
+               ld(T.tri, 8, s, p) - v0z),
+         T.n_sph + T.n_box + p, t_best, pid);
+  }
+  if (work != nullptr && lane_id() == 0) work[i >> 5] = tested;
+  if (active) {
+    t_out[i] = t_best;
+    pid_out[i] = t_best < kInf ? pid : -1;
+  }
+}
+
 // Floats of one warp's staging area: a ring of two tiles of the widest
 // class streamed (the box staging, 6 x 128 floats, fits in two sphere
 // tiles).
@@ -827,23 +892,27 @@ Tables make_tables(const float* sph, int n_sph, int s_stride,
 // cudaGetLastError() (0 on success). The wrappers never call them with no
 // rays or no prims: they answer those cases themselves.
 
+// B3. Tables as B3's (structure of arrays); `bounds` [max(n_sph, 1), 4]
+// holds each sphere's center and radius. `work` may be null; else it
+// receives the spheres each warp tested, [ceil(n / 32)].
 extern "C" int rt_nearest_hit_scalar(const float* sph, int n_sph,
                                      int s_stride, const float* box,
                                      int n_box, int b_stride,
                                      const float* tri, int n_tri,
-                                     int t_stride, const float* org,
-                                     const float* dir, long long n,
-                                     float* t_out, int* pid_out, int device,
+                                     int t_stride, const float* bounds,
+                                     const float* org, const float* dir,
+                                     long long n, float* t_out,
+                                     int* pid_out, int* work, int device,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
   const Tables T = make_tables(sph, n_sph, s_stride, box, n_box, b_stride,
                                tri, n_tri, t_stride);
-  const int block = 256;
-  const long long grid = (n + block - 1) / block;
-  nh_scalar_kernel<<<(unsigned int)grid, block, 0, (cudaStream_t)stream>>>(
-      T, org, dir, n, t_out, pid_out);
+  const long long grid = (n + kScalarBlock - 1) / kScalarBlock;
+  nh_scalar_kernel<<<(unsigned int)grid, kScalarBlock,
+                     sizeof(float4) * n_sph, (cudaStream_t)stream>>>(
+      T, bounds, org, dir, n, t_out, pid_out, work);
   return (int)cudaGetLastError();
 }
 

@@ -16,26 +16,51 @@
 // spheres and boxes, refmax <= 4.
 //
 // What bounds them on this card. The forward is a few hundred flops a ray
-// and 48 bytes of traffic: latency of the dependent bounce chain. The
-// backward adds the per-prim reduction: on the headline view 2,088,960 rays
-// x 2 bounces each land up to 9 cotangents on one of 52 prims, most on the
-// ground box. Global atomics on a few addresses would serialize, so the
-// reduction, not the ray math, is what the design is about:
-//   - a warp groups its lanes by winner (ballot + shuffle) and sums each
-//     group with a fixed xor butterfly, so every group sum is one value
-//     computed in one order;
-//   - lane 0 adds it to its warp's own row of per-prim slots in shared
-//     memory (no atomics, no race); a block runs over many ray groups
-//     (grid at most 1024 blocks), so each slot gathers many warp sums;
-//   - at the end each block writes one partial row (its warps summed in
-//     warp order), and replay_reduce_kernel sums the partial rows of each
-//     column in a fixed tree. The result is deterministic, and its rounding
-//     error stays below 1e-5 of the sum of the terms' magnitudes.
+// and 44 bytes of traffic: it runs at 87% of its bytes bound (0.0316 ms a
+// headline view against 0.0274, NVIDIA H100 80GB HBM3, 700 W). The
+// backward moves 68 bytes a ray (0.0424 ms a view), but a first design
+// issued ~1,500 warp instructions per 32 rays and took 0.1006 ms plus
+// 0.0052 of a second reduction launch (chip_smoke.py --frame-times), and
+// its wrapper zero-filled 2 x 25 MB the kernel overwrites: the instruction
+// stream, not the bytes, set its time. Each of 2,088,960 rays x 2 bounces lands up to 9
+// cotangents on one of 52 prims, most on the ground box; global atomics on
+// a few addresses would serialize, so the per-prim reduction is what the
+// design is about. The backward:
+//   - groups a warp's lanes by winner (ballot + shuffle; a warp whose live
+//     lanes share one winner, as most of the headline's do, takes one pass
+//     and no selects) and sums each group by a reduce-scatter over the xor
+//     butterfly's tree (Scatter): values 0-7 halve at levels 16, 8, 4 and
+//     the 9th takes the plain butterfly, 14 shuffles for 45, and 9 lanes
+//     add the 9 sums to the warp's own shared-memory row at once (lane 0
+//     did 9 read-modify-writes). Every sum is the full butterfly's, bit for
+//     bit: the same tree of commutative adds. The sky's 3 sums take 6
+//     shuffles for 15, only at a bounce where some lane sees sky;
+//   - runs a resident grid (kernels/replay_grad.bwd_grid: the occupancy
+//     times the SMs; 117 registers and no spills keep each bounce's entry
+//     State in registers, 4 blocks an SM): each block loops over ray
+//     groups of 128 and writes one partial row (its warps in warp order);
+//   - hides the latency that set its time with 16 warps an SM: each group
+//     prefetches the next group's rays into L2 and loads its cotangents
+//     first, and the reverse takes each bounce's roots and reciprocals
+//     (Roots: a sphere's sqrt and two divides, a box's three) from the
+//     forward instead of recomputing them. Capping the registers for 5 or
+//     6 blocks an SM was slower (spills, and no gain in latency hiding);
+//   - reduces the partial rows in the same launch: a cooperative launch
+//     (every block resident), the grid barrier of cooperative groups
+//     (this_grid().sync(), its state per launch), then
+//     warp c of the grid sums column c in the former replay_reduce_kernel's
+//     order (lane y adds rows y, y + 32, ... in turn; a shuffle-down tree)
+//     and writes it straight into the output layout (spheres [S, 7], boxes
+//     [B, 9], sky [3]), so the wrapper neither gathers nor concatenates.
+//   The order is fixed by the grid, so two launches agree bit for bit;
+//   kernels/replay_grad.bwd_sums_model is the same order in float32 (the
+//   card holds the kernel to it bit for bit), and its rounding stays below
+//   1e-5 of the sum of the terms' magnitudes.
 //   - Above 192 prims (the listed class, up to 16384 spheres) the sphere
 //     slots do not fit shared memory: spheres then take one global
-//     atomicAdd per warp group (order across warps varies, so those sums
-//     are not bit-reproducible); boxes (at most 192) and the sky keep the
-//     deterministic path.
+//     atomicAdd per warp group and slot into the output (order across
+//     warps varies, so those sums are not bit-reproducible); boxes (at most
+//     192) and the sky keep the deterministic path.
 // A thread skips the bounces of a dead ray (the per-thread form of the
 // reference's whole-tile liveness conds), but joins every warp collective
 // with zero contributions. The reference's TPU machinery (pid-match pick
@@ -50,6 +75,7 @@
 //   boxes   cx cy cz hx hy hz tr tg tb mode    [B, 10]
 //   sky     r g b                              [3]
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,6 +88,7 @@ constexpr int kAlive = 0, kLight = 1, kKeep = 2, kMiss = 3;
 constexpr int kBlock = 128;   // threads per backward block (BWD_BLOCK)
 constexpr int kWarps = kBlock / 32;
 constexpr int kSlot = 9;      // center (3), radius or half (3), rgb (3)
+constexpr int kSphSlots = 7;  // a sphere's output slots: center, radius, rgb
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Tabs {
@@ -98,6 +125,13 @@ struct Geom {
   SphereFwd sf;   // valid for a sphere
   BoxFwd bf;      // valid for a box
   float t, px, py, pz, nx, ny, nz;
+};
+
+// A bounce's roots and reciprocals, computed by the forward and kept for
+// its reverse (the same values, so the reverse's results do not change):
+// a sphere's sq_inner, inv_a, inv_rs; a box's ivx, ivy, ivz.
+struct Roots {
+  float a, b, c;
 };
 
 __device__ __forceinline__ Prim load_prim(const Tabs& T, int pid) {
@@ -140,9 +174,11 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / ds;
 }
 
-// replay_grad.py _sphere_fwd: the plane form with inv_a = 1/a.
+// replay_grad.py _sphere_fwd: the plane form with inv_a = 1/a. kGiven: the
+// roots come from `k` (the forward's), else they are computed into it.
+template <bool kGiven>
 __device__ __forceinline__ SphereFwd sphere_fwd(const State& s,
-                                                const Prim& P) {
+                                                const Prim& P, Roots& k) {
   SphereFwd f;
   const float ox = s.ox, oy = s.oy, oz = s.oz, dx = s.dx, dy = s.dy,
               dz = s.dz, r = P.r;
@@ -155,9 +191,9 @@ __device__ __forceinline__ SphereFwd sphere_fwd(const State& s,
   const float disc = f.bh * f.bh - f.a * f.c;
   const bool pos = disc > 0.0f;
   f.posf = mask(pos);
-  f.sq_inner = sqrtf(pos ? disc : 1.0f);
+  f.sq_inner = kGiven ? k.a : sqrtf(pos ? disc : 1.0f);
   const float sq = f.sq_inner * f.posf;
-  f.inv_a = 1.0f / f.a;
+  f.inv_a = kGiven ? k.b : 1.0f / f.a;
   f.t_near = (-f.bh - sq) * f.inv_a;
   f.t_far = (-f.bh + sq) * f.inv_a;
   const bool near_fwd = f.t_near >= 0.0f;
@@ -166,7 +202,8 @@ __device__ __forceinline__ SphereFwd sphere_fwd(const State& s,
   const float px = ox + f.t * dx, py = oy + f.t * dy, pz = oz + f.t * dz;
   const bool r_guard = fabsf(r) < 1e-12f;
   f.r_okf = mask(!r_guard);
-  f.inv_rs = 1.0f / (r_guard ? 1e-12f : r);
+  f.inv_rs = kGiven ? k.c : 1.0f / (r_guard ? 1e-12f : r);
+  if (!kGiven) k = Roots{f.sq_inner, f.inv_a, f.inv_rs};
   const float n0x = (px - P.cx) * f.inv_rs, n0y = (py - P.cy) * f.inv_rs,
               n0z = (pz - P.cz) * f.inv_rs;
   f.fs = dx * n0x + dy * n0y + dz * n0z > 0.0f ? -1.0f : 1.0f;
@@ -178,14 +215,17 @@ __device__ __forceinline__ SphereFwd sphere_fwd(const State& s,
 
 // replay_grad.py _box_fwd: the lo slab wins a tie in t, the winning axis a
 // tie in x > y > z order.
-__device__ __forceinline__ BoxFwd box_fwd(const State& s, const Prim& P) {
+template <bool kGiven>
+__device__ __forceinline__ BoxFwd box_fwd(const State& s, const Prim& P,
+                                          Roots& k) {
   BoxFwd f;
   const float ox = s.ox, oy = s.oy, oz = s.oz, dx = s.dx, dy = s.dy,
               dz = s.dz;
   const float hx = P.r, hy = P.hy, hz = P.hz;
-  f.ivx = safe_inv(dx);
-  f.ivy = safe_inv(dy);
-  f.ivz = safe_inv(dz);
+  f.ivx = kGiven ? k.a : safe_inv(dx);
+  f.ivy = kGiven ? k.b : safe_inv(dy);
+  f.ivz = kGiven ? k.c : safe_inv(dz);
+  if (!kGiven) k = Roots{f.ivx, f.ivy, f.ivz};
   const float tax = (P.cx - hx - ox) * f.ivx, tbx = (P.cx + hx - ox) * f.ivx;
   const float tay = (P.cy - hy - oy) * f.ivy, tby = (P.cy + hy - oy) * f.ivy;
   const float taz = (P.cz - hz - oz) * f.ivz, tbz = (P.cz + hz - oz) * f.ivz;
@@ -220,16 +260,18 @@ __device__ __forceinline__ BoxFwd box_fwd(const State& s, const Prim& P) {
   return f;
 }
 
-__device__ __forceinline__ Geom geom(const State& s, const Prim& P) {
+template <bool kGiven>
+__device__ __forceinline__ Geom geom(const State& s, const Prim& P,
+                                     Roots& k) {
   Geom G;
   if (P.is_s) {
-    G.sf = sphere_fwd(s, P);
+    G.sf = sphere_fwd<kGiven>(s, P, k);
     G.t = G.sf.t;
     G.nx = G.sf.nx;
     G.ny = G.sf.ny;
     G.nz = G.sf.nz;
   } else {
-    G.bf = box_fwd(s, P);
+    G.bf = box_fwd<kGiven>(s, P, k);
     G.t = G.bf.t;
     G.nx = G.bf.nx;
     G.ny = G.bf.ny;
@@ -259,8 +301,10 @@ __device__ __forceinline__ State start(const float* __restrict__ org,
   return s;
 }
 
-// One replayed bounce of an alive ray (replay_grad.py _bounce_fwd).
-__device__ __forceinline__ void step(const Tabs& T, State& s, int pid) {
+// One replayed bounce of an alive ray (replay_grad.py _bounce_fwd); `k`
+// receives its roots.
+__device__ __forceinline__ void step(const Tabs& T, State& s, int pid,
+                                     Roots& k) {
   if (pid < 0) {
     s.cr = s.cr * __ldg(T.sky);
     s.cg = s.cg * __ldg(T.sky + 1);
@@ -269,7 +313,7 @@ __device__ __forceinline__ void step(const Tabs& T, State& s, int pid) {
     return;
   }
   const Prim P = load_prim(T, pid);
-  const Geom G = geom(s, P);
+  const Geom G = geom<false>(s, P, k);
   const bool lit = P.mode > 1.5f;
   const bool cont = P.mode > 0.5f && P.mode < 1.5f;
   s.cr = s.cr * P.tr;
@@ -300,9 +344,10 @@ __global__ void replay_fwd_kernel(Tabs T, const float* __restrict__ org,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   State s = start(org, dir, i);
+  Roots k;
 #pragma unroll
   for (int b = 0; b < R; ++b)
-    if (s.status == kAlive) step(T, s, __ldg(pid_seq + i * R + b));
+    if (s.status == kAlive) step(T, s, __ldg(pid_seq + i * R + b), k);
   const bool exhausted = s.status == kAlive;
   const float pr = exhausted ? 0.0f : s.cr, pg = exhausted ? 0.0f : s.cg,
               pb = exhausted ? 0.0f : s.cb;
@@ -314,42 +359,115 @@ __global__ void replay_fwd_kernel(Tabs T, const float* __restrict__ org,
   color[3 * i + 2] = lit_fin ? pb * isl : pb;
 }
 
-template <int Q>
-__device__ __forceinline__ void warp_sum(float (&v)[Q]) {
+// Sum N values (N a power of two) over the warp's 32 lanes in the
+// xor-butterfly tree (partners 16, 8, 4, 2, 1), each sum landing on some
+// lanes only: a level with more than one value left keeps half of them,
+// the half its lane bit names, and sends the other half to its partner.
+// Value q ends on the lanes whose top bits (4, 3, ...) spell q; q is set to
+// the lane's. Each sum is the full butterfly's, bit for bit: the same tree,
+// and an add does not depend on which partner computes it.
+template <int N, int Off>
+struct Scatter {
+  static __device__ __forceinline__ float run(float* v, int lane, int& q) {
+    const bool up = (lane & Off) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+    for (int j = 0; j < N / 2; ++j) {
+      const float send = up ? v[j] : v[j + N / 2];
+      const float keep = up ? v[j + N / 2] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, Off);
+    }
+    q = 2 * q + (up ? 1 : 0);
+    return Scatter<N / 2, Off / 2>::run(v, lane, q);
+  }
+};
+
+template <int Off>
+struct Scatter<1, Off> {
+  static __device__ __forceinline__ float run(float* v, int, int&) {
+    float s = v[0];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) v[q] += __shfl_xor_sync(kFull, v[q], off);
+    for (int o = Off; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    return s;
+  }
+};
+
+// Add one winner's warp sums of v[0..8] (its lanes' rows; zero on the
+// other lanes) to its 9 slots: `slot` in the warp's shared-memory row, or,
+// for a sphere summed globally (slot null), its 7 output slots `glob` by
+// atomics. Values 0-7 reduce-scatter onto lanes 4q, value 8 onto every
+// lane by the butterfly: 14 shuffles, and 9 lanes write at once.
+__device__ __forceinline__ void add_sums(float (&v)[kSlot], int lane,
+                                         float* slot, float* glob) {
+  int q = 0;
+  const float s = Scatter<8, 16>::run(v, lane, q);
+  float s8 = v[8];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s8 += __shfl_xor_sync(kFull, s8, o);
+  const int dq = (lane & 3) == 0 ? q : (lane == 1 ? 8 : -1);
+  const float val = lane == 1 ? s8 : s;
+  if (dq < 0) return;
+  if (slot != nullptr)
+    slot[dq] += val;
+  else if (dq != 4 && dq != 5)   // a sphere has no slots 4, 5
+    atomicAdd(glob + (dq < 4 ? dq : dq - 2), val);
+}
+
+// Sum the warp's rows per winner (lanes with key < 0 hold zero rows) onto
+// the winners' slots: the warp's shared-memory row for prims >= n_glob,
+// global atomics for spheres below it. Winners go in the order of their
+// first lane; a warp whose live lanes share one winner takes one pass and
+// no selects. `row` is consumed.
+__device__ __forceinline__ void reduce_rows(int key, float (&row)[kSlot],
+                                            int n_glob, float* my_slots,
+                                            float* g_sph, int lane) {
+  unsigned pending = __ballot_sync(kFull, key >= 0);
+  if (pending == 0u) return;
+  int p = __shfl_sync(kFull, key, __ffs(pending) - 1);
+  if (__all_sync(kFull, key < 0 || key == p)) {
+    add_sums(row, lane, p >= n_glob ? my_slots + (p - n_glob) * kSlot
+                                    : nullptr,
+             g_sph + (long long)p * kSphSlots);
+    return;
+  }
+  for (;;) {
+    const bool mine = key == p;
+    float v[kSlot];
+#pragma unroll
+    for (int q = 0; q < kSlot; ++q) v[q] = mine ? row[q] : 0.0f;
+    add_sums(v, lane, p >= n_glob ? my_slots + (p - n_glob) * kSlot
+                                  : nullptr,
+             g_sph + (long long)p * kSphSlots);
+    pending &= ~__ballot_sync(kFull, mine);
+    if (pending == 0u) return;
+    p = __shfl_sync(kFull, key, __ffs(pending) - 1);
   }
 }
 
-// Sum the warp's rows per winner (lanes with key < 0 add nothing): each
-// group is summed by the butterfly, lane 0 adds it to the warp's slot row
-// (prims >= n_glob) or to global memory with atomics (prims < n_glob).
-__device__ __forceinline__ void reduce_rows(int key, const float (&row)[kSlot],
-                                            int n_glob, float* my_slots,
-                                            float* g_glob, int lane) {
-  unsigned pending = __ballot_sync(kFull, key >= 0);
-  while (pending) {
-    const int src = __ffs(pending) - 1;
-    const int p = __shfl_sync(kFull, key, src);
-    float v[kSlot];
-#pragma unroll
-    for (int q = 0; q < kSlot; ++q) v[q] = key == p ? row[q] : 0.0f;
-    warp_sum(v);
-    if (lane == 0) {
-      if (p >= n_glob) {
-        float* slot = my_slots + (p - n_glob) * kSlot;
-#pragma unroll
-        for (int q = 0; q < kSlot; ++q) slot[q] += v[q];
-      } else {
-#pragma unroll
-        for (int q = 0; q < kSlot; ++q)
-          atomicAdd(g_glob + (long long)p * kSlot + q, v[q]);
-      }
-    }
-    pending &= ~__ballot_sync(kFull, key == p);
-  }
+// The sky's three sums (zero on lanes that saw no sky) onto `slot`:
+// reduce-scattered as four values (the fourth zero), 6 shuffles; lanes 0,
+// 8 and 16 write.
+__device__ __forceinline__ void add_sky(float (&gsky)[4], int lane,
+                                        float* slot) {
+  int q = 0;
+  const float s = Scatter<4, 16>::run(gsky, lane, q);
+  if ((lane & 7) == 0 && q < 3) slot[q] += s;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The output slot of reduced column c (-1: none): the slot prims' 9
+// columns each (from prim n_glob), then the sky's 3; out holds spheres
+// [S, 7] (slots 0-3, 6-8), boxes [B, 9], sky [3].
+__device__ __forceinline__ int out_index(int c, int n_glob, int n_sph,
+                                         int n_box, int n_slots) {
+  if (c >= n_slots * kSlot) return n_sph * kSphSlots + n_box * kSlot +
+                                   (c - n_slots * kSlot);
+  const int p = n_glob + c / kSlot, q = c % kSlot;
+  if (p >= n_sph) return n_sph * kSphSlots + (p - n_sph) * kSlot + q;
+  if (q == 4 || q == 5) return -1;
+  return p * kSphSlots + (q < 4 ? q : q - 2);
 }
 
 template <int R>
@@ -359,7 +477,7 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
                   const int* __restrict__ pid_seq, long long n, float atten,
                   float atten2, const float* __restrict__ g_color,
                   int n_glob, float* __restrict__ g_org,
-                  float* __restrict__ g_dir, float* __restrict__ g_glob,
+                  float* __restrict__ g_dir, float* __restrict__ out,
                   float* __restrict__ partial) {
   // [kWarps][cols]: each warp's per-prim slots, then its 3 sky sums
   extern __shared__ float acc[];
@@ -376,9 +494,21 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
        base += (long long)gridDim.x * kBlock) {
     const long long i = base + threadIdx.x;
     const bool active = i < n;
+    // the next group's rays into L2 while this one computes
+    const long long i_next = i + (long long)gridDim.x * kBlock;
+    if (i_next < n) {
+      prefetch_l2(org + 3 * i_next);
+      prefetch_l2(dir + 3 * i_next);
+      prefetch_l2(g_color + 3 * i_next);
+      prefetch_l2(pid_seq + i_next * R);
+    }
+    const float g_r = active ? __ldg(g_color + 3 * i) : 0.0f;
+    const float g_g = active ? __ldg(g_color + 3 * i + 1) : 0.0f;
+    const float g_b = active ? __ldg(g_color + 3 * i + 2) : 0.0f;
     // ---- forward, keeping each bounce's entry state ----------------------
     State st[R];
     int pids[R];
+    Roots roots[R];
     State s;
     if (active) {
       s = start(org, dir, i);
@@ -390,12 +520,9 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
     for (int b = 0; b < R; ++b) {
       st[b] = s;
       pids[b] = active ? __ldg(pid_seq + i * R + b) : -1;
-      if (s.status == kAlive) step(T, s, pids[b]);
+      if (s.status == kAlive) step(T, s, pids[b], roots[b]);
     }
     // ---- the loss-side epilogue reversed ---------------------------------
-    const float g_r = active ? __ldg(g_color + 3 * i) : 0.0f;
-    const float g_g = active ? __ldg(g_color + 3 * i + 1) : 0.0f;
-    const float g_b = active ? __ldg(g_color + 3 * i + 2) : 0.0f;
     const bool exhausted = s.status == kAlive;
     const float pr = exhausted ? 0.0f : s.cr, pg = exhausted ? 0.0f : s.cg,
                 pb = exhausted ? 0.0f : s.cb;
@@ -420,7 +547,7 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
       float row[kSlot];
 #pragma unroll
       for (int q = 0; q < kSlot; ++q) row[q] = 0.0f;
-      float gsky[3] = {0.0f, 0.0f, 0.0f};
+      float gsky[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       int key = -1;
       if (e.status == kAlive && pids[b] < 0) {
         gsky[0] = gcr * e.cr;
@@ -431,7 +558,7 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
         gcb = gcb * sky_b;
       } else if (e.status == kAlive) {
         const Prim P = load_prim(T, pids[b]);
-        const Geom G = geom(e, P);
+        const Geom G = geom<true>(e, P, roots[b]);
         const bool cont = P.mode > 0.5f && P.mode < 1.5f;
         key = P.pidc;
         row[6] = gcr * e.cr;
@@ -555,18 +682,10 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
         gcb = gch_b;
       }
       // ---- per-prim and sky sums (every lane joins) ----------------------
-      reduce_rows(key, row, n_glob, my, g_glob, lane);
-      const bool any_sky = __ballot_sync(kFull, gsky[0] != 0.0f ||
-                                                    gsky[1] != 0.0f ||
-                                                    gsky[2] != 0.0f) != 0u;
-      if (any_sky) {
-        warp_sum(gsky);
-        if (lane == 0) {
-          my[n_slots * kSlot] += gsky[0];
-          my[n_slots * kSlot + 1] += gsky[1];
-          my[n_slots * kSlot + 2] += gsky[2];
-        }
-      }
+      reduce_rows(key, row, n_glob, my, out, lane);
+      if (__any_sync(kFull, gsky[0] != 0.0f || gsky[1] != 0.0f ||
+                                gsky[2] != 0.0f))
+        add_sky(gsky, lane, my + n_slots * kSlot);
     }
     if (active) {
       g_org[3 * i] = gox;
@@ -585,27 +704,33 @@ replay_bwd_kernel(Tabs T, const float* __restrict__ org,
     for (int w = 1; w < kWarps; ++w) v += acc[w * cols + k];
     partial[(long long)blockIdx.x * cols + k] = v;
   }
-}
-
-// out[c] = sum over rows of partial[row][c], in a fixed order: 32 strided
-// sequential sums, then a tree.
-__global__ void __launch_bounds__(1024)
-replay_reduce_kernel(const float* __restrict__ partial, int rows, int cols,
-                     float* __restrict__ out) {
-  __shared__ float sm[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float v = 0.0f;
-  if (c < cols)
-    for (int r = threadIdx.y; r < rows; r += 32)
-      v += partial[(long long)r * cols + c];
-  sm[threadIdx.y][threadIdx.x] = v;
-  __syncthreads();
-  for (int h = 16; h > 0; h >>= 1) {
-    if (threadIdx.y < h)
-      sm[threadIdx.y][threadIdx.x] += sm[threadIdx.y + h][threadIdx.x];
-    __syncthreads();
+  // ---- every partial row written before any is read: the grid barrier
+  // (a cooperative launch, so every block is resident; the barrier orders
+  // the writes before it for every block after it) -------------------------
+  cooperative_groups::this_grid().sync();
+  // ---- column c = sum over the partial rows, by warp c mod the grid's
+  // warps, in a fixed order: lane y adds rows y, y + 32, ... in turn (read
+  // 8 at a time; a row past the grid adds +0, which changes no bit of a sum
+  // that starts at +0), then a shuffle-down tree over the lanes ------------
+  const int rows = gridDim.x;
+  for (int c = blockIdx.x * kWarps + warp; c < cols;
+       c += gridDim.x * kWarps) {
+    float v = 0.0f;
+    for (int r0 = lane; r0 < rows; r0 += 32 * 8) {
+      float x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int r = r0 + 32 * k;
+        x[k] = r < rows ? __ldcg(partial + (long long)r * cols + c) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v += x[k];
+    }
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1) v += __shfl_down_sync(kFull, v, h);
+    const int dst = out_index(c, n_glob, T.n_sph, T.n_box, n_slots);
+    if (lane == 0 && dst >= 0) out[dst] = v;
   }
-  if (threadIdx.y == 0 && c < cols) out[c] = sm[0][threadIdx.x];
 }
 
 Tabs make_tabs(const float* sph, int n_sph, const float* box, int n_box,
@@ -630,15 +755,29 @@ void launch_fwd(const Tabs& T, const float* org, const float* dir,
 }
 
 template <int R>
-void launch_bwd(const Tabs& T, const float* org, const float* dir,
-                const int* pid_seq, long long n, float atten, float atten2,
-                const float* g_color, int n_glob, float* g_org, float* g_dir,
-                float* g_glob, float* partial, int blocks, size_t smem,
-                cudaStream_t stream) {
-  replay_bwd_kernel<R><<<blocks, kBlock, smem, stream>>>(
-      T, org, dir, pid_seq, n, atten, atten2, g_color, n_glob, g_org, g_dir,
-      g_glob, partial);
+int bwd_blocks_per_sm(size_t smem) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, replay_bwd_kernel<R>, kBlock, smem);
+  return err != cudaSuccess ? -(int)err : blocks;
 }
+
+template <int R>
+cudaError_t launch_bwd(Tabs T, const float* org, const float* dir,
+                       const int* pid_seq, long long n, float atten,
+                       float atten2, const float* g_color, int n_glob,
+                       float* g_org, float* g_dir, float* out,
+                       float* partial, int blocks, size_t smem,
+                       cudaStream_t stream) {
+  void* args[] = {&T,      &org,     &dir,  &pid_seq, &n,
+                  &atten,  &atten2,  &g_color, &n_glob, &g_org,
+                  &g_dir,  &out,     &partial};
+  return cudaLaunchCooperativeKernel((const void*)replay_bwd_kernel<R>,
+                                     dim3(blocks), dim3(kBlock), args, smem,
+                                     stream);
+}
+
+size_t bwd_smem(int cols) { return sizeof(float) * kWarps * (size_t)cols; }
 
 }  // namespace
 
@@ -667,47 +806,62 @@ extern "C" int rt_replay_fwd(const float* sph, int n_sph, const float* box,
   return (int)cudaGetLastError();
 }
 
-// partial is [blocks, cols] scratch and out [cols], cols = (n_sph + n_box -
-// n_glob) * 9 + 3: the slot sums of prims n_glob.. and the sky's. g_glob
-// [max(n_glob, 1), 9] must be zeroed by the caller.
+// The backward's resident blocks per SM at `cols` = (n_sph + n_box -
+// n_glob) * 9 + 3 columns (its occupancy; the grid may not exceed it times
+// the SMs); negative: a CUDA error.
+extern "C" int rt_replay_bwd_blocks_per_sm(int refmax, int cols,
+                                           int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t smem = bwd_smem(cols);
+  switch (refmax) {
+    case 1: return bwd_blocks_per_sm<1>(smem);
+    case 2: return bwd_blocks_per_sm<2>(smem);
+    case 3: return bwd_blocks_per_sm<3>(smem);
+    case 4: return bwd_blocks_per_sm<4>(smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// One cooperative launch of `blocks` (at most the resident blocks) blocks.
+// partial is [blocks, cols] scratch, cols = (n_sph + n_box - n_glob) * 9 +
+// 3; out is [n_sph * 7 + n_box * 9 + 3] (spheres' center, radius, rgb;
+// boxes' center, half size, rgb; the sky's rgb), its first n_glob * 7
+// zeroed by the caller (those spheres sum by atomics).
 extern "C" int rt_replay_bwd(const float* sph, int n_sph, const float* box,
                              int n_box, const float* sky, const float* org,
                              const float* dir, const int* pid_seq,
                              long long n, int refmax, float atten,
                              float atten2, const float* g_color, int n_glob,
-                             float* g_org, float* g_dir, float* g_glob,
-                             float* partial, int blocks, float* out,
-                             int device, void* stream) {
+                             float* g_org, float* g_dir, float* out,
+                             float* partial, int blocks, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || blocks <= 0) return 0;
   const Tabs T = make_tabs(sph, n_sph, box, n_box, sky);
-  const int cols = (n_sph + n_box - n_glob) * kSlot + 3;
-  const size_t smem = sizeof(float) * kWarps * (size_t)cols;
+  const size_t smem = bwd_smem((n_sph + n_box - n_glob) * kSlot + 3);
   cudaStream_t s = (cudaStream_t)stream;
   switch (refmax) {
     case 1:
-      launch_bwd<1>(T, org, dir, pid_seq, n, atten, atten2, g_color, n_glob,
-                    g_org, g_dir, g_glob, partial, blocks, smem, s);
+      err = launch_bwd<1>(T, org, dir, pid_seq, n, atten, atten2, g_color,
+                          n_glob, g_org, g_dir, out, partial, blocks, smem, s);
       break;
     case 2:
-      launch_bwd<2>(T, org, dir, pid_seq, n, atten, atten2, g_color, n_glob,
-                    g_org, g_dir, g_glob, partial, blocks, smem, s);
+      err = launch_bwd<2>(T, org, dir, pid_seq, n, atten, atten2, g_color,
+                          n_glob, g_org, g_dir, out, partial, blocks, smem, s);
       break;
     case 3:
-      launch_bwd<3>(T, org, dir, pid_seq, n, atten, atten2, g_color, n_glob,
-                    g_org, g_dir, g_glob, partial, blocks, smem, s);
+      err = launch_bwd<3>(T, org, dir, pid_seq, n, atten, atten2, g_color,
+                          n_glob, g_org, g_dir, out, partial, blocks, smem, s);
       break;
     case 4:
-      launch_bwd<4>(T, org, dir, pid_seq, n, atten, atten2, g_color, n_glob,
-                    g_org, g_dir, g_glob, partial, blocks, smem, s);
+      err = launch_bwd<4>(T, org, dir, pid_seq, n, atten, atten2, g_color,
+                          n_glob, g_org, g_dir, out, partial, blocks, smem, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  replay_reduce_kernel<<<(cols + 31) / 32, dim3(32, 32), 0, s>>>(
-      partial, blocks, cols, out);
   return (int)cudaGetLastError();
 }

@@ -122,8 +122,9 @@ SIGNATURES = {
         _P, _I, _I, _I, _F, _I, _I, _U, _I, _I, _P, _P, _P, _I, _P], _I),
     "rt_trace_rays": (_FUSED_TABLES + [
         _P, _P, _P, _P, _LL, _I, _F, _I, _I, _U, _P, _P, _P, _I, _P], _I),
+    # sphere bounds, org, dir, n, t, pid, work, device, stream
     "rt_nearest_hit_scalar": (_HIT_TABLES + [
-        _P, _P, _LL, _P, _P, _I, _P], _I),
+        _P, _P, _P, _LL, _P, _P, _P, _I, _P], _I),
     # org, dir, n, n_live, splits, t and pid of the splits, t, pid, device,
     # stream
     "rt_nearest_hit_dense": (_HIT_TABLES + [
@@ -144,8 +145,12 @@ SIGNATURES = {
     "rt_tiled_wave": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P], _I),
     "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
+    # atten2, g_color, n_glob, g_org, g_dir, out, partial, blocks, device,
+    # stream
     "rt_replay_bwd": (_REPLAY_ARGS + [
-        _F, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I),
+        _F, _P, _I, _P, _P, _P, _P, _I, _I, _P], _I),
+    # refmax, cols, device
+    "rt_replay_bwd_blocks_per_sm": ([_I, _I, _I], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
 }
 

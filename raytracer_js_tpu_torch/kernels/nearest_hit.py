@@ -39,6 +39,7 @@ tensors it launches the kernel or raises. ``LAUNCHES`` counts launches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Tuple, Union
 
@@ -78,7 +79,8 @@ class HitTables:
     """Structure-of-arrays prim tables, row-major ``[rows, max(count, 1)]``
     f32 on the scene's device (at least one column, so a kernel never gets
     a null pointer): spheres cx cy cz ccmr (``c.c - r^2``), boxes
-    cx cy cz hx hy hz, triangles v0 v1 v2 (xyz each)."""
+    cx cy cz hx hy hz, triangles v0 v1 v2 (xyz each); and the scene's
+    sphere radii ``radius`` [S], from which :attr:`bounds` is built."""
 
     sph: Tensor     # [4, S]
     box: Tensor     # [6, B]
@@ -86,10 +88,23 @@ class HitTables:
     n_sph: int
     n_box: int
     n_tri: int
+    radius: Tensor  # [S]
 
     @property
     def n_prims(self) -> int:
         return self.n_sph + self.n_box + self.n_tri
+
+    @functools.cached_property
+    def bounds(self) -> Tensor:
+        """B3's sphere bounds [max(S, 1), 4] f32 (cx cy cz r, one row a
+        sphere), the balls its cone cull tests. Built on first use, so the
+        other searches pay nothing for it."""
+        if self.n_sph == 0:
+            return torch.zeros((1, 4), dtype=torch.float32,
+                               device=self.sph.device)
+        return torch.cat([self.sph[:3, :self.n_sph].T,
+                          self.radius.to(torch.float32)[:, None]],
+                         1).contiguous()
 
 
 def pack_tables(scene: Scene) -> HitTables:
@@ -111,7 +126,8 @@ def pack_tables(scene: Scene) -> HitTables:
                    bh[:, 2]], scene.n_boxes),
         tri=table([v[:, k] for v in (v0, v1, v2) for k in range(3)],
                   scene.n_tris),
-        n_sph=scene.n_spheres, n_box=scene.n_boxes, n_tri=scene.n_tris)
+        n_sph=scene.n_spheres, n_box=scene.n_boxes, n_tri=scene.n_tris,
+        radius=r)
 
 
 # ---------------------------------------------------------------------------
@@ -331,20 +347,41 @@ def _group_sum(x: Tensor, group: int) -> Tensor:
 def culled_tiles(org: Tensor, dir: Tensor, live: int,
                  tile_bounds: Tensor, n_sph: int,
                  group: int = 32) -> Tensor:
-    """B8's cull -> include [G, T] bool, one row per group of ``group``
-    rays (the rays padded to whole 128-ray blocks): group g's rays below
-    ``live`` (the kernel's prologue, over the rows below min(n_live, N))
-    are bounded by an apex ball (o0 = their mean origin, ro = the largest
-    distance from it) and a cone (axis = their mean direction, cos_t = the
-    worst alignment); sphere tile k (bounds ``tile_bounds[k]`` = center,
-    radius) is kept iff the ball-cone can reach it or ``cos_t < 0.25``,
-    the predicate of ``accel/candidates.cone_include_np``. The kernel's
-    expressions, in its order. ``group=1`` bounds each ray by itself (apex
-    0, angle 0): the tiles that ray alone can reach."""
+    """B8's cull -> include [G, T] bool over the ``ceil(n_sph / 128)``
+    sphere tiles (bounds ``tile_bounds[k]`` = center, radius):
+    :func:`cone_include`."""
+    return cone_include(org, dir, live, tile_bounds[:-(-n_sph // BLOCK_K)],
+                        group)
+
+
+def scalar_cull(tabs: HitTables, org: Tensor, dir: Tensor,
+                group: int = 32) -> Tensor:
+    """B3's cull -> include [ceil(N / group), S] bool: :func:`cone_include`
+    over every ray and each sphere's own ball (``tabs.bounds``). With
+    ``group=32``, the spheres each warp of B3 tests (the kernel's
+    ``work``, summed); ``group=1``, the spheres each ray alone can reach
+    (the need). A sphere left out misses every ray of its group."""
+    n = org.shape[0]
+    return cone_include(org, dir, n, tabs.bounds[:tabs.n_sph],
+                        group)[:-(-n // group)]
+
+
+def cone_include(org: Tensor, dir: Tensor, live: int, bounds: Tensor,
+                 group: int = 32) -> Tensor:
+    """The per-warp ball-cone cull of B3 and B8 -> include [G, K] bool, one
+    row per group of ``group`` rays (the rays padded to whole 128-ray
+    blocks), one column per ball ``bounds[k]`` = center, radius (B8: a
+    128-sphere tile's, B3: a sphere's): group g's rays below ``live`` (the
+    kernel's prologue, over the rows below min(n_live, N)) are bounded by
+    an apex ball (o0 = their mean origin, ro = the largest distance from
+    it) and a cone (axis = their mean direction, cos_t = the worst
+    alignment); ball k is kept iff the ball-cone can reach it or ``cos_t <
+    0.25``, the predicate of ``accel/candidates.cone_include_np``. The
+    kernels' expressions, in their order. ``group=1`` bounds each ray by
+    itself (apex 0, angle 0): the balls that ray alone can reach."""
     _check_group(group)
     n = org.shape[0]
     nb = -(-n // BLOCK_R) * (BLOCK_R // group)
-    n_t = -(-n_sph // BLOCK_K)
     pad = nb * group - n
     o = torch.cat([org, org.new_zeros((pad, 3))]) if pad else org
     d = torch.cat([dir, dir.new_ones((pad, 3))]) if pad else dir
@@ -376,7 +413,7 @@ def culled_tiles(org: Tensor, dir: Tensor, live: int,
                         1.0).min(dim=1).values
     use_cone = cos_t >= 0.25
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-    tb = tile_bounds[:n_t]
+    tb = bounds
     vx = tb[None, :, 0] - o0x[:, None]
     vy = tb[None, :, 1] - o0y[:, None]
     vz = tb[None, :, 2] - o0z[:, None]
@@ -440,13 +477,23 @@ def culled_plain(tabs: HitTables, org: Tensor, dir: Tensor,
 # CUDA launches and the dispatching wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_args(tabs: HitTables, org: Tensor, dir: Tensor):
+def launch_scalar(tabs: HitTables, org: Tensor, dir: Tensor,
+                  work: bool = False):
+    """Launch B3 on the current stream -> (t [N], pid [N]) (+ ``tested``
+    [ceil(N / 32)] i32, the spheres each warp tested, when ``work``). No
+    rays or no prims is answered here without a launch. Does not
+    synchronize."""
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"the nearest-hit kernels need CUDA tensors, got "
                          f"{dev}")
     n = org.shape[0]
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
+    if n == 0 or tabs.n_prims == 0:
+        t = torch.full((n,), _INF, dtype=f32, device=dev)
+        pid = torch.full((n,), -1, dtype=i32, device=dev)
+        tested = torch.zeros((-(-n // 32),), dtype=i32, device=dev)
+        return (t, pid, tested) if work else (t, pid)
     args = []
     for name, tab, rows, count in (("sphere table", tabs.sph, 4, tabs.n_sph),
                                    ("box table", tabs.box, 6, tabs.n_box),
@@ -454,27 +501,22 @@ def _launch_args(tabs: HitTables, org: Tensor, dir: Tensor):
                                     tabs.n_tri)):
         _build.need(tab, name, f32, (rows, max(count, 1)), dev)
         args += [_build.ptr(tab), count, tab.shape[1]]
+    _build.need(tabs.bounds, "sphere bounds", f32, (max(tabs.n_sph, 1), 4),
+                dev)
     _build.need(org, "org", f32, (n, 3), dev)
     _build.need(dir, "dir", f32, (n, 3), dev)
-    t = torch.full((n,), _INF, dtype=f32, device=dev)
-    pid = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    return args + [_build.ptr(org), _build.ptr(dir), n], t, pid
-
-
-def launch_scalar(tabs: HitTables, org: Tensor,
-                  dir: Tensor) -> Tuple[Tensor, Tensor]:
-    """Launch B3 on the current stream -> (t [N], pid [N]). No rays or no
-    prims is answered here without a launch. Does not synchronize."""
-    args, t, pid = _launch_args(tabs, org, dir)
-    if org.shape[0] == 0 or tabs.n_prims == 0:
-        return t, pid
+    t = torch.empty((n,), dtype=f32, device=dev)
+    pid = torch.empty((n,), dtype=i32, device=dev)
+    tested = torch.empty((-(-n // 32),), dtype=i32, device=dev) if work \
+        else None
     lib = _build.load()
-    dev = org.device
-    err = lib.rt_nearest_hit_scalar(*args, _build.ptr(t), _build.ptr(pid),
-                                    dev.index, _build.stream(dev))
+    err = lib.rt_nearest_hit_scalar(
+        *args, _build.ptr(tabs.bounds), _build.ptr(org), _build.ptr(dir), n,
+        _build.ptr(t), _build.ptr(pid), _build.ptr(tested),
+        dev.index, _build.stream(dev))
     _build.check(lib, err, "nh_scalar_kernel")
     LAUNCHES["scalar"] += 1
-    return t, pid
+    return (t, pid, tested) if work else (t, pid)
 
 
 def dense_splits(st: StreamTables, n: int) -> int:

@@ -57,11 +57,10 @@ LISTED_MAX_SPHERES = 16384
 N_SLOT = 9
 #: the slots a sphere reports: center, radius, rgb
 SPHERE_SLOTS = (0, 1, 2, 3, 6, 7, 8)
-#: threads per block of the backward kernel (kBlock in csrc/replay_grad.cu)
-#: and its largest grid: blocks loop over ray groups, each writes one
-#: partial row of per-prim sums
+#: threads per block of the backward kernel (kBlock in csrc/replay_grad.cu):
+#: its resident blocks (:func:`bwd_grid`) loop over ray groups of this
+#: many, each writes one partial row of per-prim sums
 BWD_BLOCK = 128
-BWD_MAX_BLOCKS = 1024
 
 _SLAB_EPS = 1e-12
 _ALIVE = int(RayStatus.ALIVE)
@@ -512,6 +511,87 @@ def replay_bwd_plain(tabs: ReplayTables, org: Tensor, dir: Tensor,
     return (g_org, g_dir, *reduce_terms(tabs, keys, rows, skies))
 
 
+def _lane_tree(x: Tensor) -> Tensor:
+    """Sum over dim 1 (32 lanes) in the xor-butterfly tree the kernel's
+    warp sums take (partners 16, 8, 4, 2, 1): its value on every lane."""
+    off = 16
+    while off:
+        x = x[:, :off] + x[:, off:2 * off]
+        off //= 2
+    return x[:, 0]
+
+
+def bwd_sums_model(tabs: ReplayTables, keys: Tensor, rows: Tensor,
+                   skies: Tensor, hits: Tensor, grid: int):
+    """``replay_bwd_kernel``'s float32 summation of the per-prim and sky
+    terms, in its order, for ``grid`` blocks and tables of at most
+    ``SCAN_MAX_PRIMS`` prims -> (g_sph [S, 7], g_box [B, 9], g_sky [3]).
+
+    ``keys``/``rows``/``skies`` are :func:`replay_bwd_terms`' [R, N],
+    [R, N, 9], [R, N, 3]; ``hits`` [R, N] the rays that hit at each bounce
+    (their key is the prim's, else none). Rays are taken 128 at a time,
+    group g by block ``g % grid`` (a grid-stride loop), 32 to a warp.
+    For each group, bounce R-1 down to 0, each warp sums the rows of each
+    winner over its lanes in the xor-butterfly tree, and adds the sum to
+    its own slot row, one add per slot (the sky's 3 sums likewise); a
+    block's partial row is its 4 warps' rows left to right; column c of
+    the result sums the partial rows in the fixed order of a 32-lane pass
+    (lane y adds rows y, y + 32, ... in turn from 0) and a shuffle-down
+    tree over the 32 lanes. Adding a zero, for a prim a warp did not hit,
+    changes no bit: no sum starts from -0."""
+    if tabs.n_prims > SCAN_MAX_PRIMS:
+        raise ValueError("the model covers the shared-memory slots only "
+                         f"(at most {SCAN_MAX_PRIMS} prims)")
+    n_r, n = keys.shape
+    p_all = tabs.n_prims
+    dev = rows.device
+    groups = -(-n // BWD_BLOCK)
+    pad = groups * BWD_BLOCK - n
+    key = torch.where(hits, keys.long(), -1)
+    key = torch.cat([key, key.new_full((n_r, pad), -1)], 1)
+    row = torch.cat([rows, rows.new_zeros((n_r, pad, N_SLOT))], 1)
+    sky = torch.cat([skies, skies.new_zeros((n_r, pad, 3))], 1)
+    warps = BWD_BLOCK // 32
+    acc = torch.zeros((grid, warps, p_all * N_SLOT + 3), dtype=torch.float32,
+                      device=dev)
+    prims = torch.arange(p_all, device=dev)
+    for it in range(-(-groups // grid)):
+        g0, g1 = it * grid, min((it + 1) * grid, groups)
+        sel = slice(g0 * BWD_BLOCK, g1 * BWD_BLOCK)
+        nb = g1 - g0
+        for b in range(n_r - 1, -1, -1):
+            k = key[b, sel].reshape(nb * warps, 32)
+            r = row[b, sel].reshape(nb * warps, 32, N_SLOT)
+            s = sky[b, sel].reshape(nb * warps, 32, 3)
+            own = (k[:, :, None] == prims)[..., None]          # [W, 32, P, 1]
+            g = _lane_tree(torch.where(own, r[:, :, None, :], 0.0))
+            add = torch.cat([g.reshape(nb * warps, -1), _lane_tree(s)], 1)
+            acc[:nb] += add.reshape(nb, warps, -1)
+    part = acc[:, 0]
+    for w in range(1, warps):
+        part = part + acc[:, w]
+    lanes = -(-grid // 32) * 32
+    part = torch.cat([part, part.new_zeros((lanes - grid, part.shape[1]))])
+    v = torch.zeros((32, part.shape[1]), dtype=torch.float32, device=dev)
+    for k0 in range(0, lanes, 32):
+        v = v + part[k0:k0 + 32]
+    out = _lane_tree(v[None])[0]
+    slots = out[:p_all * N_SLOT].reshape(p_all, N_SLOT)
+    return (slots[:tabs.n_sph][:, list(SPHERE_SLOTS)], slots[tabs.n_sph:],
+            out[p_all * N_SLOT:])
+
+
+def bwd_grid(n: int, blocks_per_sm: int, sms: int) -> int:
+    """The backward's grid for ``n`` rays: one block per 128 rays, at most
+    as many as the card holds at once (``blocks_per_sm`` x ``sms``, the
+    kernel's occupancy), so every block is resident and the last of them
+    can wait for the rest; 0 for no rays."""
+    if n < 0 or blocks_per_sm < 1 or sms < 1:
+        raise ValueError(f"bad grid inputs: n={n}, blocks_per_sm="
+                         f"{blocks_per_sm}, sms={sms}")
+    return min(-(-n // BWD_BLOCK), blocks_per_sm * sms)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches and the dispatching wrappers
 # ---------------------------------------------------------------------------
@@ -555,39 +635,68 @@ def launch_fwd(tabs: ReplayTables, org: Tensor, dir: Tensor,
     return color
 
 
+def bwd_layout(tabs: ReplayTables) -> Tuple[int, int]:
+    """(n_glob, cols) of the backward: spheres above the shared-memory
+    ceiling (the listed class) sum with global atomics, the other prims in
+    9 shared-memory columns each, then the sky's 3."""
+    n_glob = tabs.n_sph if tabs.n_prims > SCAN_MAX_PRIMS else 0
+    return n_glob, (tabs.n_prims - n_glob) * N_SLOT + 3
+
+
+_BLOCKS_PER_SM = {}
+
+
+def launch_grid(tabs: ReplayTables, n: int, refmax: int,
+                dev: torch.device) -> int:
+    """The grid :func:`launch_bwd` takes for these tables and ``n`` rays
+    (:func:`bwd_grid` at the kernel's occupancy on ``dev``)."""
+    cols = bwd_layout(tabs)[1]
+    key = (dev.index, refmax, cols)
+    if key not in _BLOCKS_PER_SM:
+        per_sm = _build.load().rt_replay_bwd_blocks_per_sm(refmax, cols,
+                                                           dev.index)
+        if per_sm < 1:
+            raise RuntimeError(f"replay_bwd_kernel fits no block on an SM "
+                               f"({per_sm})")
+        _BLOCKS_PER_SM[key] = per_sm
+    return bwd_grid(n, _BLOCKS_PER_SM[key],
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def launch_bwd(tabs: ReplayTables, org: Tensor, dir: Tensor,
                pid_seq: Tensor, g_color: Tensor, refmax: int, atten: float):
-    """Launch ``replay_bwd_kernel`` and its fixed-order reduction on the
-    current stream -> the five outputs of :func:`replay_bwd_plain`. Does
-    not synchronize."""
+    """Launch ``replay_bwd_kernel`` (one cooperative launch, its
+    fixed-order reduction included) on the current stream -> the five
+    outputs of :func:`replay_bwd_plain`, the last three views of one
+    buffer the kernel fills. Does not synchronize."""
     args = _launch_args(tabs, org, dir, pid_seq, refmax)
     dev = org.device
     n = org.shape[0]
     _build.need(g_color, "g_color", torch.float32, (n, 3), dev)
-    lib = _build.load()
     f32 = torch.float32
-    g_org = torch.zeros((n, 3), dtype=f32, device=dev)
-    g_dir = torch.zeros((n, 3), dtype=f32, device=dev)
-    # spheres above the shared-memory ceiling sum with atomics into g_glob
-    n_glob = tabs.n_sph if tabs.n_prims > SCAN_MAX_PRIMS else 0
-    n_slots = tabs.n_prims - n_glob
-    cols = n_slots * N_SLOT + 3
-    blocks = min(-(-n // BWD_BLOCK), BWD_MAX_BLOCKS)
-    partial = torch.empty((max(blocks, 1), cols), dtype=f32, device=dev)
-    out = torch.zeros((cols,), dtype=f32, device=dev)
-    g_glob = torch.zeros((max(n_glob, 1), N_SLOT), dtype=f32, device=dev)
-    if n:
+    n_s, n_b = tabs.n_sph, tabs.n_box
+    n_glob, cols = bwd_layout(tabs)
+    g_org = torch.empty((n, 3), dtype=f32, device=dev)
+    g_dir = torch.empty((n, 3), dtype=f32, device=dev)
+    out = torch.empty((n_s * 7 + n_b * N_SLOT + 3,), dtype=f32, device=dev)
+    if n == 0:
+        out.zero_()
+    else:
+        if n_glob:
+            out[:n_glob * 7].zero_()
+        blocks = launch_grid(tabs, n, refmax, dev)
+        partial = torch.empty((blocks, cols), dtype=f32, device=dev)
+        lib = _build.load()
         err = lib.rt_replay_bwd(*args, float(atten), float(atten) ** 2,
                                 _build.ptr(g_color), n_glob, _build.ptr(g_org),
-                                _build.ptr(g_dir), _build.ptr(g_glob),
-                                _build.ptr(partial), blocks, _build.ptr(out),
-                                dev.index, _build.stream(dev))
+                                _build.ptr(g_dir), _build.ptr(out),
+                                _build.ptr(partial), blocks, dev.index,
+                                _build.stream(dev))
         _build.check(lib, err, "replay_bwd_kernel")
         LAUNCHES["bwd"] += 1
-    prims = torch.cat([g_glob[:n_glob],
-                       out[:n_slots * N_SLOT].reshape(n_slots, N_SLOT)])
-    return (g_org, g_dir, prims[:tabs.n_sph][:, list(SPHERE_SLOTS)],
-            prims[tabs.n_sph:], out[n_slots * N_SLOT:])
+    return (g_org, g_dir, out[:n_s * 7].view(n_s, 7),
+            out[n_s * 7:n_s * 7 + n_b * N_SLOT].view(n_b, N_SLOT),
+            out[n_s * 7 + n_b * N_SLOT:])
 
 
 def replay_fwd(tabs: ReplayTables, org: Tensor, dir: Tensor,
