@@ -10,14 +10,21 @@ Phases, one JSON line each:
   0. device   — needs CUDA (exit 1 without it); prints the card's name and
                 ``nvidia-smi`` name/power limit; TF32 off.
   1. build    — nvcc builds the kernels from ``raytracer_js_tpu_torch/csrc``.
-  2. B1       — the frame kernel against its plain PyTorch version on five
-                scenes: (a) the headline scene at 1920x1088, refmax 2;
+  2. B1       — the frame kernel against its plain PyTorch version, image,
+                status and recorded pid bit for bit, and the spheres each
+                warp tested at each bounce equal to the plain form of its
+                cull (``tf.cull_counts``): (a) the headline scene at
+                1920x1088, refmax 2 (and its bounce-0 and bounce-1 cull);
                 (b) config 1 with glass and a triangle, 256x256, refmax 3;
                 (c) a rough + glass scene, spp 4; (d) a 600-sphere near-miss
-                field at 512x512; (e) a 40x24 rotated camera.
-  3. B2       — the wavefront kernel against its plain version on (b), (c)
-                and (d), and ``render_rays`` with FUSED; (f) a ray on a
-                mirror box's edge (the x > y > z face tie).
+                field at 512x512 (three shared-memory windows); (e) a 40x24
+                rotated camera (partial edge warps, dead lanes at bounce 1);
+                (g) the field at 45x21, refmax 3 (windows, partial warps
+                and a partial block row).
+  3. B2       — the wavefront kernel against its plain version as B1, on
+                (b), (c) and (d), and ``render_rays`` with FUSED; (f) a ray
+                on a mirror box's edge (the x > y > z face tie; one partial
+                warp).
   4. B3       — the scalar nearest-hit kernel against its plain version,
                 t and pid bit for bit and the spheres each warp tested equal
                 to the plain form of its cone cull (``nh.scalar_cull``):
@@ -78,7 +85,9 @@ Phases, one JSON line each:
                 tile).
   7. main     — ``render_hdr`` FUSED on the headline scene -> exposure ->
                 STDDEV tone map -> PNG, plus ``render_rays`` FUSED over the
-                same camera's rays, with the launch counters reset first.
+                same camera's rays, with the launch counters reset first;
+                a profiler trace of one frame: no stream synchronization
+                and no copy from pageable host memory.
   8. main-PALLAS — ``render_hdr`` PALLAS on config 3 (B4 at every bounce)
                 -> exposure -> STDDEV tone map -> PNG, held against the same
                 path with the plain versions on the CPU at a small size;
@@ -121,9 +130,10 @@ Phases, one JSON line each:
                 B7-wave on config 4's first packet round (the need: each
                 ray's chunks up to its own exit, ``wave_need``).
  10. times    — CUDA-event medians of each kernel and its plain version at
-                the main paths' shapes; B3 and B5 also alone, by the
-                profiler (``kernel_ms``), each with its spread and the
-                device work one call issues;
+                the main paths' shapes; each kernel also alone, by the
+                profiler (``kernel_ms``; B1, B2, B3 and B5 with their
+                spread and the device work one call issues, B1 and B2 at
+                refmax 2 and 1);
                 ``render_hdr`` end to end, and the
                 gradient path: a replay step for one view, an 8-view fit
                 step and an 8-view recording; config 4's TILED frame, B7,
@@ -134,10 +144,10 @@ Phases, one JSON line each:
                 Then each kernel's bound: the larger of its tests'
                 operations over 67 TFLOP/s (float32) and its bytes in and
                 out over 3.35 TB/s, counted from this run's inputs
-                (``OPS``); B3's, B6's, B7's, B7-wave's and B8's from the
-                work the rays need (9e, ``frame_need``; B3: each ray's own
-                cone), printed beside the bound of what the warps streamed
-                and the time of one streamed test;
+                (``OPS``); B1's, B2's, B3's, B6's, B7's, B7-wave's and
+                B8's from the work the rays need (9e, ``frame_need``; B1,
+                B2 and B3: each ray's own cone), printed beside the bound of
+                what the warps streamed and the time of one streamed test;
                 B7-wave's chunks per warp and time per launch.
 Parity rule: allclose(rtol=1e-5, atol=1e-6) and equal status per pixel (or
 pid per ray), except proven winner flips (``utils/parity``), at most 0.1%.
@@ -202,6 +212,9 @@ C4B_SAMPLES = 65536
 C4B_MAX_ROUNDING_FRAC = 0.03
 SWEEP_MAX_PRIMS = rtl.SWEEP_MAX_PRIMS
 WARMUP, TIMED = 3, 20
+#: a profiler trace of ``kernel_report`` runs TRACE_PAD calls before the
+#: ``TIMED`` it keeps, and is taken up to TRACE_TRIES times
+TRACE_PAD, TRACE_TRIES = 10, 3
 #: how every kernel's ``ms`` is taken (``cuda_median_ms``), and B7-wave's
 #: ``kernel_ms`` beside it (``device_ms_per_call``)
 MS_TIMING = "median of CUDA events around the wrapper's call"
@@ -577,20 +590,66 @@ def start_refr(scene, cam):
     return start_substance(scene, cam.pos) if scene.has_transmission else None
 
 
+def fused_report(scene, lanes, k, p):
+    """B1 or B2 against its plain version, ``k`` and ``p`` each (color,
+    status, rec, work): color, status and the recorded winner pid bit for
+    bit, and the spheres each warp tested at each bounce equal to the plain
+    cull's (``tf.cull_counts``); with, per bounce, the warps that had a
+    live ray, those of them with a dead lane, and the spheres tested ->
+    report with ``ok``."""
+    (k_c, k_st, k_rec, k_work), (p_c, p_st, p_rec, p_work) = k, p
+    exact = (torch.equal(bits(k_c), bits(p_c)) and torch.equal(k_st, p_st)
+             and torch.equal(k_rec["pid"], p_rec["pid"]))
+    work_equal = torch.equal(k_work, p_work)
+    has_ray = (lanes >= 0).reshape(-1, tf.WARP)
+    alive = p_rec["alive"][:, lanes.clamp(min=0)].reshape(
+        p_rec["alive"].shape[0], -1, tf.WARP) & has_ray
+    live = alive.any(-1)
+    return dict(
+        rays=int(k_st.numel()), prims=scene.n_prims,
+        spheres=scene.n_spheres, bit_exact=exact, work_equal=work_equal,
+        ok=exact and work_equal,
+        max_abs_err=float(torch.where(torch.isfinite(p_c), (k_c - p_c).abs(),
+                                      0.0).max()),
+        warps=int(has_ray.shape[0]),
+        partial_warps=int((~has_ray.all(-1)).sum()),
+        live_warps=live.sum(-1).tolist(),
+        live_warps_with_dead_lanes=(live & (alive != has_ray).any(-1))
+        .sum(-1).tolist(),
+        spheres_tested=k_work.sum(-1).tolist(),
+        warps_keeping_all=(k_work == scene.n_spheres).sum(-1).tolist()
+        if scene.n_spheres else [0] * k_work.shape[0])
+
+
 def compare_frame(name, scene, cam, cfg, sample=0):
-    """B1 kernel vs its plain version for one sample of one scene."""
+    """B1 kernel vs its plain version for one sample of one scene, bit for
+    bit with the per-warp sphere counts (:func:`fused_report`)."""
     refr = start_refr(scene, cam)
-    k_img, k_st, k_rec = tf.trace_frame_fused_cuda(
-        scene, cfg, cam, sample=sample, start_refr=refr, record=True)
-    p_img, p_st, p_rec = tf.trace_frame_fused_plain(
-        scene, cfg, cam, sample=sample, start_refr=refr, record=True)
+    k = tf.trace_frame_fused_cuda(scene, cfg, cam, sample=sample,
+                                  start_refr=refr, record=True, work=True)
+    p = tf.trace_frame_fused_plain(scene, cfg, cam, sample=sample,
+                                   start_refr=refr, record=True, work=True)
     torch.cuda.synchronize()
-    rep = parity.compare(k_img, k_st, p_img, p_st,
-                         prove=parity.flip_prover(scene, p_rec, k_rec["pid"]))
+    rep = fused_report(scene, tf.frame_lanes(cam.w, cam.h, cam.device), k, p)
     emit(phase="B1", case=name, sample=sample, w=cam.w, h=cam.h,
-         refmax=cfg.refmax, prims=scene.n_prims, **rep)
+         refmax=cfg.refmax, **rep)
     check(rep["ok"], f"B1 {name} sample {sample}: {rep}")
-    return rep, k_img, k_rec
+    return rep, k[0], p[2]
+
+
+def compare_rays_once(name, scene, cfg, org, dir, sample=0, **kw):
+    """B2 kernel vs its plain version on one wavefront, bit for bit with
+    the per-warp sphere counts (:func:`fused_report`) -> (report, color,
+    status, the plain version's record)."""
+    k = tf.trace_rays_fused_cuda(scene, cfg, org, dir, record=True,
+                                 work=True, **kw)
+    p = tf.trace_rays_fused_plain(scene, cfg, org, dir, record=True,
+                                  work=True, **kw)
+    torch.cuda.synchronize()
+    rep = fused_report(scene, tf.ray_lanes(org.shape[0], org.device), k, p)
+    emit(phase="B2", case=name, sample=sample, refmax=cfg.refmax, **rep)
+    check(rep["ok"], f"B2 {name} sample {sample}: {rep}")
+    return rep, k[0], k[1], p[2]
 
 
 def compare_rays(name, scene, cam, cfg, seed=DEFAULT_SEED):
@@ -600,19 +659,10 @@ def compare_rays(name, scene, cam, cfg, seed=DEFAULT_SEED):
     refr = start_refr(scene, cam)
     reps, acc = [], None
     for s in range(cfg.spp):
-        rid = rid0 * cfg.spp + s
-        k_c, k_st, k_rec = tf.trace_rays_fused_cuda(
-            scene, cfg, org, dir, seed=seed, ray_id=rid, start_refr=refr,
-            record=True)
-        p_c, p_st, p_rec = tf.trace_rays_fused_plain(
-            scene, cfg, org, dir, seed=seed, ray_id=rid, start_refr=refr,
-            record=True)
-        torch.cuda.synchronize()
-        rep = parity.compare(k_c, k_st, p_c, p_st, prove=parity.flip_prover(
-            scene, p_rec, k_rec["pid"]))
-        emit(phase="B2", case=name, sample=s, rays=org.shape[0],
-             refmax=cfg.refmax, prims=scene.n_prims, **rep)
-        check(rep["ok"], f"B2 {name} sample {s}: {rep}")
+        rep, k_c, *_ = compare_rays_once(name, scene, cfg, org, dir,
+                                         sample=s, seed=seed,
+                                         ray_id=rid0 * cfg.spp + s,
+                                         start_refr=refr)
         reps.append(rep)
         acc = k_c if acc is None else acc + k_c
     before = tf.LAUNCHES["rays"]
@@ -1139,18 +1189,33 @@ def class_ops(scene, tri_key="tri"):
             + scene.n_tris * OPS[tri_key])
 
 
-def fused_alive(scene, rec_pid):
-    """Rays alive at each bounce of a fused trace, from its recording: all
-    at bounce 0, then the mirror and transmission continuations."""
+def fused_bounds(scene, rec, lanes, nbytes):
+    """B1's or B2's bounds on one traced frame (``rec`` from the plain
+    version with ``record``; ``lanes`` the kernel's warps): the tests the
+    live rays need (each ray's own cone, ``group=1``: its spheres; boxes
+    and triangles dense), those the warps ran (each warp's kept spheres,
+    ``tf.cull_counts``, against its live rays) and every live ray against
+    every prim, each over ``nbytes`` -> their counts and ``bound``s."""
     tabs = tf.pack_tables(scene)
-    mode = torch.cat([tabs.sph[tf.S_MODE], tabs.box[tf.B_MODE],
-                      tabs.tri[tf.T_MODE]])
-    alive = [rec_pid.shape[1]]
-    for b in range(rec_pid.shape[0] - 1):
-        pid = rec_pid[b].long()
-        m = mode[pid.clamp(min=0)]
-        alive.append(int(((pid >= 0) & ((m == 1.0) | (m == 3.0))).sum()))
-    return alive
+    alive = rec["alive"]
+    n = alive.shape[1]
+    every = torch.arange(n, device=alive.device)
+    live = int(alive.sum())
+    need = sum(int(tf.fused_cull(tabs, rec["org"][b], rec["dir"][b],
+                                 alive[b], every, group=1)[alive[b]].sum())
+               for b in range(alive.shape[0]))
+    live_lanes = (alive[:, lanes.clamp(min=0)] & (lanes >= 0)).reshape(
+        alive.shape[0], -1, tf.WARP).sum(-1)
+    streamed = float((tf.cull_counts(tabs, rec, lanes).double()
+                      * live_lanes).sum())
+    dense = live * (scene.n_boxes * OPS["box"] + scene.n_tris * OPS["tri"])
+    return dict(live_rays=live, sphere_tests_needed=need,
+                sphere_tests_streamed=streamed,
+                sphere_tests_all=live * scene.n_spheres,
+                bound=bound(need * OPS["sphere_unit"] + dense, nbytes),
+                bound_streamed=bound(streamed * OPS["sphere_unit"] + dense,
+                                     nbytes),
+                bound_all=bound(live * class_ops(scene), nbytes))
 
 
 def replay_grads(scene, cfg, org, dir, target, pid_seq=None, kernel=True):
@@ -1252,40 +1317,40 @@ def device_events(calls, reps):
     return [(e.name, e.time_range.elapsed_us() * 1e-3) for e in evs]
 
 
-def device_work(fn, reps=TIMED):
-    """The device operations of each of ``reps`` calls of ``fn`` (after one
-    call outside the trace) -> per call a list of (name, ms) in start
-    order; None when the trace holds no device operation or the calls
-    issue differing counts."""
-    fn()
-    evs = device_events([fn], reps)
-    if not evs or len(evs) % reps:
-        return None
-    k = len(evs) // reps
-    return [evs[i * k:(i + 1) * k] for i in range(reps)]
-
-
 def kernel_report(fn, family, reps=TIMED):
     """One wrapper call's time two ways: ``ms`` (CUDA events around the
     call, which hold its host work) and ``kernel_ms`` (the device time of
-    its kernels whose names hold ``family``, from the profiler), each as
-    the min, median and max over ``reps`` calls in this run; ``device_ms``
-    all its device operations (fills, copies, gathers included), and the
-    list of them with their mean ms. ``kernel_ms`` is None without a
-    device trace."""
+    its kernels whose names hold ``family``, from a profiler trace), each
+    as the min, median and max over ``reps`` calls in this run;
+    ``device_ms`` all its device operations (fills, copies, gathers
+    included), and the list of them with their mean ms; ``trace_ops`` the
+    count of device operations in each trace taken. A trace runs
+    ``TRACE_PAD + reps`` calls (after one outside it) and keeps the last
+    ``reps`` calls' operations: in a long run a trace has been seen to miss
+    its first operations (14 of 20 kept, every time). A trace that keeps
+    fewer than ``reps`` calls is taken again, up to ``TRACE_TRIES``
+    traces; ``kernel_ms`` is None when none does."""
     rep = dict(ms=spread(event_ms(fn, timed=reps)), kernel_ms=None,
-               device_ms=None, device_ops=None)
-    calls = device_work(fn, reps)
-    if calls is None:
+               device_ms=None, device_ops=None, trace_ops=[])
+    fn()
+    n = TRACE_PAD + reps
+    for _ in range(TRACE_TRIES):
+        evs = device_events([fn], n)
+        rep["trace_ops"].append(len(evs))
+        fam = [ms for name, ms in evs if family in name]
+        k, m = -(-len(fam) // n), -(-len(evs) // n)   # per call
+        if k == 0 or len(fam) < reps * k:
+            continue
+        fam, evs = fam[len(fam) - reps * k:], evs[len(evs) - reps * m:]
+        calls = [evs[i * m:(i + 1) * m] for i in range(reps)]
+        rep.update(
+            kernel_ms=spread([sum(fam[i * k:(i + 1) * k])
+                              for i in range(reps)]),
+            device_ms=spread([sum(ms for _, ms in c) for c in calls]),
+            device_ops=[dict(name=name[:96], ms=statistics.mean(
+                c[j][1] for c in calls)) for j, (name, _) in
+                enumerate(calls[0])])
         return rep
-    fam = [sum(ms for n, ms in c if family in n) for c in calls]
-    if min(fam) <= 0.0:
-        return rep
-    rep.update(kernel_ms=spread(fam),
-               device_ms=spread([sum(ms for _, ms in c) for c in calls]),
-               device_ops=[dict(name=n[:96], ms=statistics.mean(
-                   c[j][1] for c in calls)) for j, (n, _) in
-                   enumerate(calls[0])])
     return rep
 
 
@@ -1314,9 +1379,40 @@ def ptxas_of(log: str, names) -> dict:
 
 
 #: the entry functions whose ptxas report is printed: B5's kernels at
-#: refmax 2 (the fit's) and B3
+#: refmax 2 (the fit's), B3, B1 and B2
 PTXAS_KERNELS = ("replay_bwd_kernelILi2E", "replay_fwd_kernelILi2E",
-                 "nh_scalar_kernel")
+                 "nh_scalar_kernel", "trace_frame_kernel",
+                 "trace_rays_kernel")
+
+
+def host_trace(fn, reps=5) -> dict:
+    """The CUDA runtime calls and the device operations of one call of
+    ``fn`` (the mean over ``reps`` calls under one ``torch.profiler`` trace,
+    after one call outside it) -> {"runtime_calls": {name: count},
+    "device_ops": {name: count}, "stream_syncs": n, "copies": n,
+    "pageable_copies": n}: a stream synchronization or a copy from pageable
+    host memory makes the host wait for the device. ``copies`` counts the
+    runtime's copy calls, which a trace keeps when it misses device
+    operations."""
+    act = torch.profiler.ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()    # one cudaDeviceSynchronize, not counted
+    calls, ops = {}, {}
+    for e in prof.events():
+        on_dev = "CUDA" in str(e.device_type)
+        if on_dev or e.name.startswith("cuda"):
+            tally = ops if on_dev else calls
+            tally[e.name[:96]] = tally.get(e.name[:96], 0) + 1 / reps
+    return dict(runtime_calls=calls, device_ops=ops,
+                stream_syncs=sum(v for k, v in calls.items()
+                                 if "StreamSynchronize" in k),
+                copies=sum(v for k, v in calls.items() if "Memcpy" in k),
+                pageable_copies=sum(v for k, v in ops.items()
+                                    if "Pageable" in k))
 
 
 def device_ms_per_call(calls, name, reps=3):
@@ -1367,7 +1463,7 @@ def main() -> int:
          nvcc_seconds=build.seconds, library=build.path.name,
          ptxas=[ln.strip() for ln in build.log.splitlines()
                 if "registers" in ln or "spill" in ln],
-         ptxas_b3_b5=ptxas_of(build.log, PTXAS_KERNELS))
+         ptxas_by_kernel=ptxas_of(build.log, PTXAS_KERNELS))
 
     # ---- 2. B1 against its plain version -----------------------------------
     head = headline_scene(device=dev)
@@ -1390,30 +1486,46 @@ def main() -> int:
     rep, head_img, head_rec = compare_frame("a_headline", head, head_cam,
                                             cfg_head)
     b1.append(rep)
+    check(rep["spheres_tested"][0] < rep["warps"] * head.n_spheres,
+          "B1 (a): the headline's bounce-0 warps culled no sphere")
+    emit(phase="B1", case="a_headline_cull",
+         bounce0_spheres_per_warp=rep["spheres_tested"][0] / rep["warps"],
+         bounce1_spheres_per_live_warp=rep["spheres_tested"][1]
+         / max(rep["live_warps"][1], 1),
+         bounce1_warps_keeping_all=rep["warps_keeping_all"][1])
     b1.append(compare_frame("b_config1_glass_tri", glass, cam256, cfg3)[0])
     for s in range(cfg_rough.spp):
         b1.append(compare_frame("c_rough_spp4", rough, cam256, cfg_rough,
                                 sample=s)[0])
     b1.append(compare_frame("d_near_miss_600", field, cam512, cfg2)[0])
     b1.append(compare_frame("e_rotated_40x24", glass, cam_rot, cfg3)[0])
+    check(b1[-1]["partial_warps"] > 0
+          and b1[-1]["live_warps_with_dead_lanes"][1] > 0,
+          "B1 (e) has no partial edge warp or no dead lane at bounce 1")
+    b1.append(compare_frame("g_windows_45x21", field, make_camera(
+        (0.0, 0.0, 0.5), 45, 21, 1.3, 0.7, device=dev), cfg3)[0])
+    check(b1[-1]["partial_warps"] > 0
+          and b1[-1]["live_warps_with_dead_lanes"][1] > 0,
+          "B1 (g) has no partial edge warp or no dead lane at bounce 1")
 
     # ---- 3. B2 against its plain version ------------------------------------
-    b2 = []
+    # (a) the main path's wavefront: the headline camera's rays
+    org, dir = pixel_rays(head_cam)
+    rep, *_, head_rec2 = compare_rays_once("a_headline", head, cfg_head, org,
+                                           dir)
+    b2 = [rep]
+    check(rep["spheres_tested"][0] < rep["warps"] * head.n_spheres,
+          "B2 (a): the headline's bounce-0 warps culled no sphere")
     b2 += compare_rays("b_config1_glass_tri", glass, cam256, cfg3)
     b2 += compare_rays("c_rough_spp4", rough, cam256, cfg_rough)
     b2 += compare_rays("d_near_miss_600", field, cam512, cfg2)
     edge, e_org, e_dir = box_edge_case(dev)
-    k_c, k_st, _ = tf.trace_rays_fused_cuda(edge, cfg3, e_org, e_dir)
-    p_c, p_st, _ = tf.trace_rays_fused_plain(edge, cfg3, e_org, e_dir)
-    torch.cuda.synchronize()
-    rep = parity.compare(k_c, k_st, p_c, p_st)
-    emit(phase="B2", case="f_box_edge_tie", status=k_st.tolist(), **rep)
-    check(rep["ok"] and k_st.tolist() == [1, 3],
-          f"B2 box-edge tie: {k_st.tolist()} {rep}")
+    rep, _, k_st, _ = compare_rays_once("f_box_edge_tie", edge, cfg3, e_org,
+                                        e_dir)
+    check(k_st.tolist() == [1, 3], f"B2 box-edge tie: {k_st.tolist()}")
     b2.append(rep)
 
     # ---- 4. B3 against its plain version -----------------------------------
-    org, dir = pixel_rays(head_cam)
     cfg_rep = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
     head_b0, head_b1 = scalar_inputs(head, cfg_rep, org, dir)
     b3 = [compare_scalar("a_headline_bounce0", head, *head_b0)]
@@ -1631,6 +1743,14 @@ def main() -> int:
           "of case (a)")
     check(int(frame_vs_wave.sum()) <= parity.MAX_FLIP_FRAC * hdr[..., 0].numel(),
           "frame and wavefront kernels disagree beyond ULP noise")
+    # the frame's host work: one launch, no wait for the device, no copy
+    # from pageable host memory (the tables stay on the scene)
+    frame_trace = host_trace(lambda: rt.render_hdr(head, head_cam, cfg_head))
+    emit(phase="main", case="render_hdr_fused_host_trace", **frame_trace)
+    check(frame_trace["stream_syncs"] == 0 and frame_trace["copies"] == 0
+          and frame_trace["pageable_copies"] == 0,
+          f"render_hdr FUSED waits for the device or copies from the host: "
+          f"{frame_trace}")
 
     # ---- 8. main-PALLAS: config 3 through B4, the headline through B3 -------
     cfg_c3 = RenderConfig(refmax=3, backend=HitBackend.PALLAS)
@@ -2085,35 +2205,40 @@ def main() -> int:
     rules7w = wave_work(wave_a0, k_wa, blk_wa)
 
     # ---- 10. times at the main paths' shapes -------------------------------
-    tabs = tf.pack_tables(head, cam_pos=head_cam.pos)
-    refr = tf._refr_pair(head, None)
-    cam_arr = tf._cam_array(head_cam, refr)
-    rid = torch.arange(org.shape[0], dtype=torch.int32, device=dev)
-    kw = dict(refmax=cfg_head.refmax, atten=1.0, seed=DEFAULT_SEED)
-    b1_ms = cuda_median_ms(lambda: tf.launch_frame(
-        tabs, cam_arr, HEADLINE_W, HEADLINE_H, spp=1, sample=0, **kw))
+    # B1 and B2 by events around their wrappers (the tables kept on the
+    # scene) and alone by the profiler, at refmax 2 and 1
+    fused = fused_times(head, head_cam, org, dir)
+    b1_ms = fused["b1_refmax2"]["ms"]["median"]
+    b1_kernel_ms = median_of(fused["b1_refmax2"])
+    b2_ms = fused["b2_refmax2"]["ms"]["median"]
+    b2_kernel_ms = median_of(fused["b2_refmax2"])
     b1_plain_ms = cuda_median_ms(lambda: tf.trace_frame_fused_plain(
         head, cfg_head, head_cam))
-    wrapper_ms = cuda_median_ms(lambda: tf.trace_frame_fused_cuda(
-        head, cfg_head, head_cam))
-    render_ms = cuda_median_ms(lambda: rt.render_hdr(head, head_cam, cfg_head))
     view_ms = cuda_median_ms(lambda: view.draw(
         exposure.accumulate(buf, hdr),
         ToneMapConfig(kind=ToneMapperKind.STDDEV_AROUND_MEAN)))
-    b2_ms = cuda_median_ms(lambda: tf.launch_rays(
-        tabs, refr, org, dir, rid, **kw))
     b2_plain_ms = cuda_median_ms(lambda: tf.trace_rays_fused_plain(
         head, cfg_head, org, dir))
     pixels = HEADLINE_W * HEADLINE_H
-    for what, ms in (("B1 kernel", b1_ms), ("B1 plain", b1_plain_ms),
-                     ("B1 wrapper (pack + launch)", wrapper_ms),
-                     ("render_hdr FUSED", render_ms),
+    for what, ms in (("B1 wrapper (tables kept, one launch)", b1_ms),
+                     ("B1 plain", b1_plain_ms),
+                     ("render_hdr FUSED",
+                      fused["render_hdr_fused_ms"]["median"]),
                      ("exposure + STDDEV tone map", view_ms),
-                     ("B2 kernel", b2_ms), ("B2 plain", b2_plain_ms)):
+                     ("B2 wrapper", b2_ms), ("B2 plain", b2_plain_ms)):
         emit(phase="times", what=what, ms_per_frame=ms,
              primary_rays_per_s=pixels / (ms * 1e-3), w=HEADLINE_W,
              h=HEADLINE_H, refmax=cfg_head.refmax, prims=head.n_prims,
              frames=TIMED, card=name, nvidia_smi=smi)
+    for key in ("b1_refmax2", "b1_refmax1", "b2_refmax2", "b2_refmax1"):
+        emit(phase="times", what=f"{key[:2].upper()} alone, refmax "
+             f"{key[-1]}", **fused[key], timing=MS_TIMING,
+             kernel_timing=KERNEL_MS_TIMING, card=name, nvidia_smi=smi)
+    emit(phase="times", what="render_hdr FUSED, events, host clock and "
+         "return", ms=fused["render_hdr_fused_ms"],
+         host_ms=fused["render_hdr_fused_host_ms"],
+         return_ms=fused["render_hdr_fused_return_ms"], card=name,
+         nvidia_smi=smi)
 
     # B3 on the headline wavefront, B4 on config 3's; render_hdr PALLAS
     head_tabs = nh.pack_tables(head)
@@ -2125,7 +2250,9 @@ def main() -> int:
     b3_ms, b3_kernel_ms = b3_rep["ms"]["median"], median_of(b3_rep)
     b3_plain_ms = cuda_median_ms(
         lambda: nh.nearest_hit_pallas_scalar_plain(head, org, dir))
-    b4_ms = cuda_median_ms(lambda: nh.launch_dense(c3_st, org3, dir3))
+    # B4, B6, B7 and B8 alone too (the profiler; B4 with its merge)
+    b4_rep = kernel_report(lambda: nh.launch_dense(c3_st, org3, dir3), "nh_")
+    b4_ms, b4_kernel_ms = b4_rep["ms"]["median"], median_of(b4_rep)
     b4_plain_ms = cuda_median_ms(
         lambda: nh.nearest_hit_pallas_plain(c3, org3, dir3), warmup=1,
         timed=5)
@@ -2207,14 +2334,16 @@ def main() -> int:
     c4_render_ms = cuda_median_ms(lambda: rt.render_hdr(
         c4, c4_cam, cfg_c4, tables=tables4), warmup=1, timed=5)
     cam_arr4, nby4, nbx4 = tt._frame_inputs(c4, c4_cam, *tables4[:3])
-    b7_ms = cuda_median_ms(lambda: tt.launch_frame(
+    b7_rep = kernel_report(lambda: tt.launch_frame(
         tables4[0], tables4[1], cam_arr4, c_max4, nby4, nbx4,
-        **tt._flags(c4)))
+        **tt._flags(c4)), "tiled_frame")
+    b7_ms, b7_kernel_ms = b7_rep["ms"]["median"], median_of(b7_rep)
     b7_plain_ms = cuda_median_ms(lambda: tt.frame_bounce0_plain(
         c4, c4_cam, *tables4[:3]), warmup=0, timed=1)
     nl4 = torch.tensor([n_live4], dtype=torch.int32, device=dev)
-    b6_ms = cuda_median_ms(lambda: nh.launch_listed(li4, org_s, dir_s,
-                                                    n_live=nl4))
+    b6_rep = kernel_report(lambda: nh.launch_listed(li4, org_s, dir_s,
+                                                    n_live=nl4), "nh_listed")
+    b6_ms, b6_kernel_ms = b6_rep["ms"]["median"], median_of(b6_rep)
     b6_plain_ms = cuda_median_ms(lambda: nh.nearest_hit_listed_plain(
         scene_s, org_s, dir_s, n_live4, inputs=li4), warmup=0, timed=1)
     c4_pallas_ms = cuda_median_ms(lambda: rt.render_hdr(c4, c4_cam, cfg_c4p),
@@ -2300,8 +2429,10 @@ def main() -> int:
         **tt._flags(c4b)))
     nl_c = torch.tensor([n_live_c], dtype=torch.int32, device=dev)
     tabs_c = nh.stream_tables(nh.pack_tables(scene_c))
-    b8_ms = cuda_median_ms(lambda: nh.launch_culled(tabs_c, org_c, dir_c,
-                                                    tb_c, n_live=nl_c))
+    b8_rep = kernel_report(lambda: nh.launch_culled(tabs_c, org_c, dir_c,
+                                                    tb_c, n_live=nl_c),
+                           "nh_culled")
+    b8_ms, b8_kernel_ms = b8_rep["ms"]["median"], median_of(b8_rep)
     b8_plain_ms = cuda_median_ms(lambda: nh.nearest_hit_culled_plain(
         scene_c, org_c, dir_c, tb_c, n_live_c), warmup=0, timed=1)
 
@@ -2371,10 +2502,22 @@ def main() -> int:
 
     # ---- bounds: the tests these inputs need, the bytes in and out ----------
     n_head, n_c3 = org.shape[0], org3.shape[0]
-    alive = sum(fused_alive(head, head_rec["pid"]))
     head_tab = 4 * (13 * head.n_spheres + 13 * head.n_boxes + 17 * head.n_tris)
-    b1_bound = bound(alive * class_ops(head), 16 * n_head + head_tab)
-    b2_bound = bound(alive * class_ops(head), 44 * n_head + head_tab)
+    # B1 and B2 on the headline: 16 bytes a pixel out (B2: also 28 of ray
+    # and id in), the tables and the spheres' arrays of structs read once
+    b1b = fused_bounds(head, head_rec, tf.frame_lanes(HEADLINE_W,
+                                                      HEADLINE_H, dev),
+                       16 * n_head + head_tab + 32 * head.n_spheres)
+    b2b = fused_bounds(head, head_rec2, tf.ray_lanes(n_head, dev),
+                       44 * n_head + head_tab + 32 * head.n_spheres)
+    for kname, b, ms, k_ms in (("B1", b1b, b1_ms, b1_kernel_ms),
+                               ("B2", b2b, b2_ms, b2_kernel_ms)):
+        emit(phase="bounds", kernel=kname, rays=n_head,
+             **{k: v for k, v in b.items() if not k.startswith("bound")},
+             bound_ms=b["bound"][0], bound_by=b["bound"][1],
+             bound_ms_streamed=b["bound_streamed"][0],
+             bound_ms_all_tests=b["bound_all"][0], ms=ms, kernel_ms=k_ms,
+             card=name, nvidia_smi=smi)
     # B3 on the headline's bounce-0 rays: every ray against every prim; the
     # tests the rays need (each ray's own cone, ``group=1``: its spheres;
     # boxes and triangles dense); those the warps ran (each warp's kept
@@ -2503,19 +2646,23 @@ def main() -> int:
 
     emit(phase="bounds", card=name, nvidia_smi=smi,
          sm_clock_max_mhz=sm_clock_mhz,
-         b4=dict(ms=b4_ms, bound_ms=b4_bound[0], bound_by=b4_bound[1],
+         b4=dict(ms=b4_ms, kernel_ms=b4_kernel_ms, bound_ms=b4_bound[0],
+                 bound_by=b4_bound[1],
                  **per_test(b4_ms, tests4)),
-         b6=dict(ms=b6_ms, bound_ms_needed=b6_bound[0],
+         b6=dict(ms=b6_ms, kernel_ms=b6_kernel_ms,
+                 bound_ms_needed=b6_bound[0],
                  bound_ms_streamed=b6_bound_streamed[0],
                  bound_by=b6_bound[1], **per_test(b6_ms, tests6)),
-         b7=dict(ms=b7_ms, bound_ms_needed=b7_bound[0],
+         b7=dict(ms=b7_ms, kernel_ms=b7_kernel_ms,
+                 bound_ms_needed=b7_bound[0],
                  bound_ms_streamed=b7_bound_streamed[0],
                  bound_by=b7_bound[1]),
          b7_wave=dict(ms=b7w_ms, kernel_ms=b7w_kernel_ms,
                       bound_ms_needed=b7w_bound[0],
                       bound_ms_streamed=b7w_bound_streamed[0],
                       bound_by=b7w_bound[1], **per_test(b7w_ms, tests7w)),
-         b8=dict(ms=b8_ms, bound_ms_needed=b8_bound[0],
+         b8=dict(ms=b8_ms, kernel_ms=b8_kernel_ms,
+                 bound_ms_needed=b8_bound[0],
                  bound_ms_streamed=b8_bound_streamed[0],
                  bound_by=b8_bound[1], **per_test(b8_ms, tests8)))
     # B7-wave's launches: does the slowest warp or the mean set the time?
@@ -2540,9 +2687,17 @@ def main() -> int:
     src = "raytracer_js_tpu/kernels/"
     print(json.dumps({"kernels": [
         row("trace_frame_kernel", KERNEL_SOURCE, src + "trace_fused.py:678",
-            launches["frame"], worst(b1), b1_ms, b1_plain_ms, b1_bound),
+            launches["frame"], worst(b1), b1_ms, b1_plain_ms, b1b["bound"],
+            kernel_ms=b1_kernel_ms, kernel_timing=KERNEL_MS_TIMING,
+            bound_ms_streamed=b1b["bound_streamed"][0],
+            bound_ms_all_tests=b1b["bound_all"][0],
+            ptxas=ptxas_of(build.log, ["trace_frame_kernel"])),
         row("trace_rays_kernel", KERNEL_SOURCE, src + "trace_fused.py:636",
-            launches["rays"], worst(b2), b2_ms, b2_plain_ms, b2_bound),
+            launches["rays"], worst(b2), b2_ms, b2_plain_ms, b2b["bound"],
+            kernel_ms=b2_kernel_ms, kernel_timing=KERNEL_MS_TIMING,
+            bound_ms_streamed=b2b["bound_streamed"][0],
+            bound_ms_all_tests=b2b["bound_all"][0],
+            ptxas=ptxas_of(build.log, ["trace_rays_kernel"])),
         row("nh_scalar_kernel", NH_SOURCE, src + "nearest_hit.py:702",
             head_launches["scalar"], worst(b3), b3_ms, b3_plain_ms,
             b3_bound_need, kernel_ms=b3_kernel_ms,
@@ -2551,7 +2706,8 @@ def main() -> int:
             bound_ms_streamed=b3_bound_streamed[0],
             bound_ms_all_tests=b3_bound[0]),
         row("nh_dense_kernel", NH_SOURCE, src + "nearest_hit.py:91",
-            c3_launches["dense"], worst(b4), b4_ms, b4_plain_ms, b4_bound),
+            c3_launches["dense"], worst(b4), b4_ms, b4_plain_ms, b4_bound,
+            kernel_ms=b4_kernel_ms, kernel_timing=KERNEL_MS_TIMING),
         row("replay_fwd_kernel", REPLAY_SOURCE, src + "replay_grad.py:399",
             fit_launches["fwd"], worst(b5, "color_max_abs_err"), b5_fwd_ms,
             b5_fwd_plain_ms, b5f_bound, kernel_ms=b5_fwd_kernel_ms,
@@ -2561,16 +2717,18 @@ def main() -> int:
             b5_bwd_plain_ms, b5b_bound, kernel_ms=b5_bwd_kernel_ms,
             kernel_timing=KERNEL_MS_TIMING),
         row("nh_listed_kernel", NH_SOURCE, src + "nearest_hit.py:155",
-            c4_launches["listed"], worst(b6), b6_ms, b6_plain_ms, b6_bound),
+            c4_launches["listed"], worst(b6), b6_ms, b6_plain_ms, b6_bound,
+            kernel_ms=b6_kernel_ms, kernel_timing=KERNEL_MS_TIMING),
         row("tiled_frame_kernel", TILED_SOURCE, src + "trace_tiled.py:468",
             c4_launches["tiled_frame"], worst(b7), b7_ms, b7_plain_ms,
-            b7_bound),
+            b7_bound, kernel_ms=b7_kernel_ms, kernel_timing=KERNEL_MS_TIMING),
         row("tiled_wave_kernel", TILED_SOURCE, src + "trace_tiled.py:518",
             launches_pa["tiled_wave"], worst(b7w), b7w_ms, b7w_plain_ms,
             b7w_bound, kernel_ms=b7w_kernel_ms,
             kernel_timing=KERNEL_MS_TIMING),
         row("nh_culled_kernel", NH_SOURCE, src + "nearest_hit.py:113",
-            launches_c["culled"], worst(b8), b8_ms, b8_plain_ms, b8_bound),
+            launches_c["culled"], worst(b8), b8_ms, b8_plain_ms, b8_bound,
+            kernel_ms=b8_kernel_ms, kernel_timing=KERNEL_MS_TIMING),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2578,15 +2736,62 @@ def main() -> int:
     return 0
 
 
+def enqueue_ms(fn, warmup=3, timed=TIMED) -> float:
+    """Median host time until ``fn`` returns, the device idle before each
+    call: the time to enqueue its work, or more when it waits for the
+    device."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def fused_times(head, cam, org, dir) -> dict:
+    """The FUSED rows of ``--frame-times`` on the headline: B1 (the frame
+    wrapper) and B2 (the wavefront wrapper over the camera's rays) at
+    refmax 2 and 1 by :func:`kernel_report` (events around the wrapper,
+    the kernel alone by the profiler; refmax 2 less refmax 1 is what the
+    bounce-1 scan costs); ``render_hdr`` FUSED by events (min, median,
+    max), by the host clock to the end of its work and to its return, and
+    its :func:`host_trace`. Only entry points that earlier trees share."""
+    out = {}
+    for refmax in (2, 1):
+        cfg = RenderConfig(refmax=refmax, backend=HitBackend.FUSED)
+        out[f"b1_refmax{refmax}"] = kernel_report(
+            lambda: tf.trace_frame_fused_cuda(head, cfg, cam), "trace_frame")
+        out[f"b2_refmax{refmax}"] = kernel_report(
+            lambda: tf.trace_rays_fused_cuda(head, cfg, org, dir),
+            "trace_rays")
+    cfg = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+
+    def frame():
+        return rt.render_hdr(head, cam, cfg)
+
+    out.update(render_hdr_fused_ms=spread(event_ms(frame)),
+               render_hdr_fused_host_ms=host_median_ms(frame, warmup=3,
+                                                       timed=TIMED),
+               render_hdr_fused_return_ms=enqueue_ms(frame),
+               render_hdr_fused_trace=host_trace(frame))
+    return out
+
+
 def headline_times(dev) -> dict:
     """The headline's rows of ``--frame-times``: B3 (one bounce-0 search)
     and B5 (one view's forward and backward) alone, each by CUDA events
     around the wrapper and by the profiler (:func:`kernel_report`); the
     PALLAS frame; the 8-view recording; the one-view replay step through
-    B5; the 8-view fit step (B5 and Adam on recorded winners). Only entry
-    points and signatures that earlier trees of the port share."""
+    B5; the 8-view fit step (B5 and Adam on recorded winners); the FUSED
+    rows (:func:`fused_times`). Only entry points and signatures that
+    earlier trees of the port share."""
     head, cam = headline_scene(device=dev), headline_camera(dev)
     org, dir = pixel_rays(cam)
+    fused = fused_times(head, cam, org, dir)
     cfg_p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
     cfg_f = RenderConfig(refmax=2, backend=HitBackend.FUSED)
     n = org.shape[0]
@@ -2623,17 +2828,17 @@ def headline_times(dev) -> dict:
             lambda: record_views(start, cfg_p, cams)),
         replay_step_b5_ms=cuda_median_ms(lambda: replay_grads(
             head, cfg_p, org, dir, target, pid), warmup=2, timed=10),
-        fit_step_8_views_host_ms=host_median_ms(fit_step))
+        fit_step_8_views_host_ms=host_median_ms(fit_step), **fused)
 
 
 def frame_times(headline_only: bool = False) -> int:
     """``python3 chip_smoke.py --frame-times [--headline-only]``: the rows
-    whose time holds host work, and B3 and B5 alone, and nothing else: the
-    headline's rows (:func:`headline_times`), the ptxas report of B3's and
-    B5's kernels, then (unless ``--headline-only``) config 4 TILED in sweep
-    mode (B6), in packet mode and through B8 (tables cached), the
-    1.1M-sphere packet frame, and config 3 PALLAS, each a median of CUDA
-    events around ``render_hdr``. It calls only entry points that earlier
+    whose time holds host work, and B1, B2, B3 and B5 alone, and nothing
+    else: the headline's rows (:func:`headline_times`), the ptxas report of
+    B1's, B2's, B3's and B5's kernels, then (unless ``--headline-only``)
+    config 4 TILED in sweep mode (B6), in packet mode and through B8
+    (tables cached), the 1.1M-sphere packet frame, and config 3 PALLAS,
+    each a median of CUDA events around ``render_hdr``. It calls only entry points that earlier
     trees of the port share, so a copy of this script placed at the root
     of another checkout times that checkout's package: run two trees in
     turns in one session to tell a change from the host's drift. Prints

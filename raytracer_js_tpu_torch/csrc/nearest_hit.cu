@@ -58,6 +58,7 @@
 namespace {
 
 #include "stream.cuh"
+#include "cull.cuh"
 
 constexpr float kInf = std::numeric_limits<float>::infinity();
 constexpr float kSlabEps = 1e-12f;
@@ -306,25 +307,6 @@ __device__ __forceinline__ float ld(const float* tab, int row, int stride,
 constexpr int kWarps = kBlock / 32;
 constexpr int kChunkT = 16;       // list slots between early-exit checks
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// Lane 0's shuffle-down tree (lane i adds lane i + o), broadcast to the
-// warp: the order of the plain version's _group_sum.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  return __shfl_sync(kFull, v, 0);
-}
-
 enum { K_SPH, K_TRI };
 
 template <int Kind>
@@ -483,14 +465,13 @@ struct ListCursor {
   }
 };
 
-// B8: the sphere tiles the warp's ball-cone can reach, 32 predicates at a
-// time (lane l tests tile w0 + l); `mask` holds the window's kept tiles
-// not yet handed out.
+// B8: the sphere tiles the warp's ball-cone (cull.cuh) can reach, 32
+// predicates at a time (lane l tests tile w0 + l); `mask` holds the
+// window's kept tiles not yet handed out.
 struct ConeCursor {
   const float* tb;     // [n_t, 4] tile bounds: center, radius
   int n_t;
-  float o0x, o0y, o0z, ro, axm, aym, azm, cos_t, sin_t;
-  bool use_cone;
+  Cone cone;
   int w0 = 0;
   unsigned mask = 0;
   int pending = -1;
@@ -500,18 +481,8 @@ struct ConeCursor {
     bool include = false;
     if (k < n_t) {
       const float* b = tb + 4 * k;
-      const float vx = __ldg(b + 0) - o0x;
-      const float vy = __ldg(b + 1) - o0y;
-      const float vz = __ldg(b + 2) - o0z;
-      const float dist = sqrtf(vx * vx + vy * vy + vz * vz);
-      const float rr = __ldg(b + 3) + ro;
-      const bool inside = dist <= rr * 1.00001f + 1e-7f;
-      const float sin_a = fminf(rr / fmaxf(dist, 1e-20f), 1.0f);
-      const float cos_a = sqrtf(fmaxf(1.0f - sin_a * sin_a, 0.0f));
-      const float cos_b =
-          (vx * axm + vy * aym + vz * azm) / fmaxf(dist, 1e-20f);
-      include = inside || cos_b >= cos_a * cos_t - sin_a * sin_t - 1e-5f ||
-                !use_cone;
+      include = cone.reaches(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2),
+                             __ldg(b + 3));
     }
     return __ballot_sync(kFull, include);
   }
@@ -654,28 +625,10 @@ __device__ __forceinline__ AllCursor sphere_cursor(AllCursor*,
 // spheres.
 __device__ __forceinline__ ConeCursor warp_cone(const float* tb, int n_t,
                                                 const Ray& r, bool active) {
-  const float r_inv = 1.0f / fmaxf(warp_sum(active ? 1.0f : 0.0f), 1.0f);
   ConeCursor c;
   c.tb = tb;
   c.n_t = n_t;
-  c.o0x = warp_sum(active ? r.ox : 0.0f) * r_inv;
-  c.o0y = warp_sum(active ? r.oy : 0.0f) * r_inv;
-  c.o0z = warp_sum(active ? r.oz : 0.0f) * r_inv;
-  const float ex = r.ox - c.o0x, ey = r.oy - c.o0y, ez = r.oz - c.o0z;
-  c.ro = sqrtf(warp_max(active ? ex * ex + ey * ey + ez * ez : 0.0f));
-  float axm = warp_sum(active ? r.dx : 0.0f) * r_inv;
-  float aym = warp_sum(active ? r.dy : 0.0f) * r_inv;
-  float azm = warp_sum(active ? r.dz : 0.0f) * r_inv;
-  const float a_n =
-      1.0f / sqrtf(fmaxf(axm * axm + aym * aym + azm * azm, 1e-20f));
-  c.axm = axm * a_n;
-  c.aym = aym * a_n;
-  c.azm = azm * a_n;
-  const float d_inv = 1.0f / sqrtf(r.a);
-  c.cos_t = warp_min(
-      active ? (r.dx * c.axm + r.dy * c.aym + r.dz * c.azm) * d_inv : 1.0f);
-  c.use_cone = c.cos_t >= 0.25f;
-  c.sin_t = sqrtf(fmaxf(1.0f - c.cos_t * c.cos_t, 0.0f));
+  c.cone = warp_cone(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.a, active);
   return c;
 }
 

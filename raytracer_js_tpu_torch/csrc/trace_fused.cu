@@ -11,20 +11,56 @@
 // Both call one device function, trace_core, whose plain PyTorch twin is
 // kernels/trace_fused.trace_core_plain.
 //
-// What bounds it on this card: per-pixel ALU work and registers. Each
-// thread tests every primitive (52 on the headline scene) per bounce: an
-// IEEE sqrt per sphere candidate, a slab test per box, a Moeller-Trumbore
-// test per triangle. The primitive tables are a few KB of structure-of-arrays
-// floats that every thread reads in the same order, so they stay in L1 and
-// broadcast; no ray state ever leaves registers. Device-memory traffic is
-// the output image (16 bytes a pixel) and nothing else.
+// What bounds them on this card: the tests the rays need. Testing every
+// sphere at every bounce (an IEEE sqrt each), the first design took 0.2771
+// ms for the headline frame (1920x1088, 51 spheres and the ground box,
+// refmax 2) against 0.0506 ms for all those tests at the card's float32
+// peak (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --frame-times), though
+// a warp's 32 rays are a thin bundle that most spheres miss: each ray needs
+// about one sphere test a bounce, and then the 16 bytes a pixel written set
+// the bound.
 //
-// What this first design does about it: one thread per pixel (2-D blocks of
-// 32x8 pixels, so a warp covers a row strip and shares a narrow cone of
-// directions), the tables read with __ldg, the whole bounce loop in
-// registers, and a dead ray leaves the loop at once. The reference's
-// per-tile sphere shortlist and dead-tile skip are not ported yet; both are
-// exact culls that leave the result unchanged (ROADMAP B1 perf items).
+// Design (trace_core):
+//  - One thread a ray, the whole bounce loop in registers. B1's blocks are
+//    32x8 pixels, so a warp is a strip of 32 pixels of one row; B2's are
+//    256 consecutive rays, a warp 32 of them.
+//  - Per-warp sphere cull: before each bounce's sphere scan the warp bounds
+//    its live rays by the ball-cone of cull.cuh (B3's and B8's predicate)
+//    and votes 32 spheres at a time against each sphere's own ball (lane l
+//    on sphere v0 + l, one __ballot_sync a window of 32); it tests only the
+//    kept spheres, in pid order. A sphere left out misses every live lane,
+//    so it would fold +inf: t and pid are the dense loop's, bit for bit.
+//    cos_t < 0.25 keeps every sphere.
+//  - The sqrt and the tail of a kept sphere's test are skipped when no live
+//    lane has disc >= 0 (__any_sync): a negative or NaN discriminant folds
+//    nothing either way.
+//  - Shared-memory tables: each block stages the spheres as an array of
+//    structs (cx cy cz ccmr, one 16-byte broadcast a test), their balls
+//    (cx cy cz r) and, for B1, bounce 0's constant c0 = o.o - 2 o.c + ccmr
+//    of the camera origin (computed here in the plain version's order), in
+//    windows of kWin spheres: a scene of at most kWin spheres is staged
+//    once, before the first bounce; a larger one window by window at every
+//    bounce, between two __syncthreads. Staging once is what B2 gains by:
+//    restaging the headline's 51 spheres at every bounce took it 0.0905 and
+//    0.0917 ms alone at refmax 2 against 0.0876 and 0.0878 (B1 within 1%;
+//    NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --frame-times, the two
+//    builds in turns in one run). Boxes and triangles stay dense, read
+//    with __ldg broadcasts; the winner's shading attributes are read once a
+//    ray after the search.
+//  - Warp-collective control: pixels outside the image (B1's edge blocks)
+//    and rays past n (B2's last block) run the loop as dead lanes, as do
+//    rays that ended; dead lanes join every vote and shuffle but take no
+//    part in the cone and write nothing. A warp with no live ray skips the
+//    bounce (the reference's dead-tile skip, per warp); with windows the
+//    whole block decides (__syncthreads_or), since every thread must reach
+//    the staging barriers.
+//  - `work` (may be null) receives the spheres each warp tested at each
+//    bounce, [refmax, n_warps]; the plain form is trace_fused.cull_counts.
+// On the headline a bounce-0 warp keeps 0.34 spheres of 51, and the frame
+// kernel takes 0.0893 ms (0.2773 for the first design in the same run;
+// same card, chip_smoke.py --frame-times): the camera trig, the cone
+// set-up, the box test and the shading are what is left. Bounce 1 is 14%
+// of it, so live rays are not compacted across warps.
 //
 // Precision: built with --fmad=false and without fast math, so every
 // expression rounds operation for operation like the plain PyTorch version;
@@ -36,6 +72,9 @@
 //   spheres   cx cy cz ccmr inv_r r g b mode c0 rough refr vol
 //   boxes     cx cy cz hx hy hz r g b mode rough refr vol
 //   triangles v0(3) v1(3) v2(3) gn(3) r g b mode rough
+// and the spheres' search and cull rows as arrays of structs [S, 4]:
+// sph4 (cx cy cz ccmr) and balls (cx cy cz r). The table's c0 row is the
+// plain version's; the kernels compute c0 themselves.
 // mode: 0 keep, 1 mirror continues, 2 emissive, 3 transmission continues.
 
 #include <cuda_runtime.h>
@@ -44,6 +83,9 @@
 #include <limits>
 
 namespace {
+
+#include "stream.cuh"
+#include "cull.cuh"
 
 enum { S_CX = 0, S_CY, S_CZ, S_CCMR, S_INVR, S_R, S_G, S_B, S_MODE, S_C0,
        S_ROUGH, S_REFR, S_VOL, S_ROWS };
@@ -63,21 +105,37 @@ constexpr float kTwoPi = (float)(2.0 * 3.14159265358979323846);
 constexpr uint32_t kSaltZ = 0x9E3779B9u, kSaltPhi = 0x85EBCA6Bu,
                    kSaltR = 0xC2B2AE35u;
 
+constexpr int kWin = 256;           // spheres in a shared-memory window
+constexpr int kFrameBx = 32;        // B1's block: 32 x 8 pixels
+constexpr int kFrameBy = 8;
+constexpr int kRaysBlock = 256;     // B2's block: 256 rays
+
 struct Params {
-  const float* sph;
+  const float* sph;      // [13, S]: the winner's attributes, substances
+  const float4* sph4;    // [S] cx cy cz ccmr: the search
+  const float4* balls;   // [S] cx cy cz r: the cull
   const float* box;
   const float* tri;
-  const float* sky;    // [3]
-  const float* refr;   // [2]: start substance index, scene default
+  const float* sky;      // [3]
+  const float* refr0;    // []: start substance index
+  const float* refr_def; // []: the scene's default
   int n_sph, n_box, n_tri;
   int refmax;
   float atten;
   int has_rough, has_trans;
   uint32_t seed;
-  float* rgb;          // [n_rays, 3]
-  int* status;         // [n_rays]
-  int* rec_pid;        // optional [refmax, n_rays]: winner pid per bounce
-  long long n_rays;
+  float* rgb;            // [n_rays, 3]
+  int* status;           // [n_rays]
+  int* rec_pid;          // optional [refmax, n_rays]: winner pid per bounce
+  int* work;             // optional [refmax, n_warps]: spheres tested
+  long long n_rays, n_warps;
+};
+
+// One block's window of spheres.
+struct Window {
+  float4 sph[kWin];
+  float4 ball[kWin];
+  float c0[kWin];
 };
 
 __device__ __forceinline__ float ld(const float* tab, int row, int n, int p) {
@@ -132,22 +190,54 @@ __device__ void scatter(uint32_t seed, uint32_t rid, uint32_t bounce,
   rz = mz * inv;
 }
 
-// The bounce loop for one ray. UNIT_D: every direction is unit (camera
-// rays, reflections), so the |d|^2 terms drop out of the sphere quadratic.
-// HAS_C0: bounce 0 shares the camera origin, whose sphere constant
-// c0 = o.o - 2 o.c + (c.c - r^2) was folded on the host.
+// Stage spheres [w0, w0 + m) into the block's window; with HAS_C0 also
+// their constant c0 for the origin (px, py, pz), in pack_tables' order.
+// Every thread of the block calls it.
+template <bool HAS_C0>
+__device__ __forceinline__ void stage(Window& W, const Params& P, int w0,
+                                      int m, float px, float py, float pz) {
+  const int nt = blockDim.x * blockDim.y;
+  const float p_dot_p = px * px + py * py + pz * pz;
+  for (int k = threadIdx.y * blockDim.x + threadIdx.x; k < m; k += nt) {
+    const float4 s = __ldg(P.sph4 + w0 + k);
+    W.sph[k] = s;
+    W.ball[k] = __ldg(P.balls + w0 + k);
+    if (HAS_C0)
+      W.c0[k] = p_dot_p - 2.0f * (s.x * px + s.y * py + s.z * pz) + s.w;
+  }
+}
+
+// The bounce loop for one ray. Every thread of the block calls it; lanes
+// with in_range false (no ray) run it as dead lanes. UNIT_D: every
+// direction is unit (camera rays, reflections), so the |d|^2 terms drop out
+// of the sphere quadratic. HAS_C0: bounce 0 shares the camera origin
+// (ox, oy, oz), and its sphere constant c0 is staged with the window.
+// `warp` is this lane's warp's index in `work`.
 template <bool UNIT_D, bool HAS_C0>
-__device__ void trace_core(const Params& P, long long ray, uint32_t rid,
+__device__ void trace_core(const Params& P, Window& W, bool in_range,
+                           long long ray, long long warp, uint32_t rid,
                            float ox, float oy, float oz,
                            float dx, float dy, float dz) {
   const int S = P.n_sph, B = P.n_box, T = P.n_tri;
+  const bool resident = S <= kWin;    // block-uniform
+  const float px = ox, py = oy, pz = oz;
+  if (resident) {
+    stage<HAS_C0>(W, P, 0, S, px, py, pz);
+    __syncthreads();
+  }
+  const int lane = lane_id();
+  const bool has_work = P.work != nullptr && lane == 0 && warp < P.n_warps;
   float cr = 1.0f, cg = 1.0f, cb = 1.0f, path = 0.0f;
-  int status = ALIVE;
-  float refr = __ldg(P.refr);
+  int status = in_range ? ALIVE : EXHAUST;
+  float refr = __ldg(P.refr0);
 
   for (int bounce = 0; bounce < P.refmax; ++bounce) {
-    if (status != ALIVE) {
-      if (P.rec_pid) P.rec_pid[bounce * P.n_rays + ray] = -1;
+    const bool alive = status == ALIVE;
+    if (!alive && in_range && P.rec_pid)
+      P.rec_pid[bounce * P.n_rays + ray] = -1;
+    const bool warp_live = __any_sync(kFull, alive);
+    if (resident ? !warp_live : !__syncthreads_or(alive)) {
+      if (has_work) P.work[bounce * P.n_warps + warp] = 0;
       continue;
     }
     float a = 1.0f, inv_a = 1.0f;
@@ -157,35 +247,64 @@ __device__ void trace_core(const Params& P, long long ray, uint32_t rid,
     }
     const float o_dot_d = ox * dx + oy * dy + oz * dz;
     const float o_dot_o = ox * ox + oy * oy + oz * oz;
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     const bool use_c0 = HAS_C0 && bounce == 0;
 
-    // ---- hit search: first forward t, strict < so the lowest pid wins ties
+    // ---- spheres: the kept ones of each window, in pid order; the first
+    // forward t with a strict < so the lowest pid wins ties
     float best = kInf;
-    int pid = -1;
-    for (int p = 0; p < S; ++p) {
-      float cx = ld(P.sph, S_CX, S, p), cy = ld(P.sph, S_CY, S, p),
-            cz = ld(P.sph, S_CZ, S, p);
-      float b_half = o_dot_d - (dx * cx + dy * cy + dz * cz);
-      float c = use_c0 ? ld(P.sph, S_C0, S, p)
-                       : o_dot_o - 2.0f * (ox * cx + oy * cy + oz * cz)
-                             + ld(P.sph, S_CCMR, S, p);
-      float disc = b_half * b_half - (UNIT_D ? c : a * c);
-      float sq = sqrtf(fmaxf(disc, 0.0f));
-      float t_near, t_far;
-      if (UNIT_D) {
-        t_near = -b_half - sq;
-        t_far = sq - b_half;
-      } else {
-        t_near = (-b_half - sq) * inv_a;
-        t_far = (-b_half + sq) * inv_a;
+    int pid = -1, tested = 0;
+    Cone cone;
+    if (warp_live)
+      cone = warp_cone(ox, oy, oz, dx, dy, dz,
+                       UNIT_D ? dx * dx + dy * dy + dz * dz : a, alive);
+    for (int w0 = 0; w0 < S; w0 += kWin) {
+      const int m = min(kWin, S - w0);
+      if (!resident) {
+        __syncthreads();      // the last window's readers are done
+        stage<HAS_C0>(W, P, w0, m, px, py, pz);
+        __syncthreads();
       }
-      float t = t_near >= 0.0f ? t_near : t_far;
-      if (t < best && disc >= 0.0f && t >= 0.0f) {
-        best = t;
-        pid = p;
+      if (!warp_live) continue;
+      for (int v0 = 0; v0 < m; v0 += 32) {
+        bool keep = false;
+        if (v0 + lane < m) {
+          const float4 b = W.ball[v0 + lane];
+          keep = cone.reaches(b.x, b.y, b.z, b.w);
+        }
+        unsigned kept = __ballot_sync(kFull, keep);
+        tested += __popc(kept);
+        while (kept) {                   // warp-uniform
+          const int j = v0 + __ffs(kept) - 1;
+          kept &= kept - 1;
+          const float4 s = W.sph[j];
+          const float b_half = o_dot_d - (dx * s.x + dy * s.y + dz * s.z);
+          const float c =
+              use_c0 ? W.c0[j]
+                     : o_dot_o - 2.0f * (ox * s.x + oy * s.y + oz * s.z) + s.w;
+          const float disc = b_half * b_half - (UNIT_D ? c : a * c);
+          if (!__any_sync(kFull, alive && disc >= 0.0f)) continue;
+          const float sq = sqrtf(fmaxf(disc, 0.0f));
+          float t_near, t_far;
+          if (UNIT_D) {
+            t_near = -b_half - sq;
+            t_far = sq - b_half;
+          } else {
+            t_near = (-b_half - sq) * inv_a;
+            t_far = (-b_half + sq) * inv_a;
+          }
+          const float t = t_near >= 0.0f ? t_near : t_far;
+          if (t < best && disc >= 0.0f && t >= 0.0f) {
+            best = t;
+            pid = w0 + j;
+          }
+        }
       }
     }
+    if (has_work) P.work[bounce * P.n_warps + warp] = tested;
+    if (!alive) continue;
+
+    // ---- boxes and triangles, dense
+    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     for (int p = 0; p < B; ++p) {
       float cx = ld(P.box, B_CX, B, p), cy = ld(P.box, B_CY, B, p),
             cz = ld(P.box, B_CZ, B, p);
@@ -213,13 +332,13 @@ __device__ void trace_core(const Params& P, long long ray, uint32_t rid,
       float e2x = ld(P.tri, T_V2X, T, p) - v0x,
             e2y = ld(P.tri, T_V2Y, T, p) - v0y,
             e2z = ld(P.tri, T_V2Z, T, p) - v0z;
-      float px = dy * e2z - dz * e2y;
-      float py = dz * e2x - dx * e2z;
-      float pz = dx * e2y - dy * e2x;
-      float det = e1x * px + e1y * py + e1z * pz;
+      float px_ = dy * e2z - dz * e2y;
+      float py_ = dz * e2x - dx * e2z;
+      float pz_ = dx * e2y - dy * e2x;
+      float det = e1x * px_ + e1y * py_ + e1z * pz_;
       float inv_det = 1.0f / (fabsf(det) < kMtEps ? kMtEps : det);
       float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-      float u = (sx * px + sy * py + sz * pz) * inv_det;
+      float u = (sx * px_ + sy * py_ + sz * pz_) * inv_det;
       float qx = sy * e1z - sz * e1y;
       float qy = sz * e1x - sx * e1z;
       float qz = sx * e1y - sy * e1x;
@@ -376,7 +495,7 @@ __device__ void trace_core(const Params& P, long long ray, uint32_t rid,
     }
     const bool defined = refr_sel >= 0.0f;
     if (!any_in || defined) {
-      const float target = any_in ? refr_sel : __ldg(P.refr + 1);
+      const float target = any_in ? refr_sel : __ldg(P.refr_def);
       // Snell + TIR (ops/vecmath.refract); TIR reflects the unscattered
       // direction
       const float eta = refr / fmaxf(target, 1e-6f);
@@ -404,6 +523,7 @@ __device__ void trace_core(const Params& P, long long ray, uint32_t rid,
     oz = az;
   }
 
+  if (!in_range) return;
   if (status == ALIVE) {  // bounce budget spent -> black
     cr = 0.0f;
     cg = 0.0f;
@@ -423,49 +543,74 @@ __device__ void trace_core(const Params& P, long long ray, uint32_t rid,
   P.status[ray] = status;
 }
 
-// cam: pos(3) front(3) left(3) up(3) step_h step_v off_h off_v
-__global__ void trace_frame_kernel(Params P, const float* __restrict__ cam,
-                                   int w, int h, int spp, int sample) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const float th_h = ((float)x - __ldg(cam + 14)) * __ldg(cam + 12);
-  const float th_v = ((float)y - __ldg(cam + 15)) * __ldg(cam + 13);
+// The camera: pose vectors on the device ([3] each), the angle steps and
+// center offsets by value (models/camera.angle_steps), the frame's size
+// and its sample.
+struct Cam {
+  const float* pos;
+  const float* front;
+  const float* left;
+  const float* up;
+  float step_h, step_v, off_h, off_v;
+  int w, h, spp, sample;
+};
+
+__global__ void __launch_bounds__(kFrameBx * kFrameBy)
+trace_frame_kernel(Params P, Cam C) {
+  __shared__ Window W;
+  const int x = blockIdx.x * kFrameBx + threadIdx.x;
+  const int y = blockIdx.y * kFrameBy + threadIdx.y;
+  const bool in_range = x < C.w && y < C.h;
+  const float th_h = ((float)x - C.off_h) * C.step_h;
+  const float th_v = ((float)y - C.off_v) * C.step_v;
   const float ch = cosf(th_h), sh = sinf(th_h);
   const float cv = cosf(th_v), sv = sinf(th_v);
   const float a1 = ch * cv, a2 = ch * sv;
-  const float dx = a1 * __ldg(cam + 3) + a2 * __ldg(cam + 9) + sh * __ldg(cam + 6);
-  const float dy = a1 * __ldg(cam + 4) + a2 * __ldg(cam + 10) + sh * __ldg(cam + 7);
-  const float dz = a1 * __ldg(cam + 5) + a2 * __ldg(cam + 11) + sh * __ldg(cam + 8);
-  const long long ray = (long long)y * w + x;
+  const float dx = a1 * __ldg(C.front + 0) + a2 * __ldg(C.up + 0) +
+                   sh * __ldg(C.left + 0);
+  const float dy = a1 * __ldg(C.front + 1) + a2 * __ldg(C.up + 1) +
+                   sh * __ldg(C.left + 1);
+  const float dz = a1 * __ldg(C.front + 2) + a2 * __ldg(C.up + 2) +
+                   sh * __ldg(C.left + 2);
+  const long long ray = in_range ? (long long)y * C.w + x : 0;
+  // one warp per 32-pixel strip of a row: row y, column block blockIdx.x
+  const long long warp = (long long)y * gridDim.x + blockIdx.x;
   // RNG stream coordinate = pixel id * spp + sample (render.render_rays)
-  const uint32_t rid = (uint32_t)((y * w + x) * spp + sample);
-  trace_core<true, true>(P, ray, rid, __ldg(cam + 0), __ldg(cam + 1),
-                         __ldg(cam + 2), dx, dy, dz);
+  const uint32_t rid = (uint32_t)((y * C.w + x) * C.spp + C.sample);
+  trace_core<true, true>(P, W, in_range, ray, warp, rid, __ldg(C.pos + 0),
+                         __ldg(C.pos + 1), __ldg(C.pos + 2), dx, dy, dz);
 }
 
-__global__ void trace_rays_kernel(Params P, const float* __restrict__ org,
-                                  const float* __restrict__ dir,
-                                  const int* __restrict__ rid) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n_rays) return;
-  trace_core<false, false>(P, i, (uint32_t)__ldg(rid + i),
-                           __ldg(org + 3 * i), __ldg(org + 3 * i + 1),
-                           __ldg(org + 3 * i + 2), __ldg(dir + 3 * i),
-                           __ldg(dir + 3 * i + 1), __ldg(dir + 3 * i + 2));
+__global__ void __launch_bounds__(kRaysBlock)
+trace_rays_kernel(Params P, const float* __restrict__ org,
+                  const float* __restrict__ dir,
+                  const int* __restrict__ rid) {
+  __shared__ Window W;
+  const long long i = (long long)blockIdx.x * kRaysBlock + threadIdx.x;
+  const bool in_range = i < P.n_rays;
+  const long long j = in_range ? i : 0;   // a dead lane reads ray 0
+  trace_core<false, false>(P, W, in_range, j, i >> 5, (uint32_t)__ldg(rid + j),
+                           __ldg(org + 3 * j), __ldg(org + 3 * j + 1),
+                           __ldg(org + 3 * j + 2), __ldg(dir + 3 * j),
+                           __ldg(dir + 3 * j + 1), __ldg(dir + 3 * j + 2));
 }
 
 Params make_params(const float* sph, int n_sph, const float* box, int n_box,
                    const float* tri, int n_tri, const float* sky,
-                   const float* refr, int refmax, float atten, int has_rough,
-                   int has_trans, uint32_t seed, float* rgb, int* status,
-                   int* rec_pid, long long n_rays) {
+                   const float* sph4, const float* balls, const float* refr0,
+                   const float* refr_def, int refmax, float atten,
+                   int has_rough, int has_trans, uint32_t seed, float* rgb,
+                   int* status, int* rec_pid, int* work, long long n_rays,
+                   long long n_warps) {
   Params P;
   P.sph = sph;
+  P.sph4 = reinterpret_cast<const float4*>(sph4);
+  P.balls = reinterpret_cast<const float4*>(balls);
   P.box = box;
   P.tri = tri;
   P.sky = sky;
-  P.refr = refr;
+  P.refr0 = refr0;
+  P.refr_def = refr_def;
   P.n_sph = n_sph;
   P.n_box = n_box;
   P.n_tri = n_tri;
@@ -477,7 +622,9 @@ Params make_params(const float* sph, int n_sph, const float* box, int n_box,
   P.rgb = rgb;
   P.status = status;
   P.rec_pid = rec_pid;
+  P.work = work;
   P.n_rays = n_rays;
+  P.n_warps = n_warps;
   return P;
 }
 
@@ -485,47 +632,70 @@ Params make_params(const float* sph, int n_sph, const float* box, int n_box,
 
 // ---- C entry points (loaded with ctypes by kernels/_build.py) --------------
 // Each launches on the given stream, does not synchronize, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). Tables: sph [13, n_sph], box
+// [13, n_box], tri [17, n_tri], sky [3], sph4 and balls [n_sph, 4] (16-byte
+// aligned); refr0 and refr_def one float each. rec_pid and work may be
+// null; work receives [refmax, n_warps] (B1: n_warps = h * ceil(w / 32),
+// warp y * ceil(w / 32) + x / 32; B2: ceil(n / 32)).
 
 extern "C" int rt_trace_frame(const float* sph, int n_sph, const float* box,
                               int n_box, const float* tri, int n_tri,
-                              const float* sky, const float* cam, int w,
-                              int h, int refmax, float atten, int has_rough,
-                              int has_trans, unsigned int seed, int spp,
-                              int sample, float* rgb, int* status,
-                              int* rec_pid, int device, void* stream) {
+                              const float* sky, const float* sph4,
+                              const float* balls, const float* refr0,
+                              const float* refr_def, const float* pos,
+                              const float* front, const float* left,
+                              const float* up, float step_h, float step_v,
+                              int off_h, int off_v, int w, int h, int refmax,
+                              float atten, int has_rough, int has_trans,
+                              unsigned int seed, int spp, int sample,
+                              float* rgb, int* status, int* rec_pid,
+                              int* work, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (w <= 0 || h <= 0) return 0;
-  // cam[16:18] = (start substance index, scene default)
-  Params P = make_params(sph, n_sph, box, n_box, tri, n_tri, sky, cam + 16,
-                         refmax, atten, has_rough, has_trans, seed, rgb,
-                         status, rec_pid, (long long)w * h);
-  dim3 block(32, 8);
-  dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
-  trace_frame_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(P, cam, w, h,
-                                                               spp, sample);
+  const dim3 grid((w + kFrameBx - 1) / kFrameBx, (h + kFrameBy - 1) / kFrameBy);
+  const Params P = make_params(
+      sph, n_sph, box, n_box, tri, n_tri, sky, sph4, balls, refr0, refr_def,
+      refmax, atten, has_rough, has_trans, seed, rgb, status, rec_pid, work,
+      (long long)w * h, (long long)h * grid.x);
+  Cam C;
+  C.pos = pos;
+  C.front = front;
+  C.left = left;
+  C.up = up;
+  C.step_h = step_h;
+  C.step_v = step_v;
+  C.off_h = (float)off_h;
+  C.off_v = (float)off_v;
+  C.w = w;
+  C.h = h;
+  C.spp = spp;
+  C.sample = sample;
+  trace_frame_kernel<<<grid, dim3(kFrameBx, kFrameBy), 0,
+                       (cudaStream_t)stream>>>(P, C);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rt_trace_rays(const float* sph, int n_sph, const float* box,
                              int n_box, const float* tri, int n_tri,
-                             const float* sky, const float* refr,
-                             const float* org, const float* dir,
-                             const int* rid, long long n, int refmax,
-                             float atten, int has_rough, int has_trans,
-                             unsigned int seed, float* rgb, int* status,
-                             int* rec_pid, int device, void* stream) {
+                             const float* sky, const float* sph4,
+                             const float* balls, const float* refr0,
+                             const float* refr_def, const float* org,
+                             const float* dir, const int* rid, long long n,
+                             int refmax, float atten, int has_rough,
+                             int has_trans, unsigned int seed, float* rgb,
+                             int* status, int* rec_pid, int* work,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
-  Params P = make_params(sph, n_sph, box, n_box, tri, n_tri, sky, refr,
-                         refmax, atten, has_rough, has_trans, seed, rgb,
-                         status, rec_pid, n);
-  const int block = 256;
-  const long long grid = (n + block - 1) / block;
-  trace_rays_kernel<<<(unsigned int)grid, block, 0, (cudaStream_t)stream>>>(
-      P, org, dir, rid);
+  const Params P = make_params(
+      sph, n_sph, box, n_box, tri, n_tri, sky, sph4, balls, refr0, refr_def,
+      refmax, atten, has_rough, has_trans, seed, rgb, status, rec_pid, work,
+      n, (n + 31) / 32);
+  const long long grid = (n + kRaysBlock - 1) / kRaysBlock;
+  trace_rays_kernel<<<(unsigned int)grid, kRaysBlock, 0,
+                      (cudaStream_t)stream>>>(P, org, dir, rid);
   return (int)cudaGetLastError();
 }
 

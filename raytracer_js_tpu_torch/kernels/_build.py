@@ -110,7 +110,8 @@ _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_longlong)
 
 
-_FUSED_TABLES = [_P, _I, _P, _I, _P, _I, _P]  # sph, box, tri (+ counts), sky
+# sph, box, tri (+ counts), sky, sph4, balls, refr0, refr_def
+_FUSED_TABLES = [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P]
 _HIT_TABLES = [_P, _I, _I] * 3                 # sph, box, tri (+ count, stride)
 # sph, box (+ counts), sky, org, dir, pid_seq, n, refmax, atten
 _REPLAY_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _I, _F]
@@ -118,10 +119,16 @@ _REPLAY_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _I, _F]
 #: every C entry of the library -> (argtypes, restype); pointers and the
 #: stream are c_void_p, so ctypes never cuts them to 32 bits
 SIGNATURES = {
+    # pos, front, left, up, step_h, step_v, off_h, off_v, w, h, refmax,
+    # atten, has_rough, has_trans, seed, spp, sample, rgb, status, rec_pid,
+    # work, device, stream
     "rt_trace_frame": (_FUSED_TABLES + [
-        _P, _I, _I, _I, _F, _I, _I, _U, _I, _I, _P, _P, _P, _I, _P], _I),
+        _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _F, _I, _I, _U, _I, _I,
+        _P, _P, _P, _P, _I, _P], _I),
+    # org, dir, rid, n, refmax, atten, has_rough, has_trans, seed, rgb,
+    # status, rec_pid, work, device, stream
     "rt_trace_rays": (_FUSED_TABLES + [
-        _P, _P, _P, _P, _LL, _I, _F, _I, _I, _U, _P, _P, _P, _I, _P], _I),
+        _P, _P, _P, _LL, _I, _F, _I, _I, _U, _P, _P, _P, _P, _I, _P], _I),
     # sphere bounds, org, dir, n, t, pid, work, device, stream
     "rt_nearest_hit_scalar": (_HIT_TABLES + [
         _P, _P, _P, _LL, _P, _P, _P, _I, _P], _I),

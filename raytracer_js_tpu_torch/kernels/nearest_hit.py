@@ -366,16 +366,17 @@ def scalar_cull(tabs: HitTables, org: Tensor, dir: Tensor,
                         group)[:-(-n // group)]
 
 
-def cone_include(org: Tensor, dir: Tensor, live: int, bounds: Tensor,
+def cone_include(org: Tensor, dir: Tensor, live, bounds: Tensor,
                  group: int = 32) -> Tensor:
-    """The per-warp ball-cone cull of B3 and B8 -> include [G, K] bool, one
-    row per group of ``group`` rays (the rays padded to whole 128-ray
-    blocks), one column per ball ``bounds[k]`` = center, radius (B8: a
-    128-sphere tile's, B3: a sphere's): group g's rays below ``live`` (the
-    kernel's prologue, over the rows below min(n_live, N)) are bounded by
-    an apex ball (o0 = their mean origin, ro = the largest distance from
-    it) and a cone (axis = their mean direction, cos_t = the worst
-    alignment); ball k is kept iff the ball-cone can reach it or ``cos_t <
+    """The per-warp ball-cone cull of B3, B8 and B1/B2 (``csrc/cull.cuh``)
+    -> include [G, K] bool, one row per group of ``group`` rays (the rays
+    padded to whole 128-ray blocks), one column per ball ``bounds[k]`` =
+    center, radius (B8: a 128-sphere tile's, B3 and B1/B2: a sphere's):
+    group g's live rays (``live``: the rows below it, as the kernel's
+    prologue takes the rows below min(n_live, N), or a bool mask [N]) are
+    bounded by an apex ball (o0 = their mean origin, ro = the largest
+    distance from it) and a cone (axis = their mean direction, cos_t = the
+    worst alignment); ball k is kept iff the ball-cone can reach it or ``cos_t <
     0.25``, the predicate of ``accel/candidates.cone_include_np``. The
     kernels' expressions, in their order. ``group=1`` bounds each ray by
     itself (apex 0, angle 0): the balls that ray alone can reach."""
@@ -385,8 +386,12 @@ def cone_include(org: Tensor, dir: Tensor, live: int, bounds: Tensor,
     pad = nb * group - n
     o = torch.cat([org, org.new_zeros((pad, 3))]) if pad else org
     d = torch.cat([dir, dir.new_ones((pad, 3))]) if pad else dir
-    lv = (torch.arange(nb * group, device=org.device) < live).reshape(
-        nb, group)
+    if isinstance(live, torch.Tensor):
+        lv = torch.cat([live, live.new_zeros((pad,))]) if pad else live
+        lv = lv.reshape(nb, group)
+    else:
+        lv = (torch.arange(nb * group, device=org.device) < live).reshape(
+            nb, group)
     ox, oy, oz = (o[:, k].reshape(nb, group) for k in range(3))
     dx, dy, dz = (d[:, k].reshape(nb, group) for k in range(3))
     zero = torch.zeros_like(ox)

@@ -20,10 +20,21 @@ Each entry has a plain PyTorch version (``*_plain``, on
 with [rays, prims] tensors. A wrapper takes the plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. ``LAUNCHES``
 counts kernel launches per entry.
+
+Each warp of the kernels culls the spheres by the ball-cone of its live
+rays (``csrc/cull.cuh``) before each bounce's search; :func:`cull_counts`
+is its plain form (the spheres each warp tests at each bounce). A culled
+sphere misses every live ray of its warp, so the kernels find the dense
+search's hits, which :func:`trace_core_plain` runs. The CUDA wrappers keep
+the
+camera-independent tables on the scene (:func:`scene_tables`) and pass
+the camera by pointer and value, so a frame waits on nothing and copies
+nothing from the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -35,6 +46,7 @@ from ..models.scene import Scene, box_volumes, sphere_volumes
 from ..ops import sampling
 from ..ops.vecmath import cross, length
 from . import _build
+from . import nearest_hit as nh
 from ._build import need as _need, on_cpu as _on_cpu, ptr as _ptr
 from ._build import stream as _stream
 
@@ -43,6 +55,10 @@ Tensor = torch.Tensor
 #: kernel launches per entry since the last reset (the plain versions do
 #: not count)
 LAUNCHES = {"frame": 0, "rays": 0}
+
+#: rays a warp culls for (B1: a strip of 32 pixels of one row of its 32x8
+#: block; B2: 32 consecutive rays)
+WARP = 32
 
 _INF = math.inf
 _SLAB_EPS = 1e-12
@@ -76,7 +92,8 @@ def supports_frame(scene: Scene) -> bool:
 @dataclasses.dataclass(frozen=True)
 class Tables:
     """Structure-of-arrays primitive tables, one [rows, count] f32 tensor
-    per class, on the scene's device."""
+    per class, on the scene's device, and the spheres' radii, from which
+    the kernels' arrays of structs are built on first use."""
 
     sph: Tensor     # [13, S]
     box: Tensor     # [13, B]
@@ -84,6 +101,20 @@ class Tables:
     sky: Tensor     # [3]
     has_rough: bool
     has_trans: bool
+    radius: Tensor  # [S]
+
+    @functools.cached_property
+    def sph4(self) -> Tensor:
+        """The sphere search rows as an array of structs [S, 4] f32: cx cy
+        cz ccmr (the kernels' shared-memory window)."""
+        return self.sph[S_CX:S_CCMR + 1].T.contiguous()
+
+    @functools.cached_property
+    def balls(self) -> Tensor:
+        """The cull's balls [S, 4] f32: cx cy cz r, one row a sphere."""
+        return torch.cat([self.sph[S_CX:S_CZ + 1].T,
+                          self.radius.to(torch.float32)[:, None]],
+                         1).contiguous()
 
     @property
     def n_sph(self) -> int:
@@ -163,7 +194,35 @@ def pack_tables(scene: Scene, cam_pos: Optional[Tensor] = None) -> Tables:
     return Tables(sph=table(sph), box=table(box), tri=table(tri),
                   sky=scene.textures.solid_rgb[scene.sky_tex].contiguous(),
                   has_rough=bool(scene.has_rough),
-                  has_trans=bool(scene.has_transmission))
+                  has_trans=bool(scene.has_transmission), radius=r)
+
+
+def _table_key(scene: Scene) -> tuple:
+    """Identity and version counter of every tensor :func:`pack_tables`
+    reads (an in-place edit moves the counter), and the static fields."""
+    m, x = scene.materials, scene.textures
+    tensors = (scene.sphere_center, scene.sphere_radius, scene.box_center,
+               scene.box_half, scene.tri_v0, scene.tri_v1, scene.tri_v2,
+               scene.prim_material, scene.prim_texture,
+               scene.prim_substance, scene.sub_refr, m.response, m.light,
+               m.mirror, m.roughness, x.solid_rgb)
+    return (tuple((id(t), t._version) for t in tensors)
+            + (scene.sky_tex, scene.has_rough, scene.has_transmission))
+
+
+def scene_tables(scene: Scene) -> Tables:
+    """The camera-independent :func:`pack_tables` of ``scene`` (c0 zero),
+    kept on the scene object and built again when a tensor it reads was
+    edited in place or the key otherwise changed: the CUDA wrappers' tables,
+    so that a frame of an unchanged scene launches its kernel and nothing
+    else. An edit that bypasses PyTorch's version counter (through
+    ``.data`` or a shared numpy array) is not seen."""
+    key = _table_key(scene)
+    kept = scene.__dict__.get("_fused_tables")
+    if kept is None or kept[0] != key:
+        kept = (key, pack_tables(scene))
+        object.__setattr__(scene, "_fused_tables", kept)
+    return kept[1]
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +233,38 @@ def _safe_inv(d: Tensor) -> Tensor:
     tiny = d.abs() < _SLAB_EPS
     return 1.0 / torch.where(tiny, torch.where(d < 0, -_SLAB_EPS, _SLAB_EPS),
                              d)
+
+
+def sphere_t(tabs: Tables, ox, oy, oz, dx, dy, dz, use_c0: bool,
+             unit_d: bool) -> Tensor:
+    """The kernels' sphere test for every ray and sphere -> t [N, S], +inf
+    where it finds no forward hit."""
+    col = (lambda v: v[:, None])
+    s = tabs.sph
+    cx, cy, cz = s[S_CX], s[S_CY], s[S_CZ]
+    o_dot_d = ox * dx + oy * dy + oz * dz
+    b_half = col(o_dot_d) - (col(dx) * cx + col(dy) * cy + col(dz) * cz)
+    if use_c0:
+        c = s[S_C0].expand_as(b_half)
+    else:
+        o_dot_o = ox * ox + oy * oy + oz * oz
+        c = (col(o_dot_o) - 2.0 * (col(ox) * cx + col(oy) * cy
+                                   + col(oz) * cz) + s[S_CCMR])
+    if unit_d:
+        disc = b_half * b_half - c
+    else:
+        a = dx * dx + dy * dy + dz * dz
+        disc = b_half * b_half - col(a) * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    if unit_d:
+        t_near = -b_half - sq
+        t_far = sq - b_half
+    else:
+        inv_a = col(1.0 / a)
+        t_near = (-b_half - sq) * inv_a
+        t_far = (-b_half + sq) * inv_a
+    t = torch.where(t_near >= 0.0, t_near, t_far)
+    return torch.where((disc >= 0.0) & (t >= 0.0), t, _INF)
 
 
 def _hit_search(tabs: Tables, ox, oy, oz, dx, dy, dz, use_c0: bool,
@@ -189,31 +280,7 @@ def _hit_search(tabs: Tables, ox, oy, oz, dx, dy, dz, use_c0: bool,
     x_d, y_d, z_d = col(dx), col(dy), col(dz)
     parts = []
     if tabs.n_sph:
-        s = tabs.sph
-        cx, cy, cz = s[S_CX], s[S_CY], s[S_CZ]
-        o_dot_d = ox * dx + oy * dy + oz * dz
-        b_half = col(o_dot_d) - (x_d * cx + y_d * cy + z_d * cz)
-        if use_c0:
-            c = s[S_C0].expand_as(b_half)
-        else:
-            o_dot_o = ox * ox + oy * oy + oz * oz
-            c = (col(o_dot_o) - 2.0 * (x_o * cx + y_o * cy + z_o * cz)
-                 + s[S_CCMR])
-        if unit_d:
-            disc = b_half * b_half - c
-        else:
-            a = dx * dx + dy * dy + dz * dz
-            disc = b_half * b_half - col(a) * c
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        if unit_d:
-            t_near = -b_half - sq
-            t_far = sq - b_half
-        else:
-            inv_a = col(1.0 / a)
-            t_near = (-b_half - sq) * inv_a
-            t_far = (-b_half + sq) * inv_a
-        t = torch.where(t_near >= 0.0, t_near, t_far)
-        parts.append(torch.where((disc >= 0.0) & (t >= 0.0), t, _INF))
+        parts.append(sphere_t(tabs, ox, oy, oz, dx, dy, dz, use_c0, unit_d))
     if tabs.n_box:
         b = tabs.box
         ix, iy, iz = col(_safe_inv(dx)), col(_safe_inv(dy)), col(_safe_inv(dz))
@@ -369,7 +436,8 @@ def trace_core_plain(org: Tensor, dir: Tensor, tabs: Tables, *, refmax: int,
     ``refr0``/``refr_def`` are the start and empty-space refractive indices
     (transmission scenes). ``record=True`` returns in ``rec`` the winner
     pid per bounce (-1 on a miss or a dead ray) with the ray it was found
-    for: ``{"pid": [refmax, N], "org": [refmax, N, 3], "dir": ...}``.
+    for and whether it was alive: ``{"pid": [refmax, N], "org": [refmax,
+    N, 3], "dir": ..., "alive": [refmax, N]}``.
     """
     n = org.shape[0]
     ox, oy, oz = org[:, 0], org[:, 1], org[:, 2]
@@ -379,7 +447,8 @@ def trace_core_plain(org: Tensor, dir: Tensor, tabs: Tables, *, refmax: int,
     path = torch.zeros_like(dx)
     status = torch.full((n,), _ALIVE, dtype=torch.int32, device=dx.device)
     refr = refr0 * ones if tabs.has_trans else None
-    rec = {"pid": [], "org": [], "dir": []} if record else None
+    rec = ({"pid": [], "org": [], "dir": [], "alive": []} if record
+           else None)
 
     with torch.no_grad():
         for bounce in range(refmax):
@@ -390,6 +459,7 @@ def trace_core_plain(org: Tensor, dir: Tensor, tabs: Tables, *, refmax: int,
                 rec["pid"].append(torch.where(alive, pid, -1).to(torch.int32))
                 rec["org"].append(torch.stack([ox, oy, oz], dim=1))
                 rec["dir"].append(torch.stack([dx, dy, dz], dim=1))
+                rec["alive"].append(alive)
             hit = alive & (pid >= 0)
             miss = alive & (pid < 0)
             t_fin = torch.where(t_best < _INF, t_best, 0.0)
@@ -468,23 +538,78 @@ def trace_core_plain(org: Tensor, dir: Tensor, tabs: Tables, *, refmax: int,
 
 
 # ---------------------------------------------------------------------------
+# The plain form of the kernels' per-warp sphere cull
+# ---------------------------------------------------------------------------
+
+def frame_lanes(w: int, h: int, device=None) -> Tensor:
+    """The frame kernel's warps -> [h * ceil(w / 32) * 32] i64: lane l of
+    warp k (pixels x = 32 (k mod ceil(w / 32)) + l of row k div ceil(w /
+    32)) holds its pixel's ray index y * w + x, or -1 past the image's
+    right edge."""
+    wp = -(-w // WARP) * WARP
+    x = torch.arange(wp, device=device)
+    y = torch.arange(h, device=device)
+    return torch.where(x[None, :] < w, y[:, None] * w + x[None, :],
+                       -1).reshape(-1)
+
+
+def ray_lanes(n: int, device=None) -> Tensor:
+    """The wavefront kernel's warps (32 consecutive rays) -> [ceil(n / 32)
+    * 32] i64: each lane's ray index, or -1 past the last ray."""
+    i = torch.arange(-(-n // WARP) * WARP, device=device)
+    return torch.where(i < n, i, -1)
+
+
+def fused_cull(tabs: Tables, org: Tensor, dir: Tensor, alive: Tensor,
+               lanes: Tensor, group: int = WARP) -> Tensor:
+    """The spheres each group of lanes keeps -> include [G, S] bool, G =
+    lanes / group: the ball-cone (:func:`nearest_hit.cone_include`) of the
+    group's live rays (``alive`` [N] at a lane holding a ray) against each
+    sphere's ball (``tabs.balls``). With the kernels' lanes and ``group``
+    32, the spheres each warp tests; with ``lanes`` = every ray and
+    ``group`` 1, those each ray alone can reach (the need). A sphere left
+    out misses every live ray of its group."""
+    idx = lanes.clamp(min=0)
+    live = alive[idx] & (lanes >= 0)
+    return nh.cone_include(org[idx], dir[idx], live, tabs.balls,
+                           group)[:lanes.shape[0] // group]
+
+
+def cull_counts(tabs: Tables, rec: dict, lanes: Tensor,
+                group: int = WARP) -> Tensor:
+    """The spheres each group tests at each bounce of a recorded trace
+    (``rec`` from ``trace_core_plain(record=True)``) -> [refmax, G] i32: its
+    :func:`fused_cull` count, or 0 for a group with no live ray (the
+    kernels' warp skips the bounce). With the kernels' lanes, their
+    ``work``."""
+    out = []
+    for b in range(rec["pid"].shape[0]):
+        alive = rec["alive"][b]
+        inc = fused_cull(tabs, rec["org"][b], rec["dir"][b], alive, lanes,
+                         group)
+        live = (alive[lanes.clamp(min=0)] & (lanes >= 0)).reshape(
+            -1, group).any(dim=1)
+        out.append(torch.where(live, inc.sum(dim=1), 0))
+    return torch.stack(out).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Entries: plain versions, CUDA launches, and the dispatching wrappers
 # ---------------------------------------------------------------------------
 
-def _refr_pair(scene: Scene, start_refr) -> Tensor:
-    refr0 = (scene.default_refr if start_refr is None
-             else torch.as_tensor(start_refr, dtype=torch.float32,
-                                  device=scene.device))
-    return torch.stack([refr0.reshape(()), scene.default_refr.reshape(())])
-
-
-def _cam_array(cam: Camera, refr_pair: Tensor) -> Tensor:
-    """[18] f32: pos, front, left, up, step_h, step_v, off_h, off_v, then
-    the start and default substance indices."""
-    steps = torch.tensor(angle_steps(cam), dtype=torch.float32,
-                         device=cam.device)
-    return torch.cat([cam.pos, cam.front, cam.left, cam.up, steps,
-                      refr_pair]).to(torch.float32).contiguous()
+def _refr_args(scene: Scene, start_refr) -> Tuple[Tensor, Tensor]:
+    """(start substance index, the scene's default) as f32 scalars on the
+    scene's device; a Python number becomes a fill on the device, not a
+    copy from the host."""
+    f32 = torch.float32
+    if start_refr is None:
+        refr0 = scene.default_refr
+    elif isinstance(start_refr, torch.Tensor):
+        refr0 = start_refr.to(device=scene.device, dtype=f32)
+    else:
+        refr0 = torch.full((), float(start_refr), dtype=f32,
+                           device=scene.device)
+    return refr0.reshape(()), scene.default_refr.reshape(())
 
 
 def _frame_rid(cam: Camera, spp: int, sample: int) -> Tensor:
@@ -494,37 +619,51 @@ def _frame_rid(cam: Camera, spp: int, sample: int) -> Tensor:
 
 def trace_frame_fused_plain(scene: Scene, cfg: RenderConfig, cam: Camera,
                             seed: Optional[int] = None, sample: int = 0,
-                            start_refr=None, record: bool = False):
+                            start_refr=None, record: bool = False,
+                            work: bool = False):
     """Plain version of the frame kernel -> (image [h, w, 3], status [h, w],
-    rec): :func:`pixel_rays` plus the core with ``unit_d`` and ``has_c0``."""
+    rec) (+ the spheres each warp tests at each bounce, :func:`cull_counts`
+    [refmax, h * ceil(w / 32)], when ``work``): :func:`pixel_rays` plus the
+    core with ``unit_d`` and ``has_c0``."""
     org, dir = pixel_rays(cam)
-    refr = _refr_pair(scene, start_refr)
+    refr0, refr_def = _refr_args(scene, start_refr)
+    tabs = pack_tables(scene, cam_pos=cam.pos)
     color, status, rec = trace_core_plain(
-        org, dir, pack_tables(scene, cam_pos=cam.pos),
-        refmax=int(cfg.refmax), atten=float(cfg.distance_attenuation_factor),
-        unit_d=True, has_c0=True, rid=_frame_rid(cam, cfg.spp, sample),
-        seed=sampling.DEFAULT_SEED if seed is None else seed,
-        refr0=refr[0], refr_def=refr[1], record=record)
-    return (color.reshape(cam.h, cam.w, 3), status.reshape(cam.h, cam.w),
-            rec)
+        org, dir, tabs, refmax=int(cfg.refmax),
+        atten=float(cfg.distance_attenuation_factor), unit_d=True,
+        has_c0=True, rid=_frame_rid(cam, cfg.spp, sample),
+        seed=sampling.DEFAULT_SEED if seed is None else seed, refr0=refr0,
+        refr_def=refr_def, record=record or work)
+    out = (color.reshape(cam.h, cam.w, 3), status.reshape(cam.h, cam.w),
+           rec if record else None)
+    if work:
+        out += (cull_counts(tabs, rec, frame_lanes(cam.w, cam.h,
+                                                   org.device)),)
+    return out
 
 
 def trace_rays_fused_plain(scene: Scene, cfg: RenderConfig, org: Tensor,
                            dir: Tensor, seed: Optional[int] = None,
                            ray_id: Optional[Tensor] = None, start_refr=None,
-                           record: bool = False):
+                           record: bool = False, work: bool = False):
     """Plain version of the wavefront kernel -> (color [N, 3], status [N],
-    rec): the core with general |d|."""
+    rec) (+ the spheres each warp tests at each bounce [refmax, ceil(N /
+    32)], when ``work``): the core with general |d|."""
     if ray_id is None:
         ray_id = torch.arange(org.shape[0], dtype=torch.int32,
                               device=org.device)
-    refr = _refr_pair(scene, start_refr)
-    return trace_core_plain(
-        org, dir, pack_tables(scene), refmax=int(cfg.refmax),
+    refr0, refr_def = _refr_args(scene, start_refr)
+    tabs = pack_tables(scene)
+    color, status, rec = trace_core_plain(
+        org, dir, tabs, refmax=int(cfg.refmax),
         atten=float(cfg.distance_attenuation_factor), unit_d=False,
         has_c0=False, rid=ray_id,
-        seed=sampling.DEFAULT_SEED if seed is None else seed,
-        refr0=refr[0], refr_def=refr[1], record=record)
+        seed=sampling.DEFAULT_SEED if seed is None else seed, refr0=refr0,
+        refr_def=refr_def, record=record or work)
+    out = (color, status, rec if record else None)
+    if work:
+        out += (cull_counts(tabs, rec, ray_lanes(org.shape[0], org.device)),)
+    return out
 
 
 def _table_args(tabs: Tables, dev) -> list:
@@ -533,93 +672,135 @@ def _table_args(tabs: Tables, dev) -> list:
     _need(tabs.box, "box table", f32, (13, tabs.n_box), dev)
     _need(tabs.tri, "triangle table", f32, (17, tabs.n_tri), dev)
     _need(tabs.sky, "sky", f32, (3,), dev)
+    _need(tabs.sph4, "sphere search rows", f32, (tabs.n_sph, 4), dev)
+    _need(tabs.balls, "sphere balls", f32, (tabs.n_sph, 4), dev)
     return [_ptr(tabs.sph), tabs.n_sph, _ptr(tabs.box), tabs.n_box,
-            _ptr(tabs.tri), tabs.n_tri, _ptr(tabs.sky)]
+            _ptr(tabs.tri), tabs.n_tri, _ptr(tabs.sky), _ptr(tabs.sph4),
+            _ptr(tabs.balls)]
 
 
-def launch_frame(tabs: Tables, cam_arr: Tensor, w: int, h: int, *,
-                 refmax: int, atten: float, seed: int, spp: int, sample: int,
-                 record: bool = False):
+def _outputs(n: int, refmax: int, n_warps: int, record: bool, work: bool,
+             dev):
+    i32 = torch.int32
+    return (torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=i32, device=dev),
+            torch.empty((refmax, n), dtype=i32, device=dev) if record
+            else None,
+            torch.empty((refmax, n_warps), dtype=i32, device=dev) if work
+            else None)
+
+
+def _results(color, status, rec_pid, work_t, work: bool):
+    out = (color, status, {"pid": rec_pid} if rec_pid is not None else None)
+    return out + (work_t,) if work else out
+
+
+def camera_args(cam: Camera) -> list:
+    """The frame kernel's camera arguments: the pose tensors pos, front,
+    left, up ([3] f32 on the camera's device, passed by pointer), then
+    ``angle_steps`` (step_h, step_v as f32 values, off_h, off_v), all host
+    values: no copy and no wait."""
+    pose = [t.to(torch.float32).contiguous()
+            for t in (cam.pos, cam.front, cam.left, cam.up)]
+    for name, t in zip(("pos", "front", "left", "up"), pose):
+        _need(t, f"camera {name}", torch.float32, (3,), cam.device)
+    return [*pose, *angle_steps(cam)]
+
+
+def launch_frame(tabs: Tables, cam: Camera, refr0: Tensor, refr_def: Tensor,
+                 *, refmax: int, atten: float, seed: int, spp: int,
+                 sample: int, record: bool = False, work: bool = False):
     """Launch the frame kernel (B1) on the current stream -> (image
     [h, w, 3], status [h, w], rec) with ``rec = {"pid": [refmax, h*w]}``
-    when ``record``. Does not synchronize: the inputs were allocated on
-    this stream, so the caching allocator reuses their memory only for work
-    ordered after the kernel."""
-    dev = cam_arr.device
+    when ``record`` (+ ``work`` [refmax, h * ceil(w / 32)] i32, the spheres
+    each warp tested at each bounce, when ``work``). ``refr0`` and
+    ``refr_def`` are f32 scalars on the card. Does not synchronize: the
+    inputs were allocated on this stream, so the caching allocator reuses
+    their memory only for work ordered after the kernel."""
+    dev = cam.device
     if dev.type != "cuda":
         raise ValueError(f"the frame kernel needs CUDA tensors, got {dev}")
     lib = _build.load()
     args = _table_args(tabs, dev)
-    _need(cam_arr, "camera array", torch.float32, (18,), dev)
-    img = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    status = torch.empty((h, w), dtype=torch.int32, device=dev)
-    rec_pid = (torch.empty((refmax, h * w), dtype=torch.int32, device=dev)
-               if record else None)
+    _need(refr0, "start substance index", torch.float32, (), dev)
+    _need(refr_def, "default substance index", torch.float32, (), dev)
+    pose_steps = camera_args(cam)
+    w, h = cam.w, cam.h
+    n_warps = h * -(-w // WARP)
+    color, status, rec_pid, work_t = _outputs(w * h, refmax, n_warps,
+                                              record, work, dev)
     err = lib.rt_trace_frame(
-        *args, _ptr(cam_arr), w, h, refmax, atten, int(tabs.has_rough),
-        int(tabs.has_trans), seed & 0xFFFFFFFF, spp, sample, _ptr(img),
-        _ptr(status), _ptr(rec_pid), dev.index, _stream(dev))
+        *args, _ptr(refr0), _ptr(refr_def),
+        *(_ptr(t) for t in pose_steps[:4]), *pose_steps[4:], w, h, refmax,
+        atten, int(tabs.has_rough), int(tabs.has_trans), seed & 0xFFFFFFFF,
+        spp, sample, _ptr(color), _ptr(status), _ptr(rec_pid), _ptr(work_t),
+        dev.index, _stream(dev))
     _build.check(lib, err, "trace_frame_kernel")
     LAUNCHES["frame"] += 1
-    return img, status, ({"pid": rec_pid} if record else None)
+    return _results(color.reshape(h, w, 3), status.reshape(h, w), rec_pid,
+                    work_t, work)
 
 
-def launch_rays(tabs: Tables, refr_pair: Tensor, org: Tensor, dir: Tensor,
-                rid: Tensor, *, refmax: int, atten: float, seed: int,
-                record: bool = False):
+def launch_rays(tabs: Tables, refr0: Tensor, refr_def: Tensor, org: Tensor,
+                dir: Tensor, rid: Tensor, *, refmax: int, atten: float,
+                seed: int, record: bool = False, work: bool = False):
     """Launch the wavefront kernel (B2) on the current stream -> (color
-    [N, 3], status [N], rec). Does not synchronize."""
+    [N, 3], status [N], rec) (+ ``work`` [refmax, ceil(N / 32)] i32 when
+    ``work``). Does not synchronize."""
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"the wavefront kernel needs CUDA tensors, got {dev}")
     lib = _build.load()
     args = _table_args(tabs, dev)
     n = org.shape[0]
-    _need(refr_pair, "substance indices", torch.float32, (2,), dev)
+    _need(refr0, "start substance index", torch.float32, (), dev)
+    _need(refr_def, "default substance index", torch.float32, (), dev)
     _need(org, "org", torch.float32, (n, 3), dev)
     _need(dir, "dir", torch.float32, (n, 3), dev)
     _need(rid, "ray ids", torch.int32, (n,), dev)
-    color = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    status = torch.empty((n,), dtype=torch.int32, device=dev)
-    rec_pid = (torch.empty((refmax, n), dtype=torch.int32, device=dev)
-               if record else None)
+    color, status, rec_pid, work_t = _outputs(n, refmax, -(-n // WARP),
+                                              record, work, dev)
     err = lib.rt_trace_rays(
-        *args, _ptr(refr_pair), _ptr(org), _ptr(dir), _ptr(rid), n, refmax,
-        atten, int(tabs.has_rough), int(tabs.has_trans), seed & 0xFFFFFFFF,
-        _ptr(color), _ptr(status), _ptr(rec_pid), dev.index, _stream(dev))
+        *args, _ptr(refr0), _ptr(refr_def), _ptr(org), _ptr(dir), _ptr(rid),
+        n, refmax, atten, int(tabs.has_rough), int(tabs.has_trans),
+        seed & 0xFFFFFFFF, _ptr(color), _ptr(status), _ptr(rec_pid),
+        _ptr(work_t), dev.index, _stream(dev))
     _build.check(lib, err, "trace_rays_kernel")
     LAUNCHES["rays"] += 1
-    return color, status, ({"pid": rec_pid} if record else None)
+    return _results(color, status, rec_pid, work_t, work)
 
 
 def trace_frame_fused_cuda(scene: Scene, cfg: RenderConfig, cam: Camera,
                            seed: Optional[int] = None, sample: int = 0,
-                           start_refr=None, record: bool = False):
-    """The frame kernel on the scene's CUDA device -> (image, status, rec)."""
+                           start_refr=None, record: bool = False,
+                           work: bool = False):
+    """The frame kernel on the scene's CUDA device -> (image, status, rec)
+    (+ work): :func:`scene_tables`, the camera by pointer and value, one
+    launch."""
     if cam.device != scene.device:
         raise ValueError(f"camera on {cam.device}, scene on {scene.device}")
     return launch_frame(
-        pack_tables(scene, cam_pos=cam.pos),
-        _cam_array(cam, _refr_pair(scene, start_refr)), cam.w, cam.h,
+        scene_tables(scene), cam, *_refr_args(scene, start_refr),
         refmax=int(cfg.refmax), atten=float(cfg.distance_attenuation_factor),
         seed=sampling.DEFAULT_SEED if seed is None else seed,
-        spp=int(cfg.spp), sample=int(sample), record=record)
+        spp=int(cfg.spp), sample=int(sample), record=record, work=work)
 
 
 def trace_rays_fused_cuda(scene: Scene, cfg: RenderConfig, org: Tensor,
                           dir: Tensor, seed: Optional[int] = None,
                           ray_id: Optional[Tensor] = None, start_refr=None,
-                          record: bool = False):
+                          record: bool = False, work: bool = False):
     """The wavefront kernel on the scene's CUDA device -> (color, status,
-    rec)."""
+    rec) (+ work)."""
     if ray_id is None:
         ray_id = torch.arange(org.shape[0], dtype=torch.int32,
                               device=org.device)
     return launch_rays(
-        pack_tables(scene), _refr_pair(scene, start_refr), org, dir,
+        scene_tables(scene), *_refr_args(scene, start_refr), org, dir,
         ray_id.to(torch.int32), refmax=int(cfg.refmax),
         atten=float(cfg.distance_attenuation_factor),
-        seed=sampling.DEFAULT_SEED if seed is None else seed, record=record)
+        seed=sampling.DEFAULT_SEED if seed is None else seed, record=record,
+        work=work)
 
 
 def trace_frame_fused(scene: Scene, cfg: RenderConfig, cam: Camera,

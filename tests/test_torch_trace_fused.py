@@ -150,11 +150,14 @@ def test_cpu_wrappers_take_the_plain_versions():
 def test_launchers_refuse_cpu_tensors():
     ps = to_port_scene(config1_scene())
     tabs = tf.pack_tables(ps)
+    pc = to_port_camera(make_camera((0.0, 0.0, 0.5), 4, 4, np.pi / 2,
+                                    np.pi / 2))
+    one = torch.ones(())
     with pytest.raises(ValueError, match="CUDA"):
-        tf.launch_frame(tabs, torch.zeros(18), 4, 4, refmax=1, atten=1.0,
-                        seed=0, spp=1, sample=0)
+        tf.launch_frame(tabs, pc, one, one, refmax=1, atten=1.0, seed=0,
+                        spp=1, sample=0)
     with pytest.raises(ValueError, match="CUDA"):
-        tf.launch_rays(tabs, torch.ones(2), torch.zeros((4, 3)),
+        tf.launch_rays(tabs, one, one, torch.zeros((4, 3)),
                        torch.ones((4, 3)), torch.zeros(4, dtype=torch.int32),
                        refmax=1, atten=1.0, seed=0)
     assert tf.LAUNCHES == {"frame": 0, "rays": 0}
