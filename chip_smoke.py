@@ -129,6 +129,27 @@ Phases, one JSON line each:
                 angle-0 cone reaches); need <= warp <= block. The same for
                 B7-wave on config 4's first packet round (the need: each
                 ray's chunks up to its own exit, ``wave_need``).
+ 9f. main-OCTREE — the octree accel (``accel/octree``, plain PyTorch; no
+                TPU kernel, so no kernel row): (a) the native scene kit
+                (``native``) built by g++ from ``csrc/scenekit.cpp``, its
+                CSR scatter and covering levels equal to their NumPy
+                specifications on config 2 (depth 4) and a 2,000-prim
+                config 4 (depth 8); (b) BASELINE config 2 (256x256, 50
+                spheres, refmax 2, a depth-4 octree) through ``render_hdr``
+                OCTREE against PALLAS under the parity rule; (c) config 4
+                (1920x1088, 100k prims, refmax 2, depth 8, as ``bench.py
+                --c4-backend octree``) against 9b's PALLAS frame, at most
+                ``C4_MAX_ROUNDING_FRAC`` proven as rounding: the build's
+                host seconds, the DDA's steps and ms per search, the
+                frame's ms and peak device memory; every search the
+                octree's, none dense, no kernel launched; (d) config 4's
+                glass variant (``config4_glass_scene``) through TILED with
+                ``accel=``: B7 once, B6 each sweep round, ``unresolved`` 0,
+                no dense substance query, the grid query equal to the dense
+                one on 4,096 of the frame's transmission points; (e) an
+                OCTREE fit (4 views of the headline at 128x128, 4 SGD
+                steps, ``accel_every=2``) against the same fit on the CPU:
+                losses to rtol 1e-4, one rebuild each.
  10. times    — CUDA-event medians of each kernel and its plain version at
                 the main paths' shapes; each kernel also alone, by the
                 profiler (``kernel_ms``; B1, B2, B3 and B5 with their
@@ -159,6 +180,7 @@ line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -175,13 +197,17 @@ import raytracer_js_tpu_torch as rt
 from raytracer_js_tpu_torch import (HitBackend, RenderConfig, ResponseType,
                                     SceneBuilder, ToneMapConfig,
                                     ToneMapperKind, make_camera)
+from raytracer_js_tpu_torch import native
 from raytracer_js_tpu_torch.accel import candidates as cand
+from raytracer_js_tpu_torch.accel import octree
 from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
 from raytracer_js_tpu_torch.kernels import trace_tiled as tt
 from raytracer_js_tpu_torch.models.camera import move, pixel_rays, rotate_h
+from raytracer_js_tpu_torch.models.scene import prim_aabbs
+from raytracer_js_tpu_torch.ops import trace as trace_mod
 from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED
 from raytracer_js_tpu_torch.ops.trace import record_paths, trace_rays
 from raytracer_js_tpu_torch.optim import FitConfig, fit
@@ -224,6 +250,13 @@ NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
 REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
 TILED_SOURCE = "raytracer_js_tpu_torch/csrc/trace_tiled.cu"
 FIT_VIEWS = 8
+#: phase 9f: BASELINE config 2's frame, the octree depths of configs 2 and
+#: 4 (``BASELINE.md``; ``bench.py --c4-backend octree``), the substance
+#: points held against the dense query, and the OCTREE fit's views
+C2_W, C2_H = 256, 256
+C2_DEPTH, C4_DEPTH = 4, 8
+SUBSTANCE_SAMPLES = 4096
+OCT_FIT_VIEWS, OCT_FIT_W = 4, 128
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +354,65 @@ def config4_camera(device=None):
     """Config 4's camera (``bench.py``): 1920x1088, fov pi/2 x pi/2 * h/w."""
     return make_camera((0.0, 0.0, 0.5), C4_W, C4_H, np.pi / 2,
                        np.pi / 2 * C4_H / C4_W, device=device)
+
+
+def config4_glass_scene(n_prims: int = 100_000, seed: int = 7,
+                        device=None):
+    """Config 4's layout with glass: every third small sphere is
+    TRANSMISSION with a 1.5 substance in place of the mirror, every 30th
+    TRANSMISSION of undefined substance (no refraction), the rest
+    diffuse; the ground box and the emitter as config 4."""
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+    grey = b.add_solid_texture((0.6, 0.6, 0.6))
+    white = b.add_solid_texture((1.0, 1.0, 1.0))
+    diffuse = b.add_material(ResponseType.REFLECTION)
+    glass = b.add_material(ResponseType.TRANSMISSION)
+    light = b.add_material(ResponseType.REFLECTION, light=True)
+    glass_sub = b.add_substance(1.5)
+    b.add_box((20.0, 0.0, -52.0), 100.0, diffuse, grey)
+    rng = np.random.default_rng(seed)
+    n_s = n_prims - 2
+    centers = rng.uniform([4.0, -20.0, -1.0], [44.0, 20.0, 7.0], (n_s, 3))
+    radii = rng.uniform(0.05, 0.18, n_s)
+    palette = [b.add_solid_texture(rng.uniform(0.2, 1.0, 3))
+               for _ in range(16)]
+    for i in range(n_s):
+        if i % 3 == 0:
+            b.add_sphere(centers[i], float(radii[i]), glass, white,
+                         substance=glass_sub)
+        elif i % 30 == 1:
+            b.add_sphere(centers[i], float(radii[i]), glass, palette[i % 16])
+        else:
+            b.add_sphere(centers[i], float(radii[i]), diffuse,
+                         palette[i % 16])
+    b.add_sphere((24.0, 0.0, 14.0), 3.0, light, white)
+    return b.build(device)
+
+
+def config2_scene(n: int = 50, seed: int = 7, device=None):
+    """BASELINE config 2 (``tests/test_configs.config2_scene``): a ground
+    box, ``n`` random spheres (every third a mirror) and an emitter."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    b.set_sky(b.add_solid_texture((0.4, 0.5, 0.7)))
+    diffuse = b.add_material(ResponseType.REFLECTION)
+    mirror = b.add_material(ResponseType.REFLECTION, mirror=True)
+    light = b.add_material(ResponseType.REFLECTION, light=True)
+    b.add_box((0, 0, -52.0), 100.0, diffuse,
+              b.add_solid_texture((0.6, 0.6, 0.6)))
+    for i in range(n):
+        c = rng.uniform([2, -6, -1.5], [14, 6, 5])
+        r = float(rng.uniform(0.15, 0.7))
+        tex = b.add_solid_texture(rng.uniform(0.2, 1.0, 3))
+        b.add_sphere(c, r, mirror if i % 3 == 0 else diffuse, tex)
+    b.add_sphere((8.0, 0.0, 6.0), 1.0, light, b.add_solid_texture((1, 1, 1)))
+    return b.build(device)
+
+
+def config2_camera(device=None):
+    return make_camera((0, 0, 0.5), C2_W, C2_H, np.pi / 2, np.pi / 2,
+                       device=device)
 
 
 def config1_scene(with_glass: bool = False, with_tri: bool = False,
@@ -1430,6 +1522,352 @@ def device_ms_per_call(calls, name, reps=3):
     return None
 
 
+def recorded_rays(scene, cfg, org, dir, accel=None) -> dict:
+    """``ops/trace.record_paths`` that also keeps each bounce's rays ->
+    {"pid", "org", "dir", "alive"} [refmax, N, ...], the record
+    ``parity.flip_prover`` takes."""
+    state, rng = trace_mod._start(scene, cfg, org, dir, DEFAULT_SEED, None,
+                                  None)
+    prows = trace_mod.prim_rows(scene)
+    out = {"pid": [], "org": [], "dir": [], "alive": []}
+    with torch.no_grad():
+        for b in range(cfg.refmax):
+            alive = state.status == 0
+            _t, pid = trace_mod.nearest_hit(scene, cfg, state.org, state.dir,
+                                            accel)
+            pid = torch.where(alive, pid, -1).to(torch.int32)
+            for k, v in zip(out, (pid, state.org, state.dir, alive)):
+                out[k].append(v)
+            state = trace_mod._bounce(scene, cfg, state, rng, b, prows,
+                                      pid_override=pid, accel=accel)
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def counting_searches(keep=None):
+    """Count, while active, the dense and the octree nearest-hit searches
+    and the substance queries: over the grid (``accel`` given) and dense
+    over more than one point (the camera's own lookup is one point).
+    ``keep`` (a list) receives each grid query's (point, cur_refr)."""
+    n = {"dense_search": 0, "octree_search": 0, "grid_substance": 0,
+         "dense_substance": 0}
+    real = (trace_mod.nearest_hit_brute, octree.nearest_hit_octree,
+            trace_mod.substance_refr_at)
+
+    def brute(*a, **kw):
+        n["dense_search"] += 1
+        return real[0](*a, **kw)
+
+    def dda(*a, **kw):
+        n["octree_search"] += 1
+        return real[1](*a, **kw)
+
+    def substance(scene, point, cur_refr, accel=None):
+        if accel is not None:
+            n["grid_substance"] += 1
+            if keep is not None:
+                keep.append((point, cur_refr))
+        elif point.shape[0] > 1:
+            n["dense_substance"] += 1
+        return real[2](scene, point, cur_refr, accel=accel)
+
+    (trace_mod.nearest_hit_brute, octree.nearest_hit_octree,
+     trace_mod.substance_refr_at) = brute, dda, substance
+    try:
+        yield n
+    finally:
+        (trace_mod.nearest_hit_brute, octree.nearest_hit_octree,
+         trace_mod.substance_refr_at) = real
+
+
+def accel_bytes(accel) -> int:
+    return sum(getattr(accel, k).numel() * getattr(accel, k).element_size()
+               for k in octree._TENSORS)
+
+
+def peak_memory(fn) -> tuple:
+    """(fn's result, {"peak_bytes": torch.cuda.max_memory_allocated over
+    the call, "before_bytes": allocated at its start}), the peak reset
+    first."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"peak_bytes": torch.cuda.max_memory_allocated(),
+                 "before_bytes": before}
+
+
+def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
+    """Phase 9f, main-OCTREE (module docstring): (a) the native scene kit,
+    (b) config 2 and (c) config 4 through ``render_hdr`` OCTREE against
+    their PALLAS frames (``hdr4_p``, ``pid4_p``: 9b's), (d) config 4's
+    glass variant through TILED with the accel, (e) an OCTREE fit against
+    the CPU. Returns the numbers PERF.md records."""
+    out = {}
+    # (a) the scene kit: built by g++ from csrc/scenekit.cpp, equal to its
+    # NumPy specification on the builds' own inputs
+    t0 = time.perf_counter()
+    built = native.available()
+    first_call_s = time.perf_counter() - t0
+    check(built, f"the native scene kit did not build: "
+          f"{native.build_error()}")
+    lib = native.library_path()
+    check(native._lib._name == str(lib) and lib.parent == native.BUILD_DIR
+          and native.SOURCE.name == "scenekit.cpp",
+          f"the scene kit was not loaded from the port's build: {lib}")
+    c2 = config2_scene(device=dev)
+    cases = []
+    for case, sc, depth in (("config2", c2, C2_DEPTH),
+                            ("config4_2000", config4_scene(2000, device=dev),
+                             C4_DEPTH)):
+        lo, hi = (a.cpu().numpy().astype(np.float64) for a in prim_aabbs(sc))
+        lo32, hi32, fine, root_lo, size = octree.grid_inputs(lo, hi, depth)
+        rl32 = np.asarray(root_lo, np.float32)
+        got = native.grid_csr(lo32, hi32, fine, rl32, size, depth)
+        want = native._grid_csr_numpy(lo32, hi32, fine, rl32, size, depth)
+        lv_n, cell_n = native.covering_levels_native(lo, hi, root_lo, size,
+                                                     depth)
+        lv_p, cell_p = octree.covering_levels(lo, hi, root_lo, size, depth)
+        equal = (np.array_equal(got[0], want[0])
+                 and np.array_equal(got[1], want[1]) and got[2] == want[2]
+                 and np.array_equal(lv_n, lv_p)
+                 and np.array_equal(cell_n, cell_p))
+        cases.append(dict(case=case, prims=sc.n_prims, depth=depth,
+                          fine=int(fine.sum()), pairs=int(got[1].size),
+                          max_per_cell=int(got[2]), equal=bool(equal)))
+        check(equal, f"native scene kit differs from NumPy on {case}")
+    emit(phase="main-OCTREE", case="a_native", available=built,
+         library=str(lib.relative_to(lib.parents[2])),
+         compiler=[native.CXX, *native.CXX_FLAGS],
+         build_seconds=native.build_seconds,
+         first_call_seconds=first_call_s, cases=cases)
+    out["native_build_s"] = native.build_seconds
+
+    # (b) BASELINE config 2: 256x256, refmax 2, a depth-4 octree, against
+    # PALLAS (B3) under the parity rule (proven flips only)
+    c2_cam = config2_camera(dev)
+    cfg_o = RenderConfig(refmax=2, backend=HitBackend.OCTREE)
+    cfg_p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    acc2 = octree.build_octree(c2, rt.OctreeConfig(max_depth=C2_DEPTH))
+    torch.cuda.synchronize()
+    reset_launches()
+    with counting_searches() as n2:
+        img2 = rt.render_hdr(c2, c2_cam, cfg_o, accel=acc2)
+        torch.cuda.synchronize()
+    launched2 = launches_now()
+    img2_p = rt.render_hdr(c2, c2_cam, cfg_p)
+    org2, dir2 = pixel_rays(c2_cam)
+    rec2 = recorded_rays(c2, cfg_o, org2, dir2, acc2)
+    pid2_p = record_paths(c2, cfg_p, org2, dir2)
+    zeros2 = torch.zeros((C2_H, C2_W), dtype=torch.int32, device=dev)
+    vs2 = parity.compare(img2, zeros2, img2_p, zeros2,
+                         prove=parity.flip_prover(c2, rec2, pid2_p.T))
+    emit(phase="main-OCTREE", case="b_config2_vs_PALLAS", w=C2_W, h=C2_H,
+         prims=c2.n_prims, depth=C2_DEPTH, max_per_cell=acc2.max_per_cell,
+         coarse=int((acc2.coarse_ids >= 0).sum()), searches=n2,
+         launches=launched2,
+         winners_equal_frac=float((rec2["pid"].T == pid2_p).all(dim=1)
+                                  .float().mean()), **vs2)
+    check(vs2["ok"], f"config 2 OCTREE differs from PALLAS: {vs2}")
+    check(n2["octree_search"] == cfg_o.refmax and n2["dense_search"] == 0
+          and not any(launched2.values()),
+          f"config 2 OCTREE did not search the octree alone: {n2}, "
+          f"{launched2}")
+
+    # (c) BASELINE config 4 at full width, as bench.py --c4-backend octree
+    t0 = time.perf_counter()
+    acc4 = octree.build_octree(c4, rt.OctreeConfig(max_depth=C4_DEPTH))
+    torch.cuda.synchronize()
+    build4_s = time.perf_counter() - t0
+    rec4_o = recorded_rays(c4, cfg_o, org4, dir4, acc4)
+    dda = {}
+    for b, (o, d) in enumerate(((org4, dir4), (
+            rec4_o["org"][1][rec4_o["alive"][1]],
+            rec4_o["dir"][1][rec4_o["alive"][1]]))):
+        st = {}
+        octree.nearest_hit_octree(c4, acc4, o, d, stats=st)
+        ms = event_ms(lambda: octree.nearest_hit_octree(c4, acc4, o, d),
+                      warmup=1, timed=3)
+        dda[f"bounce{b}"] = dict(rays=int(o.shape[0]), **st,
+                                 ms=statistics.median(ms), ms_runs=ms)
+    reset_launches()
+    with counting_searches() as n4:
+        hdr4_o, mem4 = peak_memory(
+            lambda: rt.render_hdr(c4, c4_cam, cfg_o, accel=acc4))
+    launched4 = launches_now()
+    # the counted call above is the warm-up
+    frame4 = event_ms(lambda: rt.render_hdr(c4, c4_cam, cfg_o, accel=acc4),
+                      warmup=0, timed=3)
+    zeros4 = torch.zeros((C4_H, C4_W), dtype=torch.int32, device=dev)
+    graze = [parity.grazing_prover(c4, org4, dir4),
+             parity.grazing_prover(c4, org4, dir4, pid=rec4_o["pid"][0]),
+             parity.grazing_prover(c4, org4, dir4, pid=pid4_p[:, 0])]
+    vs4 = parity.compare(
+        hdr4_o, zeros4, hdr4_p, zeros4,
+        prove=parity.flip_prover(c4, rec4_o, pid4_p.T),
+        prove_rounding=lambda i: graze[0](i) | graze[1](i) | graze[2](i),
+        max_rounding_frac=C4_MAX_ROUNDING_FRAC)
+    out.update(build4_s=build4_s, frame4_ms=statistics.median(frame4),
+               frame4_peak=mem4, dda=dda)
+    emit(phase="main-OCTREE", case="c_config4_vs_PALLAS", w=C4_W, h=C4_H,
+         prims=c4.n_prims, refmax=cfg_o.refmax, depth=C4_DEPTH,
+         build_host_seconds=build4_s, max_per_cell=acc4.max_per_cell,
+         coarse=int((acc4.coarse_ids >= 0).sum()),
+         cell_ids=int(acc4.cell_ids.numel()),
+         accel_device_bytes=accel_bytes(acc4), dda=dda,
+         frame_ms=statistics.median(frame4), frame_ms_runs=frame4,
+         frame_timing="CUDA events, median of 3 after one warm-up",
+         memory=mem4, searches=n4, launches=launched4,
+         finite=bool(torch.isfinite(hdr4_o).all()),
+         rounding_frac=vs4["rounding"] / vs4["pixels"],
+         max_rounding_frac=C4_MAX_ROUNDING_FRAC,
+         winners_equal_frac=float((rec4_o["pid"].T == pid4_p).all(dim=1)
+                                  .float().mean()), **vs4)
+    check(tuple(hdr4_o.shape) == (C4_H, C4_W, 3)
+          and hdr4_o.device.type == "cuda", "bad config-4 OCTREE frame")
+    check(n4["octree_search"] == cfg_o.refmax and n4["dense_search"] == 0
+          and not any(launched4.values()),
+          f"config 4 OCTREE did not search the octree alone: {n4}, "
+          f"{launched4}")
+    check(vs4["ok"], f"config 4 OCTREE differs from PALLAS: {vs4}")
+
+    # (d) transmission at scale: config 4's glass variant through TILED,
+    # the octree serving the substance query
+    t0 = time.perf_counter()
+    glass = config4_glass_scene(device=dev)
+    glass_build_s = time.perf_counter() - t0
+    acc_g = octree.build_octree(glass, rt.OctreeConfig(max_depth=C4_DEPTH))
+    t0 = time.perf_counter()
+    tables_g = rtl.frame_tables(glass, c4_cam)
+    torch.cuda.synchronize()
+    tables_g_s = time.perf_counter() - t0
+    cfg_t = RenderConfig(refmax=2, backend=HitBackend.TILED)
+    reset_launches()
+    with counting_searches() as ng_main:
+        hdr_g, mem_g = peak_memory(lambda: rt.render_hdr(
+            glass, c4_cam, cfg_t, tables=tables_g, accel=acc_g))
+    launched_g = launches_now()
+    queries = []
+    with counting_searches(keep=queries) as ng:
+        img_g, diag_g = rtl.render_frame_tiled(
+            glass, cfg_t, c4_cam, tables=tables_g, accel=acc_g,
+            with_diag=True)
+        torch.cuda.synchronize()
+    frame_g = event_ms(lambda: rt.render_hdr(
+        glass, c4_cam, cfg_t, tables=tables_g, accel=acc_g), warmup=0,
+        timed=3)
+    # 4,096 of the bounce-0 glue's transmission points (rays whose first
+    # winner is a glass sphere), the grid query against the dense one in
+    # chunks of rays
+    k_g = tt.frame_bounce0(glass, c4_cam, *tables_g[:3])
+    pid0 = k_g["pid"].reshape(-1)
+    mat = glass.prim_material[pid0.clamp(min=0).long()].long()
+    is_t = (pid0 >= 0) & (glass.materials.response[mat]
+                          == int(ResponseType.TRANSMISSION))
+    point0, cur0 = queries[0]
+    check(point0.shape[0] == pid0.shape[0], "the first grid query is not "
+          "the bounce-0 glue's")
+    cand_t = torch.nonzero(is_t).flatten().cpu().numpy()
+    rng = np.random.default_rng(23)
+    idx = torch.as_tensor(np.sort(rng.choice(
+        cand_t, min(SUBSTANCE_SAMPLES, cand_t.size), replace=False)),
+        device=dev)
+    pts, cur = point0[idx], cur0[idx]
+    grid_q = trace_mod.substance_refr_at(glass, pts, cur, accel=acc_g)
+    dense_q = [torch.cat(x) for x in zip(*(
+        trace_mod.substance_refr_at(glass, pts[i:i + 256], cur[i:i + 256])
+        for i in range(0, pts.shape[0], 256)))]
+    sub_equal = (torch.equal(grid_q[0], dense_q[0])
+                 and torch.equal(grid_q[1], dense_q[1]))
+    dense_elements = sum(q[0].shape[0] for q in queries) * glass.n_prims
+    out.update(glass_ms=statistics.median(frame_g), glass_peak=mem_g,
+               dense_elements_first=point0.shape[0] * glass.n_prims,
+               dense_elements=dense_elements)
+    emit(phase="main-OCTREE", case="d_glass_TILED", w=C4_W, h=C4_H,
+         prims=glass.n_prims, refmax=cfg_t.refmax, depth=C4_DEPTH,
+         glass_winner_pixels=int(is_t.sum()),
+         scene_build_seconds=glass_build_s,
+         frame_tables_host_seconds=tables_g_s, launches=launched_g,
+         rounds=diag_g["rounds"], unresolved=int(diag_g["unresolved"]),
+         searches=ng_main, grid_queries=len(queries),
+         frame_ms=statistics.median(frame_g), frame_ms_runs=frame_g,
+         memory=mem_g, substance_samples=int(idx.numel()),
+         substance_grid_equals_dense=sub_equal,
+         refracting_samples=int(grid_q[1].sum()),
+         dense_query_elements_first_call=point0.shape[0] * glass.n_prims,
+         dense_query_elements_frame=dense_elements,
+         finite=bool(torch.isfinite(hdr_g).all()))
+    check(launched_g["tiled_frame"] == 1
+          and launched_g["listed"] == diag_g["rounds"] >= 1
+          and launched_g["dense"] == 0 and launched_g["scalar"] == 0,
+          f"the glass frame did not run B7 once and B6 each sweep round: "
+          f"{launched_g}, {diag_g}")
+    check(int(diag_g["unresolved"]) == 0, "the glass frame left rays "
+          "unresolved")
+    check(ng_main["dense_substance"] == 0 and ng_main["grid_substance"] >= 1
+          and ng["dense_substance"] == 0,
+          f"the glass frame took the dense substance query: {ng_main}")
+    check(torch.equal(img_g, hdr_g) and bool(torch.isfinite(hdr_g).all())
+          and tuple(hdr_g.shape) == (C4_H, C4_W, 3), "bad glass frame")
+    check(sub_equal and idx.numel() == SUBSTANCE_SAMPLES,
+          "the grid substance query differs from the dense one")
+
+    # (e) an OCTREE fit with accel_every=2 on the card and on the CPU
+    cams_f = fit_cameras(OCT_FIT_W, OCT_FIT_W, n=OCT_FIT_VIEWS, device=dev)
+    targets_f = torch.stack([rt.render_hdr(
+        head, c, RenderConfig(refmax=2, backend=HitBackend.FUSED)).reshape(
+        -1, 3) for c in cams_f])
+    start = perturbed(head)
+    # SGD, not Adam: Adam's first step moves every leaf by lr times the
+    # sign of its gradient, and a sphere-center gradient that is 0 up to
+    # rounding (down to 6e-12 here) takes opposite signs on the card and
+    # on the CPU, which sum in other orders: the two runs then part by
+    # ~3e-4 after one step. SGD moves such a leaf by lr times the noise.
+    fc = FitConfig(steps=4, lr=1.0, optimizer="sgd", accel_every=2)
+    builds = []
+    real_build = octree.build_octree
+
+    def counting_build(scene, *a, **kw):
+        builds.append((scene.device.type, kw.get("like") is not None))
+        return real_build(scene, *a, **kw)
+
+    octree.build_octree = counting_build
+    try:
+        with counting_searches() as nf:
+            t0 = time.perf_counter()
+            r_dev = fit(start, cfg_o, cams_f, targets_f, fc,
+                        accel=octree.build_octree(start, rt.OctreeConfig()))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        start_cpu = start.to("cpu")
+        r_cpu = fit(start_cpu, cfg_o,
+                    fit_cameras(OCT_FIT_W, OCT_FIT_W, n=OCT_FIT_VIEWS,
+                                device="cpu"), targets_f.cpu(), fc,
+                    accel=octree.build_octree(start_cpu, rt.OctreeConfig()))
+    finally:
+        octree.build_octree = real_build
+    rebuilds = {d: sum(1 for dd, like in builds if dd == d and like)
+                for d in ("cuda", "cpu")}
+    emit(phase="main-OCTREE", case="e_fit_card_vs_cpu", views=len(cams_f),
+         w=OCT_FIT_W, h=OCT_FIT_W, steps=fc.steps, optimizer=fc.optimizer,
+         lr=fc.lr, accel_every=fc.accel_every, seconds=fit_s,
+         centers_moved=float((r_dev.scene.sphere_center
+                              - start.sphere_center).abs().max()),
+         losses_card=r_dev.losses,
+         losses_cpu=r_cpu.losses, rebuilds=rebuilds, searches=nf)
+    check(np.allclose(r_dev.losses, r_cpu.losses, rtol=1e-4, atol=0.0),
+          "the OCTREE fit on the card differs from the CPU")
+    check(rebuilds["cuda"] == rebuilds["cpu"] == 1,
+          f"the fits rebuilt the octree at other steps: {builds}")
+    check(nf["octree_search"] == fc.steps * len(cams_f) * cfg_o.refmax
+          and nf["dense_search"] == 0,
+          f"the OCTREE fit did not search the octree: {nf}")
+    check(all(np.isfinite(r_dev.losses)) and r_dev.losses[-1]
+          < r_dev.losses[0], f"OCTREE fit losses: {r_dev.losses}")
+    return out
+
+
 def main() -> int:
     # ---- 0. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2203,6 +2641,9 @@ def main() -> int:
                                 bslots4, scene_c, org_c, dir_c, tb_c,
                                 n_live_c, tiles_c)
     rules7w = wave_work(wave_a0, k_wa, blk_wa)
+
+    # ---- 9f. main-OCTREE: the octree accel (no TPU kernel) -------------------
+    octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4)
 
     # ---- 10. times at the main paths' shapes -------------------------------
     # B1 and B2 by events around their wrappers (the tables kept on the

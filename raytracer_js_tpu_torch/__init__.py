@@ -14,7 +14,10 @@ class, image textures and cube-map skies included. ``HitBackend.TILED``
 renders big scenes (``render_tiled``: per-tile candidate tables and the
 tiled frame kernel for bounce 0, ``kernels/trace_tiled``,
 ``csrc/trace_tiled.cu``; sweep rounds through the listed nearest-hit
-kernel for later bounces). Inverse rendering
+kernel for later bounces). ``HitBackend.OCTREE`` with an ``accel``
+(``accel/octree.build_octree``, host-built with the native scene kit,
+``native``) searches the octree's grid in plain PyTorch; the same accel
+serves the transmission substance query of every backend. Inverse rendering
 (``optim.fit``) differentiates the search path, or the replay of recorded
 winners through the replay kernels (``kernels/replay_grad``,
 ``csrc/replay_grad.cu``). On CPU tensors every kernel runs its plain

@@ -79,9 +79,11 @@ class HitBackend(enum.Enum):
       ``render_hdr`` sends scenes of at most 2048 prims without cached
       tables, and BOTH scenes, to PALLAS, and ``render_rays`` takes BRUTE,
       as in the reference.
-    * ``OCTREE`` — the dense search (BRUTE), the reference's path without
-      an accel; the octree ``accel=`` itself is not ported yet and raises
-      ``NotImplementedError`` (ROADMAP A11).
+    * ``OCTREE`` — with an ``accel=`` (``accel/octree.build_octree``: a
+      host NumPy build with the native scene kit, tensors on the scene's
+      device), a coarse brute pass plus the fine-grid DDA with the
+      empty-space skip, plain PyTorch on the CPU and on the card alike;
+      without one, the dense search (BRUTE), the reference's fallback.
     """
 
     BRUTE = "brute"
@@ -126,9 +128,17 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OctreeConfig:
-    """Octree build parameters (the octree accel is not ported yet)."""
+    """Octree build parameters (``accel/octree.build_octree``).
+
+    ``max_depth`` plays the role of the reference's ``max_in_depth``
+    (octree_entity.ts:81-90): the fine grid has ``2^max_depth`` cells per
+    axis. The root cube is chosen up front to cover the scene's small
+    entities, so there is no outward re-rooting.
+    """
 
     max_depth: int = 4
+    #: kept for field parity with the reference package, whose build does
+    #: not read it either
     max_entities_per_node: int = 64
 
 

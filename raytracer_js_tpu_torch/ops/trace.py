@@ -3,8 +3,9 @@
 Port of ``raytracer_js_tpu.ops.trace``: ``refmax`` masked passes over
 structure-of-arrays ray state — traverse, intersect, shade, respawn — with
 an explicit per-ray status word (raytracer.ts:166-277). The nearest-hit
-search is dense PyTorch (BRUTE) or kernels B3/B4 (PALLAS,
-``kernels/nearest_hit``). It is also the semantic reference for the fused
+search is dense PyTorch (BRUTE), kernels B3/B4 (PALLAS,
+``kernels/nearest_hit``) or the octree's grid DDA (OCTREE with an
+``accel``, ``accel/octree``). It is also the semantic reference for the fused
 kernel's plain versions (``kernels/trace_fused``).
 
 Behavioral contract (reference source in parentheses):
@@ -92,8 +93,16 @@ def nearest_hit_brute(scene: Scene, org: Tensor,
 
 
 def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
-                dir: Tensor) -> Tuple[Tensor, Tensor]:
-    """Backend dispatch for the nearest-hit search."""
+                dir: Tensor, accel=None) -> Tuple[Tensor, Tensor]:
+    """Backend dispatch for the nearest-hit search; ``accel`` is the
+    OCTREE backend's ``accel/octree.OctreeAccel``."""
+    if cfg.backend == HitBackend.OCTREE and accel is not None:
+        from ..accel.octree import nearest_hit_octree
+
+        # discrete, as PALLAS: detached inputs, no graph
+        with torch.no_grad():
+            return nearest_hit_octree(scene, accel, org.detach(),
+                                      dir.detach())
     if cfg.backend == HitBackend.PALLAS:
         # the search is discrete: detached inputs, no graph. Kernel B3
         # streams prims one at a time (1..384 prims); B4 tiles them
@@ -106,9 +115,9 @@ def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
     if cfg.backend not in (HitBackend.BRUTE, HitBackend.OCTREE,
                            HitBackend.FUSED):
         raise ValueError(f"unknown backend {cfg.backend}")
-    # BRUTE, OCTREE without an accel (the reference's dense fallback; the
-    # octree is ROADMAP A11) and FUSED reaching this loop for off-class
-    # scenes (BOTH) all take the dense search
+    # BRUTE, OCTREE without an accel (the reference's dense fallback) and
+    # FUSED reaching this loop for off-class scenes (BOTH) all take the
+    # dense search
     return nearest_hit_brute(scene, org, dir)
 
 
@@ -193,7 +202,8 @@ def surface_at(scene: Scene, org: Tensor, dir: Tensor, pid: Tensor):
 # Substance point query (TRANSMISSION refraction target)
 # ---------------------------------------------------------------------------
 
-def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor):
+def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor,
+                      accel=None):
     """Refraction target at ``point`` (octree_entity.ts:191-202 used at
     raytracer.ts:240-248) -> ``(target_refr [N], do_refract [N])``:
 
@@ -202,12 +212,28 @@ def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor):
     * innermost containing entity with an undefined substance -> keep the
       current index, no refraction;
     * no containing entity -> the scene default, refract.
+
+    With ``accel`` the containment test runs over the grid-cell candidate
+    superset (``accel/octree.point_query_candidates``) instead of the dense
+    [N, P] matrices: mandatory for transmission at large prim counts (the
+    dense bool alone is 209 GB at 1920x1088 rays against 100k prims).
     """
     n = point.shape[0]
     default = scene.default_refr.expand(n)
     if scene.n_prims == 0:
         return default, torch.ones((n,), dtype=torch.bool,
                                    device=point.device)
+    if accel is not None:
+        from ..accel.octree import point_query_candidates, prim_contains
+
+        pid = point_query_candidates(accel, point)                 # [N, C]
+        inside = prim_contains(scene, point[:, None, :], pid)
+        pid_c = torch.clamp(pid.long(), 0, scene.n_prims - 1)
+        score = torch.where(inside, prim_volumes(scene)[pid_c],
+                            float("inf"))
+        ent = pid_c.gather(1, score.argmin(dim=1)[:, None])[:, 0]  # innermost
+        return _substance_of(scene, ent, inside.any(dim=1), cur_refr,
+                             default)
     diff = point[:, None, :] - scene.sphere_center[None, :, :]
     d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
         + diff[..., 2] * diff[..., 2]
@@ -220,7 +246,13 @@ def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor):
                     device=point.device)], dim=1)                  # [N, P]
     score = torch.where(inside, prim_volumes(scene)[None, :], float("inf"))
     ent = score.argmin(dim=1)                                      # innermost
-    any_inside = inside.any(dim=1)
+    return _substance_of(scene, ent, inside.any(dim=1), cur_refr, default)
+
+
+def _substance_of(scene: Scene, ent: Tensor, any_inside: Tensor,
+                  cur_refr: Tensor, default: Tensor):
+    """The substance rule of :func:`substance_refr_at` for the innermost
+    containing entity ``ent`` [N] (meaningless where not ``any_inside``)."""
     sub_id = scene.prim_substance.index_select(0, ent)
     defined = sub_id >= 0
     sub_refr = scene.sub_refr.index_select(
@@ -280,16 +312,17 @@ def sky_color(scene: Scene, dir: Tensor) -> Tensor:
 
 def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
             bounce, prows: Optional[PrimRows],
-            pid_override: Optional[Tensor] = None) -> RayState:
+            pid_override: Optional[Tensor] = None, accel=None) -> RayState:
     """One wavefront pass: traverse -> intersect -> shade -> respawn.
 
     ``bounce`` is the RNG stream's bounce index: an int, or a per-ray [N]
     tensor (the TILED sweep rounds mix rays of several bounces).
     ``pid_override`` [N] supplies the winner per ray (-1 = miss) in place of
-    the nearest-hit search: the path-replay mode."""
+    the nearest-hit search: the path-replay mode. ``accel`` (the octree)
+    serves the OCTREE search and the transmission substance query."""
     alive = state.status == int(RayStatus.ALIVE)
     if pid_override is None:
-        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir)
+        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir, accel)
     else:
         pid = pid_override
     hit = alive & (pid >= 0)
@@ -330,7 +363,7 @@ def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
     adv_point = point + EPS_ADVANCE * state.dir        # eps-advance, OLD dir
     if scene.has_transmission:
         target_refr, do_refract = substance_refr_at(scene, adv_point,
-                                                    state.refr)
+                                                    state.refr, accel=accel)
         eta = state.refr / torch.clamp(target_refr, min=1e-6)
         refr_dir, tir = refract(state.dir, normal, eta)
         trans_dir = torch.where(do_refract[:, None], refr_dir, state.dir)
@@ -409,22 +442,24 @@ def _start(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
 def record_paths(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
                  seed: int = sampling.DEFAULT_SEED,
                  ray_id: Optional[Tensor] = None,
-                 start_refr: Optional[Tensor] = None) -> Tensor:
+                 start_refr: Optional[Tensor] = None, accel=None) -> Tensor:
     """Run the search path and record the winner per bounce ->
     ``pid_seq [N, refmax]`` int32 (-1 = a miss or a dead ray).
 
     Feed it to :func:`trace_rays`'s ``pid_seq`` for the path-replay
     backward. The recording is discrete bookkeeping: no graph is built.
+    ``accel`` as in :func:`trace_rays`.
     """
     state, rng = _start(scene, cfg, org, dir, seed, ray_id, start_refr)
     prows = prim_rows(scene)
     rec = []
     for b in range(cfg.refmax):
         alive = state.status == int(RayStatus.ALIVE)
-        _t, pid = nearest_hit(scene, cfg, state.org, state.dir)
+        _t, pid = nearest_hit(scene, cfg, state.org, state.dir, accel)
         pid = torch.where(alive, pid, -1).to(torch.int32)
         rec.append(pid)
-        state = _bounce(scene, cfg, state, rng, b, prows, pid_override=pid)
+        state = _bounce(scene, cfg, state, rng, b, prows, pid_override=pid,
+                        accel=accel)
     return torch.stack(rec, dim=1)
 
 
@@ -432,13 +467,15 @@ def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
                seed: int = sampling.DEFAULT_SEED,
                ray_id: Optional[Tensor] = None,
                start_refr: Optional[Tensor] = None,
-               pid_seq: Optional[Tensor] = None) -> RayState:
+               pid_seq: Optional[Tensor] = None, accel=None) -> RayState:
     """Trace a wavefront of N rays to termination.
 
     ``ray_id`` is the global ray id the counter RNG is keyed by (default
     ``arange(N)``); ``start_refr`` is the substance at the camera (default
     the scene default). ``pid_seq`` [N, refmax] switches to path replay:
     the winners come from :func:`record_paths` and no search runs.
+    ``accel`` (an ``accel/octree.OctreeAccel``) serves the OCTREE search
+    and the transmission substance query.
     Returns the final RayState: LIGHT rays carry the inverse-square
     attenuation, EXHAUST rays are black. Under ``cfg.remat`` each bounce
     is recomputed in the backward instead of keeping its residuals; the
@@ -451,10 +488,10 @@ def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
         pid_b = None if pid_seq is None else pid_seq[:, b]
         if remat:
             state = checkpoint(_bounce, scene, cfg, state, rng, b, prows,
-                               pid_b, use_reentrant=False)
+                               pid_b, accel, use_reentrant=False)
         else:
             state = _bounce(scene, cfg, state, rng, b, prows,
-                            pid_override=pid_b)
+                            pid_override=pid_b, accel=accel)
 
     # alive after refmax bounces -> black (raytracer.ts:256-263)
     exhausted = state.status == int(RayStatus.ALIVE)

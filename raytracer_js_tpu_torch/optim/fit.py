@@ -6,7 +6,9 @@ A fit renders a batch of views per step (BASELINE config 5: 8 views) and
 differentiates either the search path or, with ``replay_every``, the
 search-free replay of recorded winners: kernel B5
 (``kernels/replay_grad``) on its class, autograd through
-``ops/trace.trace_rays(..., pid_seq=...)`` elsewhere.
+``ops/trace.trace_rays(..., pid_seq=...)`` elsewhere. The OCTREE backend
+searches an ``accel/octree.OctreeAccel``, rebuilt from the moving geometry
+every ``accel_every`` steps.
 """
 from __future__ import annotations
 
@@ -45,7 +47,12 @@ class FitConfig:
     #: recordings the winners go stale as geometry moves; replay_every=1 is
     #: the search path's gradient at every step.
     replay_every: int = 0
-    #: the OCTREE accel's rebuild period; not ported yet (ROADMAP A11)
+    #: the OCTREE accel's staleness policy: rebuild the octree from the
+    #: current geometry every N steps after the first (0 = never; the
+    #: accel then goes stale as geometry moves, which changes which prim
+    #: is found, never the gradient flow). The rebuild keeps the first
+    #: accel's shapes (``build_octree(like=...)``) and raises when the
+    #: geometry outgrows them
     accel_every: int = 0
     #: optimize the camera poses too: each camera's (pos, front, left, up)
     #: joins the params after the scene's float leaves; the triad gradient
@@ -111,8 +118,8 @@ def _view_rays(cam: Camera, v: int):
 
 
 def multiview_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
-                   targets: Tensor,
-                   seed: int = sampling.DEFAULT_SEED) -> Tensor:
+                   targets: Tensor, seed: int = sampling.DEFAULT_SEED,
+                   accel=None) -> Tensor:
     """Mean squared pixel loss over a view batch, through the search path.
 
     ``targets`` is [V, h*w, 3] (flattened per view).
@@ -121,7 +128,7 @@ def multiview_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     n_pix = 0
     for v, cam in enumerate(cameras):
         org, dirs, rid = _view_rays(cam, v)
-        colors = render_rays(scene, cfg, org, dirs, seed, rid)
+        colors = render_rays(scene, cfg, org, dirs, seed, rid, accel=accel)
         total = total + ((colors - targets[v]) ** 2).sum()
         n_pix += org.shape[0]
     return total / n_pix
@@ -129,14 +136,15 @@ def multiview_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
 
 @torch.no_grad()
 def record_views(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
-                 seed: int = sampling.DEFAULT_SEED) -> List[Tensor]:
+                 seed: int = sampling.DEFAULT_SEED,
+                 accel=None) -> List[Tensor]:
     """The winners per bounce of every view -> [pid_seq [h*w, refmax]]."""
     recs = []
     for v, cam in enumerate(cameras):
         org, dirs, rid = _view_rays(cam, v)
         refr0 = start_substance(scene, cam.pos).expand(org.shape[0])
         recs.append(record_paths(scene, cfg, org, dirs, seed, rid,
-                                 start_refr=refr0))
+                                 start_refr=refr0, accel=accel))
     return recs
 
 
@@ -173,15 +181,15 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     ``trainable(i, param)`` masks which params receive updates (by zeroing
     their gradients). A param the loss never reaches gets a zero gradient,
     as under ``jax.grad``. Step ``s`` draws its random numbers from
-    :func:`step_seed` ``(seed, s)``. ``mesh`` (ray-sharded fits) and
-    ``accel`` (the OCTREE backend) are not ported yet.
+    :func:`step_seed` ``(seed, s)``. ``accel`` (an
+    ``accel/octree.OctreeAccel`` of ``scene``) serves the OCTREE search of
+    the search and recording steps, and is rebuilt every
+    ``fit_cfg.accel_every`` steps. ``mesh`` (ray-sharded fits) is not
+    ported yet.
     """
     if mesh is not None:
         raise NotImplementedError("sharded fits over a device mesh are not "
                                   "ported yet (ROADMAP A13)")
-    if accel is not None or fit_cfg.accel_every:
-        raise NotImplementedError("the OCTREE accel and its rebuild policy "
-                                  "are not ported yet (ROADMAP A11)")
     if fit_cfg.replay_every and cfg.spp != 1:
         raise ValueError("replay_every requires spp == 1 (one recorded "
                          "structure per ray)")
@@ -219,15 +227,25 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     losses = []
     recs = None
     for step in range(start_step, fit_cfg.steps):
+        if (accel is not None and fit_cfg.accel_every
+                and step > start_step
+                and (step - start_step) % fit_cfg.accel_every == 0):
+            from ..accel.octree import build_octree
+            from ..config import OctreeConfig
+
+            accel = build_octree(
+                rebuild_scene([p.detach() for p in params[:n_scene]]),
+                OctreeConfig(max_depth=accel.max_depth), l_cut=accel.l_cut,
+                like=accel)
         k = step_seed(seed, step)
         opt.zero_grad(set_to_none=True)
         sc, cams = rebuild_all(params)
         if fit_cfg.replay_every:
             if (step - start_step) % fit_cfg.replay_every == 0:
-                recs = record_views(sc, cfg, cams, k)
+                recs = record_views(sc, cfg, cams, k, accel=accel)
             loss = replay_loss(sc, cfg, cams, targets, recs, k)
         else:
-            loss = multiview_loss(sc, cfg, cams, targets, k)
+            loss = multiview_loss(sc, cfg, cams, targets, k, accel=accel)
         loss.backward()
         with torch.no_grad():
             grads = [torch.zeros_like(p) if p.grad is None else p.grad

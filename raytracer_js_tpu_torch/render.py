@@ -9,8 +9,9 @@ wavefronts go through the wavefront kernel; scenes outside the fused class
 PALLAS backend runs the wavefront loop with kernels B3/B4 as its search.
 TILED renders through ``render_tiled`` (kernels B7 and B6); TILED requests
 on scenes of at most ``TILED_MIN_PRIMS`` prims without cached tables, and
-on BOTH scenes, go to PALLAS. OCTREE without an accel takes the dense
-search, as BRUTE does. This is the reference's dispatch.
+on BOTH scenes, go to PALLAS. OCTREE searches with the octree's grid DDA
+when given an ``accel`` (``accel/octree.build_octree``), else densely, as
+BRUTE does. This is the reference's dispatch.
 """
 from __future__ import annotations
 
@@ -73,10 +74,12 @@ def _average(one, spp: int, stochastic: bool) -> Tensor:
 
 def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
                 seed: int = sampling.DEFAULT_SEED,
-                ray_id: Optional[Tensor] = None) -> Tensor:
+                ray_id: Optional[Tensor] = None, accel=None) -> Tensor:
     """Trace a flat wavefront, averaging ``cfg.spp`` samples -> [N, 3] HDR.
 
     Sample s of ray i draws from the stream (seed, ray_id[i]*spp + s).
+    ``accel`` (the octree) serves the OCTREE search and the transmission
+    substance query of the wavefront loop.
     """
     from .kernels import trace_fused
 
@@ -107,7 +110,7 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     def one_sample(s):
         return trace_mod.trace_rays(scene, cfg, org, dir, seed,
                                     ray_id * cfg.spp + s,
-                                    start_refr=refr0).color
+                                    start_refr=refr0, accel=accel).color
 
     return _average(one_sample, cfg.spp, True)
 
@@ -120,16 +123,14 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     ``tables`` — cached TILED candidate tables
     (``render_tiled.frame_tables(scene, camera)``); without them TILED
-    builds them on the host per call. OCTREE renders with the dense search
-    (the reference's path without an accel); ``accel`` (the octree itself)
-    is not ported and raises. FUSED and TILED raise on inputs that require
-    grad.
+    builds them on the host per call. ``accel`` — an
+    ``accel/octree.OctreeAccel`` of this scene: OCTREE searches with its
+    grid DDA (without it, densely, the reference's path), and the
+    transmission substance query of the wavefront loop and of TILED uses
+    its grid. FUSED and TILED raise on inputs that require grad.
     """
     from .kernels import trace_fused
 
-    if accel is not None:
-        raise NotImplementedError("the octree accel= is not ported yet "
-                                  "(ROADMAP A11)")
     if cfg.backend == HitBackend.TILED and (
             (scene.n_prims <= TILED_MIN_PRIMS and tables is None)
             or scene.has_both):
@@ -153,7 +154,7 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
 
         def one_tiled(s):
             return frame(scene, cfg, camera, tables=tables, seed=seed,
-                         sample=s)
+                         sample=s, accel=accel)
 
         return _average(one_tiled, cfg.spp, _stochastic(scene, cfg))
     if cfg.backend == HitBackend.FUSED and trace_fused.supports_frame(scene):
@@ -169,7 +170,7 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
 
         return _average(one_frame, cfg.spp, _stochastic(scene, cfg))
     org, dir = pixel_rays(camera)
-    colors = render_rays(scene, cfg, org, dir, seed)
+    colors = render_rays(scene, cfg, org, dir, seed, accel=accel)
     return colors.reshape(camera.h, camera.w, 3)
 
 

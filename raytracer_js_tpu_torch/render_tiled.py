@@ -28,8 +28,10 @@ attenuation) are applied at the end (:func:`_epilogue`). Image textures,
 image and cube-map skies (:func:`_apply_images`), rough scatter and
 refraction (:func:`_respawn_glue`) ride the glue between the kernels.
 
-What raises: the octree ``accel=`` (not ported, ROADMAP A11); inputs that
-require grad (the kernels return detached values, so a loss would get
+The octree ``accel=`` (``accel/octree``) serves the transmission substance
+query of the glue and of the sweep and rescue rounds: without it the query
+is dense, [rays, prims] per call, which does not fit the card at 100k prims
+and a full frame. What raises: inputs that require grad (the kernels return detached values, so a loss would get
 partial gradients); and BOTH scenes with ``fresnel_both`` (the kernels have
 no Fresnel split; ``render_hdr`` sends BOTH scenes to PALLAS). The
 reference's ``RT_*`` environment knobs are module constants here.
@@ -192,15 +194,15 @@ def _apply_images(scene: Scene, colors, dirs, status, prev_alive, pid, u, v):
 
 
 def _respawn_glue(scene: Scene, seed, rid, bounce, refr, org, dirs, status,
-                  pid, t, nrm):
+                  pid, t, nrm, accel=None):
     """Rough-scatter and transmission continuations for one bounce, as
     ``ops/trace._bounce`` does them: the kernel reflects mirror winners and
     leaves transmission winners (mode 3) untouched. Rough mirror winners get
     the counter-RNG scatter (same (seed, rid, bounce) streams as every
     backend), re-advancing the origin; transmission winners advance along
     the old direction, query the innermost containing substance and refract
-    (Snell + TIR). ``nrm`` is the flipped winner normal. Returns ``(org,
-    dirs, refr)``."""
+    (Snell + TIR); ``accel`` (the octree) serves the substance query.
+    ``nrm`` is the flipped winner normal. Returns ``(org, dirs, refr)``."""
     from .config import EPS_ADVANCE, ResponseType
     from .ops.trace import substance_refr_at
     from .ops.vecmath import refract
@@ -224,7 +226,8 @@ def _respawn_glue(scene: Scene, seed, rid, bounce, refr, org, dirs, status,
         is_t = cont & (resp == int(ResponseType.TRANSMISSION))
         hit = org + t[:, None] * dirs
         adv = hit + EPS_ADVANCE * dirs
-        target, do_refract = substance_refr_at(scene, adv, refr)
+        target, do_refract = substance_refr_at(scene, adv, refr,
+                                               accel=accel)
         eta = refr / torch.clamp(target, min=1e-6)
         refr_dir, _tir = refract(dirs, nrm, eta)
         new_dir = torch.where(do_refract[:, None], refr_dir, dirs)
@@ -364,7 +367,8 @@ def _epilogue(cr, cg, cb, path, status, atten: float):
 
 
 def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
-                  rid, prows, cap: int, sweep_tab=None, rec=None):
+                  rid, prows, cap: int, sweep_tab=None, rec=None,
+                  accel=None):
     """One sweep round: sort the still-working rays to the front in
     (position cell, direction bin) order, search the first ``cap`` of them
     (with ``sweep_tab``, the :func:`_sweep_perm` tables: B6 listed per
@@ -377,8 +381,9 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
 
     ``flat`` holds the 11 state columns [n]; ``bounce``/``refr`` [n];
     ``rec`` ([n, refmax] i32, -1-initialized) switches on path recording:
-    each resolved ray's winner is written at its bounce column. Returns the
-    updated ``(flat, bounce, refr, rec)``.
+    each resolved ray's winner is written at its bounce column; ``accel``
+    serves the substance query. Returns the updated ``(flat, bounce, refr,
+    rec)``.
     """
     from .kernels.nearest_hit import nearest_hit_pallas
     from .ops.trace import RayState, _bounce
@@ -441,7 +446,7 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
                       sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
     rng = (seed, rid_s[:cap]) if scene.has_rough else None
     out = _bounce(scene, cfg, st, rng, bounce_s[:cap], prows,
-                  pid_override=pid)
+                  pid_override=pid, accel=accel)
     cont = work_sl & (out.status == _ALIVE)
     status_out = torch.where(out.status == _CAP, _ALIVE, out.status).to(
         torch.int32)
@@ -472,7 +477,8 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
 
 
 def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
-                  rng=None, fine_key: bool = False, grid=None):
+                  rng=None, fine_key: bool = False, grid=None,
+                  accel=None):
     """One packet round: sort the live rays into coherent packets, build
     each packet's candidate table, advance every ray its table resolves
     (B7-wave), march the unresolved ones, and un-sort.
@@ -482,7 +488,8 @@ def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
     clear horizon. ``rng`` = (seed, rid, bounce, refr) for rough or
     transmission scenes. ``fine_key`` bins by fine Morton position first
     (retry rounds). ``grid`` is :func:`frame_tables`' cell grid (None: the
-    rowwise tables of ``c_max`` rows). Only the segments of
+    rowwise tables of ``c_max`` rows); ``accel`` serves the glue's
+    substance query. Only the segments of
     ``SEG_PACKETS`` packets that hold a live ray are worked (live rays sort
     to the front): the reference's per-segment ``lax.cond`` as a host loop
     over the live prefix, one sync a round. Returns (cols, t_done,
@@ -558,7 +565,7 @@ def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
             org2, dir2, refr_o[i0:i1] = _respawn_glue(
                 scene, seed, rid_s[i0:i1], bounce_s[i0:i1], refr_s[i0:i1],
                 torch.stack(fl[0:3], -1), torch.stack(fl[3:6], -1), fl[10],
-                pid_seg, outs["t"].reshape(-1), nrm)
+                pid_seg, outs["t"].reshape(-1), nrm, accel=accel)
             fl[0:3] = [org2[:, 0], org2[:, 1], org2[:, 2]]
             fl[3:6] = [dir2[:, 0], dir2[:, 1], dir2[:, 2]]
         for f, a in zip(new_flat, fl):
@@ -597,13 +604,10 @@ def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
 
 
 
-def _refuse(scene: Scene, cfg: RenderConfig, cam, accel) -> None:
+def _refuse(scene: Scene, cfg: RenderConfig, cam) -> None:
     """What the TILED frame does not render raises (module docstring)."""
     from .render import refuse_grad
 
-    if accel is not None:
-        raise NotImplementedError("the octree accel= is not ported yet "
-                                  "(ROADMAP A11)")
     refuse_grad(scene, cam.pos, cam.front, cam.left, cam.up, backend="TILED")
     if scene.has_both and cfg.fresnel_both:
         raise ValueError("the TILED kernels have no Fresnel-BOTH split: "
@@ -636,11 +640,13 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
     3-tuple without the cell grid makes packet rounds select rowwise,
     ``packet_c_max`` rows a packet). ``seed``/``sample`` key the
     counter-RNG streams of rough scenes (rid = (y*w + x)*spp + sample, as
-    every backend).
+    every backend). ``accel`` — the scene's ``accel/octree.OctreeAccel``:
+    the transmission substance query searches its grid instead of every
+    prim (the same answers).
     """
     from .render import start_substance
 
-    _refuse(scene, cfg, cam, accel)
+    _refuse(scene, cfg, cam)
     if seed is None:
         seed = sampling.DEFAULT_SEED
     if tables is None:
@@ -677,7 +683,8 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
             torch.stack([flat["ox"], flat["oy"], flat["oz"]], -1),
             torch.stack([flat["dx"], flat["dy"], flat["dz"]], -1),
             flat["status"], flat["pid"], flat["t"],
-            torch.stack([flat["nx"], flat["ny"], flat["nz"]], -1))
+            torch.stack([flat["nx"], flat["ny"], flat["nz"]], -1),
+            accel=accel)
         flat.update(ox=org0[:, 0], oy=org0[:, 1], oz=org0[:, 2],
                     dx=dir0[:, 0], dy=dir0[:, 1], dz=dir0[:, 2])
 
@@ -715,7 +722,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
                 rng = (seed, rid, bounce, refr) if need_glue else None
                 cols, t_done, res_hit, refr, pid_o = packet_bounce(
                     scene, cols, c_round, t_done, rng=rng, fine_key=fine,
-                    grid=grid)
+                    grid=grid, accel=accel)
                 if rec is not None:
                     # the winner goes to the pre-increment bounce column
                     col = torch.arange(cfg.refmax, device=dev)
@@ -734,7 +741,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
         while rounds < max_rounds and bool(working(cols, bounce).any()):
             cols, bounce, refr, rec = _rescue_round(
                 scene, cfg, cols, bounce, refr, seed, rid, prows, cap=cap,
-                sweep_tab=sweep_tab, rec=rec)
+                sweep_tab=sweep_tab, rec=rec, accel=accel)
             rounds += 1
         unresolved = working(cols, bounce).sum().to(torch.int32)
     cr, cg, cb, _ = _epilogue(cols[6], cols[7], cols[8], cols[9], cols[10],
@@ -757,12 +764,13 @@ def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
     search runs on the twin with ``with_record=True`` and the real scene is
     shaded once with ``ops/trace.trace_rays(pid_seq=rec)``: the same
     winners, RNG streams (seed, rid, bounce), substance chains and paths.
+    ``accel`` serves the substance query of both passes.
     """
     from .models.camera import pixel_rays
     from .ops.trace import trace_rays
     from .render import start_substance
 
-    _refuse(scene, cfg, cam, accel)
+    _refuse(scene, cfg, cam)
     tex = scene.textures
     twin = dataclasses.replace(
         scene, textures=dataclasses.replace(
@@ -780,7 +788,7 @@ def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
     st = trace_rays(scene, dataclasses.replace(cfg, backend=HitBackend.BRUTE),
                     org, dirs,
                     sampling.DEFAULT_SEED if seed is None else seed, rid,
-                    start_refr=refr0, pid_seq=rec)
+                    start_refr=refr0, pid_seq=rec, accel=accel)
     img = st.color.reshape(cam.h, cam.w, 3)
     return (img, diag) if with_diag else img
 

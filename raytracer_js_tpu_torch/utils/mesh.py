@@ -67,3 +67,12 @@ def grid_plane(nx: int, ny: int, size: float = 1.0,
             b = a + (ny + 1)
             faces += [[a, b, a + 1], [b, b + 1, a + 1]]
     return verts, np.asarray(faces, np.int32)
+
+
+def mesh_stats(verts: np.ndarray, faces: np.ndarray) -> dict:
+    """Vertex and triangle counts and the total surface area."""
+    e = verts[faces]
+    n = np.cross(e[:, 1] - e[:, 0], e[:, 2] - e[:, 0])
+    area = 0.5 * np.linalg.norm(n, axis=1)
+    return {"n_verts": int(verts.shape[0]), "n_tris": int(faces.shape[0]),
+            "area": float(area.sum())}

@@ -7,6 +7,7 @@ numbers: with SGD at rtol 1e-5 (float32 reductions in another order), and
 with Adam only on camera-pose leaves, whose gradients stand far above
 rounding, at rtol 1e-4 (Adam's steps of about lr per entry amplify the
 gradients' last bits less than a noise-level entry would)."""
+import dataclasses
 import sys
 
 import jax
@@ -145,16 +146,27 @@ def test_fit_cameras_matches_reference():
 
 
 def test_fit_refuses_what_is_not_ported():
+    """The device mesh (ROADMAP A13) raises; the OCTREE accel and its
+    rebuild policy run: ``accel_every`` without an accel changes nothing,
+    and the fit through the octree follows the dense one."""
     ps = to_port_scene(color_scene((0.5, 0.5, 0.5)))
     cams = [to_port_camera(make_camera((0, 0, 0), 4, 4, 1.5, 1.5))]
     tgt = torch.zeros((1, 16, 3))
     cfg = to_port_cfg(RenderConfig(refmax=1))
     with pytest.raises(NotImplementedError, match="A13"):
         fit(ps, cfg, cams, tgt, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        fit(ps, cfg, cams, tgt, accel=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        fit(ps, cfg, cams, tgt, FitConfig(accel_every=2))
+    fc = FitConfig(steps=3, lr=1e-2)
+    dense = fit(ps, cfg, cams, tgt, fc)
+    assert fit(ps, cfg, cams, tgt, FitConfig(steps=3, lr=1e-2,
+                                             accel_every=2)).losses \
+        == dense.losses
+    from raytracer_js_tpu_torch import HitBackend, OctreeConfig
+    from raytracer_js_tpu_torch.accel.octree import build_octree
+
+    octree = fit(ps, dataclasses.replace(cfg, backend=HitBackend.OCTREE),
+                 cams, tgt, FitConfig(steps=3, lr=1e-2, accel_every=2),
+                 accel=build_octree(ps, OctreeConfig(max_depth=2)))
+    np.testing.assert_allclose(octree.losses, dense.losses, rtol=1e-5)
     with pytest.raises(ValueError, match="spp == 1"):
         fit(ps, to_port_cfg(RenderConfig(refmax=1, spp=2)), cams, tgt,
             FitConfig(replay_every=1))
@@ -230,3 +242,47 @@ def test_fit_resume_bit_exact(tmp_path):
                     float_partition(full.scene)[0]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert ckpt.latest(d).stem == "ckpt_8"
+
+
+@pytest.mark.parametrize("trans,replay_every", [(True, 0), (False, 2)])
+def test_fit_accel_rebuild_matches_reference(trans, replay_every,
+                                             monkeypatch):
+    """``fit(accel=..., accel_every=2)`` on the OCTREE backend: SGD losses
+    and leaves as the reference's fit with its accel, and the octree
+    rebuilt (shape-pinned) at the same steps."""
+    from raytracer_js_tpu.accel import octree as jo
+    from raytracer_js_tpu.config import HitBackend as JB
+    from raytracer_js_tpu.config import OctreeConfig as JOctreeConfig
+    from raytracer_js_tpu_torch.accel import octree as po
+    from raytracer_js_tpu_torch.config import OctreeConfig
+
+    js = replay_scene(trans=trans)
+    cfg = RenderConfig(refmax=2, backend=JB.OCTREE)
+    cams = [make_camera((0.0, 0.0, 0.5), 12, 12, np.pi / 2, np.pi / 2)]
+    targets = np.full((1, 144, 3), 0.1, np.float32)
+    fc = dict(steps=5, lr=1e-2, optimizer="sgd", accel_every=2,
+              replay_every=replay_every)
+    built = {"jax": [], "port": []}
+
+    def counting(name, real):
+        def build(scene, *a, **kw):
+            built[name].append(kw.get("like") is not None)
+            return real(scene, *a, **kw)
+        return build
+
+    monkeypatch.setattr(jo, "build_octree", counting("jax", jo.build_octree))
+    monkeypatch.setattr(po, "build_octree", counting("port", po.build_octree))
+    want = j_fit(js, cfg, cams, jnp.asarray(targets), JFitConfig(**fc),
+                 key=jax.random.key(1),
+                 accel=jo.build_octree(js, JOctreeConfig(max_depth=3)))
+    ps = to_port_scene(js)
+    got = fit(ps, to_port_cfg(cfg), [to_port_camera(c) for c in cams],
+              torch.as_tensor(targets), FitConfig(**fc),
+              accel=po.build_octree(ps, OctreeConfig(max_depth=3)))
+    # the first build, then rebuilds with like= at steps 2 and 4
+    assert built["port"] == built["jax"] == [False, True, True]
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    assert got.losses[-1] < got.losses[0]
+    for g, w in zip(float_partition(got.scene)[0], j_partition(want.scene)[0]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)

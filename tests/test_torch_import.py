@@ -33,6 +33,19 @@ hdr = rt.render_hdr(scene, cam, rt.RenderConfig(
 ldr = view.draw(exposure.accumulate(exposure.new_exposure_buffer(8, 8, device="cpu"), hdr),
                 rt.ToneMapConfig())
 assert tuple(hdr.shape) == (8, 8, 3) and bool(torch.isfinite(hdr).all())
+from raytracer_js_tpu_torch import native
+from raytracer_js_tpu_torch.accel.octree import build_octree
+assert native.available(), native.build_error()
+b = rt.SceneBuilder()
+b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+m = b.add_material(rt.ResponseType.REFLECTION, mirror=True)
+for k in range(6):
+    b.add_sphere((4, k - 2.5, 0), 0.3, m, b.add_solid_texture((.9, .2, .1)))
+scene_o = b.build(device="cpu")
+accel = build_octree(scene_o, rt.OctreeConfig(max_depth=3))
+img = rt.render_hdr(scene_o, cam, rt.RenderConfig(
+    refmax=3, backend=rt.HitBackend.OCTREE), accel=accel)
+assert bool(torch.isfinite(img).all()) and accel.cell_ids.numel() > 0
 from raytracer_js_tpu_torch.kernels import nearest_hit
 b = rt.SceneBuilder(atlas_hw=(8, 8))
 b.set_sky_box([b.add_image_texture(np.full((8, 8, 3), k / 6, np.float32))

@@ -108,9 +108,9 @@ def _many_spheres(n):
 
 @pytest.mark.parametrize("backend", ["PALLAS", "OCTREE", "TILED"])
 def test_unported_backends_raise(backend):
-    """What each backend does not port yet raises, naming its ROADMAP item
-    (OCTREE's ``accel=``), and what was ported since runs: OCTREE without
-    an accel (the dense search, as the reference falls back), PALLAS's
+    """What each backend ported runs: OCTREE without an accel (the dense
+    search, as the reference falls back) and with one (the grid DDA, the
+    dense frame to rtol 1e-5), PALLAS's
     listed and culled variants (B6, B8) and TILED on scenes above
     ``TILED_MIN_PRIMS`` (kernels B7 and B6; smaller ones render on
     PALLAS)."""
@@ -140,8 +140,13 @@ def test_unported_backends_raise(backend):
         org, d = rays(pc)
         assert torch.equal(p_render_rays(ps, cfg, org, d),
                            brute.reshape(-1, 3))
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            rt.render_hdr(ps, pc, cfg, accel=object())
+        from raytracer_js_tpu_torch.accel.octree import build_octree
+
+        accel = build_octree(ps, rt.OctreeConfig(max_depth=3))
+        img = rt.render_hdr(ps, pc, cfg, accel=accel)
+        torch.testing.assert_close(img, brute, rtol=1e-5, atol=1e-6)
+        assert torch.equal(p_render_rays(ps, cfg, org, d, accel=accel),
+                           img.reshape(-1, 3))
     else:
         big = _many_spheres(TILED_MIN_PRIMS + 1)
         img = rt.render_hdr(big, pc, cfg)

@@ -330,17 +330,21 @@ def test_tiled_refuses_fresnel_both():
 
 
 def test_unported_tiled_parts_raise(monkeypatch):
-    """What the TILED path does not port yet raises, naming its ROADMAP
-    item: the octree ``accel=``. (The in-kernel cone cull and packet mode
-    are ported: ``test_torch_culled.py``, ``test_torch_packet*.py``.) The
-    frame kernel's launcher refuses CPU tensors."""
+    """The TILED path has no unported part left: the octree ``accel=``
+    renders (its substance query is the dense one's; the frame is the
+    frame without it). The frame kernel's launcher refuses CPU
+    tensors."""
+    from raytracer_js_tpu_torch.accel.octree import build_octree
+
     ps = to_port_scene(_tiny_scene())
     pc = to_port_camera(make_camera((0, 0, 0.5), 16, 8, 1.0, 0.5))
     cfg = prt.RenderConfig(refmax=2, backend=prt.HitBackend.TILED)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        prtl.render_frame_tiled(ps, cfg, pc, accel=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        prt.render_hdr(ps, pc, cfg, accel=object())
+    accel = build_octree(ps, prt.OctreeConfig(max_depth=2))
+    plain = prtl.render_frame_tiled(ps, cfg, pc)
+    assert torch.equal(prtl.render_frame_tiled(ps, cfg, pc, accel=accel),
+                       plain)
+    assert torch.equal(prt.render_hdr(ps, pc, cfg, accel=accel),
+                       prt.render_hdr(ps, pc, cfg))
     tab, cnts, c_max, _ = prtl.frame_tables(ps, pc)
     ca = tt._cam_array(pc, ps.textures.solid_rgb[ps.sky_tex],
                        *tt._scene_bbox(ps))
