@@ -150,6 +150,35 @@ Phases, one JSON line each:
                 OCTREE fit (4 views of the headline at 128x128, 4 SGD
                 steps, ``accel_every=2``) against the same fit on the CPU:
                 losses to rtol 1e-4, one rebuild each.
+ 9g. main-sharded, one rank — a one-rank NCCL group (``parallel.distributed.
+                init_distributed``, ``file://`` rendezvous), counters reset
+                before each path: ``render_hdr_sharded`` on the headline
+                (FUSED: B2 on the rank's slice) equal to ``render_rays``
+                FUSED bit for bit and held to ``render_hdr`` FUSED (B1) by
+                the frame-vs-wavefront ULP rule; config 3 sharded (B4) equal
+                to the unsharded frame; ``sharded_fit_step`` on a headline
+                view (B3) equal to the unsharded ``value_and_grad`` within
+                float32 sum order; ``fit(mesh=...)`` on config 5's cut (8
+                headline views at 1920x1088, PALLAS, ``replay_every=1``, 2
+                SGD steps: B3 records, B5 replays) with the unsharded fit's
+                losses to 1e-6; ``dryrun_multichip``.
+ 9h. main-sharded, two ranks — two processes (``torch.multiprocessing``
+                spawn) in a gloo group on the one card (NCCL refuses two
+                ranks on one device), CUDA tensors: the headline frame
+                sharded equal to one process bit for bit, the 8-view fit's
+                losses those of one process to rtol 1e-5, the ranks' params
+                equal; B2, B3 and B5 launched on each rank. A rank that
+                fails or outlives ``GLOO_JOIN_S`` fails the phase.
+ 9i. main-A9  — ``view.progressive_render`` on the headline at 1920x1088,
+                FUSED, 4 frames: B1 4 times, equal to the port's own loop of
+                ``render_hdr`` with ``step_seed(seed, f)`` and
+                ``accumulate``; ``demo.main`` at 128x128 (4 frames, then
+                ``--orbit 2``) on the card (BRUTE, the reference's
+                ``refmax=4`` config): the images written.
+     times (sharded) — the sharded headline frame at one rank against
+                ``render_rays`` FUSED, the all-reduce of a config-5 fit
+                step's gradients at one rank (NCCL) and at two (gloo), and
+                the 8-view fit step sharded and unsharded (host clock).
  10. times    — CUDA-event medians of each kernel and its plain version at
                 the main paths' shapes; each kernel also alone, by the
                 profiler (``kernel_ms``; B1, B2, B3 and B5 with their
@@ -182,7 +211,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
+import multiprocessing.connection
 import pathlib
 import statistics
 import subprocess
@@ -192,12 +223,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as torch_mp
 
 import raytracer_js_tpu_torch as rt
 from raytracer_js_tpu_torch import (HitBackend, RenderConfig, ResponseType,
                                     SceneBuilder, ToneMapConfig,
                                     ToneMapperKind, make_camera)
-from raytracer_js_tpu_torch import native
+from raytracer_js_tpu_torch import demo, native
 from raytracer_js_tpu_torch.accel import candidates as cand
 from raytracer_js_tpu_torch.accel import octree
 from raytracer_js_tpu_torch.kernels import _build
@@ -211,7 +244,14 @@ from raytracer_js_tpu_torch.ops import trace as trace_mod
 from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED
 from raytracer_js_tpu_torch.ops.trace import record_paths, trace_rays
 from raytracer_js_tpu_torch.optim import FitConfig, fit
-from raytracer_js_tpu_torch.optim.fit import record_views, replay_loss
+from raytracer_js_tpu_torch.optim.fit import (record_views, replay_loss,
+                                              step_seed)
+from raytracer_js_tpu_torch.parallel import distributed as pdist
+from raytracer_js_tpu_torch.parallel.dryrun import dryrun_multichip
+from raytracer_js_tpu_torch.parallel.sharding import (all_reduce_sum,
+                                                       make_mesh,
+                                                       render_hdr_sharded,
+                                                       sharded_fit_step)
 from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
                                                        float_partition)
 from raytracer_js_tpu_torch import render_tiled as rtl
@@ -1867,6 +1907,293 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
           < r_dev.losses[0], f"OCTREE fit losses: {r_dev.losses}")
     return out
 
+# ---------------------------------------------------------------------------
+# Phases 9g-9i: ray sharding over torch.distributed, and the A9 entry points
+# ---------------------------------------------------------------------------
+
+#: the sharded fit of config 5's cut: 8 headline views, PALLAS (B3 records,
+#: B5 replays), SGD (world sizes sum in other orders: Adam's first step is
+#: lr x sign(g))
+SHARD_FIT = FitConfig(steps=2, lr=1e-2, optimizer="sgd", replay_every=1)
+#: seconds the two gloo ranks of 9h may take, start to exit
+GLOO_JOIN_S = 600
+
+
+def unsharded_step(scene, cfg, cam, target, seed):
+    """``value_and_grad`` of a view's global loss in one process."""
+    org, dirs = pixel_rays(cam)
+    params, rebuild = float_partition(scene)
+    params = [p.detach().requires_grad_(True) for p in params]
+    colors = render_rays(rebuild(params), cfg, org, dirs, seed)
+    loss = ((colors - target) ** 2).sum() / org.shape[0]
+    loss.backward()
+    return loss.detach(), [torch.zeros_like(p) if p.grad is None else p.grad
+                           for p in params]
+
+
+def fit_views(dev):
+    """Config 5's cut: the headline scene, its 8 views at 1920x1088 with
+    targets rendered FUSED, the start (perturbed colors and centers)."""
+    head = headline_scene(device=dev)
+    cams = fit_cameras(HEADLINE_W, HEADLINE_H, device=dev)
+    cfg_f = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+    targets = torch.stack([rt.render_hdr(head, c, cfg_f).reshape(-1, 3)
+                           for c in cams])
+    return head, cams, targets, perturbed(head)
+
+
+def gloo_rank(rank, world, rdv, out_dir):
+    """One rank of phase 9h: a gloo group whose ranks share the one card
+    (NCCL refuses two ranks on one device); the tensors are CUDA tensors.
+    Runs the headline frame sharded, the 8-view fit, and times the
+    all-reduce of a fit step's gradients; writes its results."""
+    ok = pdist.init_distributed(f"file://{rdv}", world, rank, device="cuda",
+                                backend="gloo", timeout_s=GLOO_JOIN_S)
+    assert ok and dist.get_backend() == "gloo"
+    try:
+        mesh = make_mesh()
+        _build.load()
+        cfg_f = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+        cfg_p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+        head, cams, targets, start = fit_views(mesh.device)
+        reset_launches()
+        img = render_hdr_sharded(mesh, head, headline_camera(mesh.device),
+                                 cfg_f)
+        torch.cuda.synchronize()
+        frame_launches = launches_now()
+        reset_launches()
+        res = fit(start, cfg_p, cams, targets, SHARD_FIT, mesh=mesh)
+        torch.cuda.synchronize()
+        fit_launches = launches_now()
+        grads = float_partition(start)[0]
+        ar = event_ms(lambda: all_reduce_sum(mesh, grads))
+        ar_host = host_median_ms(lambda: all_reduce_sum(mesh, grads),
+                                 warmup=3, timed=TIMED)
+        torch.save({"img": img.cpu(), "losses": res.losses,
+                    "frame_launches": frame_launches,
+                    "fit_launches": fit_launches, "allreduce_ms": ar,
+                    "allreduce_host_ms": ar_host,
+                    "device": str(img.device),
+                    "params": [p.cpu() for p in
+                               float_partition(res.scene)[0]]},
+                   pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(dev, head, head_cam, c3, c3_cam) -> dict:
+    """Phases 9g and 9h (module docstring): a one-rank NCCL group, then two
+    gloo ranks on the card. Returns the times of the ``times`` line."""
+    cfg_f = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+    cfg_p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    cfg_c3 = RenderConfig(refmax=3, backend=HitBackend.PALLAS)
+    org, dir = pixel_rays(head_cam)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ok = pdist.init_distributed(f"file://{tmp}/rdv", 1, 0, device=dev,
+                                    timeout_s=300)
+        check(ok and dist.get_backend() == "nccl",
+              "the one-rank group is not NCCL")
+        try:
+            mesh = make_mesh()
+            topo = pdist.topology_summary(mesh)
+            # (a) the headline frame: B2 on the rank's slice
+            reset_launches()
+            img = render_hdr_sharded(mesh, head, head_cam, cfg_f)
+            torch.cuda.synchronize()
+            la = launches_now()
+            wave = render_rays(head, cfg_f, org, dir).reshape(img.shape)
+            frame = rt.render_hdr(head, head_cam, cfg_f)
+            off = ~torch.isclose(img, frame, rtol=1e-4, atol=1e-5).all(-1)
+            # (b) config 3 through B4
+            reset_launches()
+            img3 = render_hdr_sharded(mesh, c3, c3_cam, cfg_c3)
+            torch.cuda.synchronize()
+            la3 = launches_now()
+            one3 = rt.render_hdr(c3, c3_cam, cfg_c3)
+            # (c) the sharded fit step on a headline view (B3 searches)
+            _, cams, targets, start = fit_views(dev)
+            reset_launches()
+            loss, grads = sharded_fit_step(mesh, start, cfg_p, cams[0],
+                                           targets[0], DEFAULT_SEED)
+            torch.cuda.synchronize()
+            la_step = launches_now()
+            loss_1, grads_1 = unsharded_step(start, cfg_p, cams[0],
+                                             targets[0], DEFAULT_SEED)
+            grad_err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                           for a, b in zip(grads, grads_1))
+            grads_ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                           for a, b in zip(grads, grads_1))
+            # (d) config 5's cut: the 8-view fit, B3 records, B5 replays
+            reset_launches()
+            r_mesh = fit(start, cfg_p, cams, targets, SHARD_FIT, mesh=mesh)
+            torch.cuda.synchronize()
+            la_fit = launches_now()
+            r_one = fit(start, cfg_p, cams, targets, SHARD_FIT)
+            fit_s = {"one": [], "mesh": []}
+            for turn in ("one", "mesh", "mesh", "one"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fit(start, cfg_p, cams, targets, SHARD_FIT,
+                    mesh=mesh if turn == "mesh" else None)
+                torch.cuda.synchronize()
+                fit_s[turn].append((time.perf_counter() - t0) * 1e3
+                                   / SHARD_FIT.steps)
+            # (e) the dry run
+            dry = dryrun_multichip(mesh)
+            times.update(
+                sharded_frame_w1_ms=spread(event_ms(
+                    lambda: render_hdr_sharded(mesh, head, head_cam, cfg_f))),
+                render_rays_fused_ms=spread(event_ms(
+                    lambda: render_rays(head, cfg_f, org, dir))),
+                allreduce_grads_w1_nccl_ms=spread(event_ms(
+                    lambda: all_reduce_sum(mesh, grads))),
+                allreduce_grads_w1_nccl_host_ms=host_median_ms(
+                    lambda: all_reduce_sum(mesh, grads), warmup=3,
+                    timed=TIMED),
+                allreduce_bytes=sum(g.numel() * 4 for g in grads) + 4,
+                fit_step_sharded_w1_host_ms=fit_s["mesh"],
+                fit_step_unsharded_host_ms=fit_s["one"])
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    rows = SHARD_FIT.steps * len(cams)
+    emit(phase="main-sharded", world_size=1, backend=backend, topology=topo,
+         frame_launches=la, frame_equal_render_rays=bool(torch.equal(
+             img, wave)), frame_vs_render_hdr_pixels_off=int(off.sum()),
+         config3_launches=la3, config3_equal=bool(torch.equal(img3, one3)),
+         fit_step_launches=la_step, fit_step_loss=float(loss),
+         fit_step_loss_unsharded=float(loss_1),
+         fit_step_grad_max_abs_err=grad_err, fit_launches=la_fit,
+         fit_losses=r_mesh.losses, fit_losses_unsharded=r_one.losses,
+         dryrun_losses=list(dry), device=str(img.device))
+    check(img.device.type == "cuda", "the sharded frame is not on the GPU")
+    check(la["rays"] == 1 and la["frame"] == 0,
+          f"the sharded headline frame did not run B2 once: {la}")
+    check(torch.equal(img, wave), "the sharded frame differs from "
+          "render_rays FUSED")
+    check(int(off.sum()) <= parity.MAX_FLIP_FRAC * off.numel(),
+          "the sharded frame and render_hdr FUSED disagree beyond ULP noise")
+    check(la3["dense"] == cfg_c3.refmax, f"config 3 sharded did not search "
+          f"with B4 once a bounce: {la3}")
+    check(torch.equal(img3, one3), "config 3 sharded differs from the "
+          "unsharded frame")
+    check(la_step["scalar"] == cfg_p.refmax, f"the sharded fit step did not "
+          f"search with B3: {la_step}")
+    check(abs(float(loss) - float(loss_1)) <= 1e-6 * abs(float(loss_1))
+          and grads_ok, "sharded_fit_step differs from value_and_grad")
+    check(la_fit["scalar"] == rows * cfg_p.refmax
+          and la_fit["fwd"] == rows and la_fit["bwd"] == rows,
+          f"the sharded fit did not record with B3 and replay with B5: "
+          f"{la_fit}")
+    check(np.allclose(r_mesh.losses, r_one.losses, rtol=1e-6, atol=0.0),
+          "the sharded fit's losses differ from the unsharded fit's")
+    check(all(np.isfinite(dry)), f"dryrun_multichip: {dry}")
+
+    # 9h: two gloo ranks on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch_mp.get_context("spawn")
+        procs = [ctx.Process(target=gloo_rank, args=(r, 2, f"{tmp}/rdv",
+                                                     tmp)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + GLOO_JOIN_S
+        try:
+            while any(p.is_alive() for p in procs):
+                left = deadline - time.monotonic()
+                if left <= 0 or any(p.exitcode not in (None, 0)
+                                    for p in procs):
+                    break
+                multiprocessing.connection.wait(
+                    [p.sentinel for p in procs if p.is_alive()],
+                    timeout=min(left, 1.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"the gloo ranks exited {codes} (a negative "
+              f"code is a kill; limit {GLOO_JOIN_S} s)")
+        ranks = [torch.load(pathlib.Path(tmp) / f"rank{r}.pt",
+                            weights_only=False) for r in range(2)]
+    wall_s = time.perf_counter() - t0
+    emit(phase="main-sharded", world_size=2, backend="gloo",
+         seconds=wall_s, devices=[r["device"] for r in ranks],
+         frame_launches=[r["frame_launches"] for r in ranks],
+         fit_launches=[r["fit_launches"] for r in ranks],
+         fit_losses=[r["losses"] for r in ranks],
+         fit_losses_one_process=r_one.losses)
+    wave_cpu = wave.cpu()
+    for r in ranks:
+        check(r["device"].startswith("cuda"), "a gloo rank was not on the GPU")
+        check(torch.equal(r["img"], wave_cpu), "the two-rank frame differs "
+              "from one process")
+        check(r["frame_launches"]["rays"] == 1,
+              f"a gloo rank did not run B2: {r['frame_launches']}")
+        check(r["fit_launches"]["fwd"] == rows
+              and r["fit_launches"]["bwd"] == rows
+              and r["fit_launches"]["scalar"] == rows * cfg_p.refmax,
+              f"a gloo rank did not record with B3 and replay with B5: "
+              f"{r['fit_launches']}")
+        check(np.allclose(r["losses"], r_one.losses, rtol=1e-5, atol=0.0),
+              "the two-rank fit's losses differ from one process's")
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and all(torch.equal(a, b) for a, b in zip(ranks[0]["params"],
+                                                    ranks[1]["params"])),
+          "the two ranks' fits are not replicated")
+    times.update(allreduce_grads_w2_gloo_ms=[
+        spread(r["allreduce_ms"]) for r in ranks],
+        allreduce_grads_w2_gloo_host_ms=[r["allreduce_host_ms"]
+                                         for r in ranks])
+    return times
+
+
+def a9_phase(dev, head, head_cam) -> dict:
+    """Phase 9i (module docstring): progressive_render FUSED and the demo."""
+    cfg_f = RenderConfig(refmax=2, backend=HitBackend.FUSED)
+    tone = ToneMapConfig(kind=ToneMapperKind.STDDEV_AROUND_MEAN)
+    reset_launches()
+    out = view.progressive_render(head, head_cam, cfg_f, tone, frames=4)
+    torch.cuda.synchronize()
+    la = launches_now()
+    buf = exposure.new_exposure_buffer(head_cam.h, head_cam.w, device=dev)
+    for f in range(4):
+        buf = exposure.accumulate(buf, rt.render_hdr(
+            head, head_cam, cfg_f, seed=step_seed(DEFAULT_SEED, f)))
+    loop = view.draw(buf, tone)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("frames", []), ("orbit", ["--orbit", "2"])):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                rc = demo.main(["--size", "128", "--frames", "4", "--out",
+                                f"{tmp}/{name}.png", *extra])
+            files = sorted(pathlib.Path(tmp).glob(f"{name}*"))
+            imgs = [np.load(f) if f.suffix == ".npy" else None
+                    for f in files]
+            runs[name] = dict(rc=rc, stdout=log.getvalue().strip(),
+                              files=[f.name for f in files],
+                              bytes=[f.stat().st_size for f in files],
+                              shapes=[list(i.shape) for i in imgs
+                                      if i is not None])
+    emit(phase="main-A9", progressive_launches=la,
+         progressive_equal_loop=bool(torch.equal(out, loop)),
+         progressive_shape=list(out.shape), demo=runs)
+    check(la["frame"] == 4, f"progressive_render did not launch B1 4 times: "
+          f"{la}")
+    check(out.device.type == "cuda" and torch.equal(out, loop),
+          "progressive_render differs from its render_hdr + accumulate loop")
+    check(bool(torch.isfinite(out).all()), "progressive_render not finite")
+    for name, n_files in (("frames", 1), ("orbit", 2)):
+        r = runs[name]
+        check(r["rc"] == 0 and len(r["files"]) == n_files
+              and all(b > 0 for b in r["bytes"]) and "on cuda" in r["stdout"]
+              and all(sh == [128, 128, 3] for sh in r["shapes"]),
+              f"demo {name}: {r}")
+    return {}
+
 
 def main() -> int:
     # ---- 0. device --------------------------------------------------------
@@ -2644,6 +2971,14 @@ def main() -> int:
 
     # ---- 9f. main-OCTREE: the octree accel (no TPU kernel) -------------------
     octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4)
+
+    # ---- 9g, 9h. main-sharded: one NCCL rank, two gloo ranks ---------------
+    shard_times = sharded_phase(dev, head, head_cam, c3, c3_cam)
+    emit(phase="times", what="sharded paths (9g, 9h): ms by CUDA events "
+         "unless host", card=smi, **shard_times)
+
+    # ---- 9i. main-A9: progressive_render FUSED, the demo on the card -------
+    a9_phase(dev, head, head_cam)
 
     # ---- 10. times at the main paths' shapes -------------------------------
     # B1 and B2 by events around their wrappers (the tables kept on the

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from .vecmath import dot
+
 Tensor = torch.Tensor
 
 _TWO_PI = float(2.0 * math.pi)
@@ -103,6 +105,20 @@ def scatter_direction_xyz(seed, rid, bounce, rx, ry, rz, nx, ny, nz, rho):
     return (torch.where(rough, mx * inv, rx),
             torch.where(rough, my * inv, ry),
             torch.where(rough, mz * inv, rz))
+
+
+def ball_sample(seed, rid, bounce=0) -> Tensor:
+    """Uniform samples in the unit ball -> [N, 3] (the draws of
+    :func:`ball_sample_xyz`, stacked)."""
+    return torch.stack(ball_sample_xyz(seed, rid, bounce), dim=-1)
+
+
+def hemisphere_ball_sample(seed, rid, normal: Tensor, bounce=0) -> Tensor:
+    """Unit-ball sample flipped into the hemisphere of ``normal``
+    (the scatter setup of raytracer.ts:121-127)."""
+    v = ball_sample(seed, rid, bounce)
+    flip = dot(v, normal) < 0.0
+    return torch.where(flip[..., None], -v, v)
 
 
 def scatter_direction(seed, rid, bounce, reflected: Tensor, normal: Tensor,

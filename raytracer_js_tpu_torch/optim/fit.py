@@ -8,7 +8,8 @@ search-free replay of recorded winners: kernel B5
 (``kernels/replay_grad``) on its class, autograd through
 ``ops/trace.trace_rays(..., pid_seq=...)`` elsewhere. The OCTREE backend
 searches an ``accel/octree.OctreeAccel``, rebuilt from the moving geometry
-every ``accel_every`` steps.
+every ``accel_every`` steps. With a ``mesh`` (``parallel/sharding``) every
+view's rays are split over the ranks and the gradients all-reduced once.
 """
 from __future__ import annotations
 
@@ -17,14 +18,16 @@ import pathlib
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from ..config import RenderConfig
+from ..config import HitBackend, RenderConfig
 from ..kernels import replay_grad as rg_kernel
 from ..models.camera import Camera, pixel_rays, renormalized
 from ..models.scene import Scene
 from ..ops import sampling
 from ..ops.trace import record_paths, trace_rays
 from ..ops.vecmath import cross
+from ..parallel import sharding
 from ..parallel.sharding import float_partition
 from ..render import render_rays, start_substance
 from ..utils import checkpoint as ckpt
@@ -109,39 +112,49 @@ def _make_opt(cfg: FitConfig, params):
     raise ValueError(cfg.optimizer)
 
 
-def _view_rays(cam: Camera, v: int):
-    """(org, dir, global ray ids): view v's rays are numbered from v * N."""
+ALL_ROWS = slice(None)
+
+
+def _view_rays(cam: Camera, v: int, rows: slice = ALL_ROWS):
+    """(org, dir, global ray ids) of ``rows`` of view v, whose rays are
+    numbered from v * N. The rows are sliced after ``pixel_rays``, so a
+    pose gradient flows through the slice."""
     org, dirs = pixel_rays(cam)
     n = org.shape[0]
     rid = torch.arange(n, dtype=torch.int32, device=org.device) + v * n
-    return org, dirs, rid
+    return org[rows], dirs[rows], rid[rows]
 
 
 def multiview_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                    targets: Tensor, seed: int = sampling.DEFAULT_SEED,
-                   accel=None) -> Tensor:
+                   accel=None, rows: slice = ALL_ROWS) -> Tensor:
     """Mean squared pixel loss over a view batch, through the search path.
 
-    ``targets`` is [V, h*w, 3] (flattened per view).
+    ``targets`` is [V, h*w, 3] (flattened per view). ``rows`` (a sharded
+    fit) traces only that slice of every view's rays; the sum is still
+    divided by every view's whole pixel count, so the ranks' losses add up
+    to the loss.
     """
     total = torch.zeros((), dtype=torch.float32, device=targets.device)
     n_pix = 0
     for v, cam in enumerate(cameras):
-        org, dirs, rid = _view_rays(cam, v)
+        org, dirs, rid = _view_rays(cam, v, rows)
         colors = render_rays(scene, cfg, org, dirs, seed, rid, accel=accel)
-        total = total + ((colors - targets[v]) ** 2).sum()
-        n_pix += org.shape[0]
+        total = total + ((colors - targets[v][rows]) ** 2).sum()
+        n_pix += cam.h * cam.w
     return total / n_pix
 
 
 @torch.no_grad()
 def record_views(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
-                 seed: int = sampling.DEFAULT_SEED,
-                 accel=None) -> List[Tensor]:
-    """The winners per bounce of every view -> [pid_seq [h*w, refmax]]."""
+                 seed: int = sampling.DEFAULT_SEED, accel=None,
+                 rows: slice = ALL_ROWS) -> List[Tensor]:
+    """The winners per bounce of every view -> [pid_seq [h*w, refmax]]
+    (of ``rows`` only: the same winners as those rows of the whole view,
+    since each ray's stream is keyed by its global id)."""
     recs = []
     for v, cam in enumerate(cameras):
-        org, dirs, rid = _view_rays(cam, v)
+        org, dirs, rid = _view_rays(cam, v, rows)
         refr0 = start_substance(scene, cam.pos).expand(org.shape[0])
         recs.append(record_paths(scene, cfg, org, dirs, seed, rid,
                                  start_refr=refr0, accel=accel))
@@ -150,23 +163,24 @@ def record_views(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
 
 def replay_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                 targets: Tensor, recs: Sequence[Tensor],
-                seed: int = sampling.DEFAULT_SEED) -> Tensor:
+                seed: int = sampling.DEFAULT_SEED,
+                rows: slice = ALL_ROWS) -> Tensor:
     """:func:`multiview_loss` through the replay of recorded winners:
     kernel B5 where ``replay_grad.supports`` holds, else autograd through
-    the replaying trace loop."""
+    the replaying trace loop. ``recs`` holds the winners of ``rows``."""
     use_kernel = rg_kernel.supports(scene, cfg)
     total = torch.zeros((), dtype=torch.float32, device=targets.device)
     n_pix = 0
     for v, cam in enumerate(cameras):
-        org, dirs, rid = _view_rays(cam, v)
+        org, dirs, rid = _view_rays(cam, v, rows)
         if use_kernel:
             colors = rg_kernel.replay_colors(scene, cfg, org, dirs, recs[v])
         else:
             refr0 = start_substance(scene, cam.pos).expand(org.shape[0])
             colors = trace_rays(scene, cfg, org, dirs, seed, rid,
                                 start_refr=refr0, pid_seq=recs[v]).color
-        total = total + ((colors - targets[v]) ** 2).sum()
-        n_pix += org.shape[0]
+        total = total + ((colors - targets[v][rows]) ** 2).sum()
+        n_pix += cam.h * cam.w
     return total / n_pix
 
 
@@ -184,12 +198,28 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     :func:`step_seed` ``(seed, s)``. ``accel`` (an
     ``accel/octree.OctreeAccel`` of ``scene``) serves the OCTREE search of
     the search and recording steps, and is rebuilt every
-    ``fit_cfg.accel_every`` steps. ``mesh`` (ray-sharded fits) is not
-    ported yet.
+    ``fit_cfg.accel_every`` steps.
+
+    ``mesh`` (``parallel.sharding.make_mesh``): every rank calls ``fit``
+    with the same arguments; each view's rays split over the ranks in
+    contiguous slices (rays per view must divide over them), each rank
+    traces, records and replays its slice (a TILED ``cfg`` as BRUTE) and
+    differentiates its part of the loss, then the loss and gradients are
+    all-reduced once, before the mask, the triad projection and the
+    optimizer step. Every rank thus takes the same step and the params stay
+    replicated bit for bit. Each rank rebuilds the same accel. Only rank 0
+    writes checkpoints; every rank restores.
     """
+    rows = ALL_ROWS
     if mesh is not None:
-        raise NotImplementedError("sharded fits over a device mesh are not "
-                                  "ported yet (ROADMAP A13)")
+        n_view = cameras[0].h * cameras[0].w
+        if n_view % mesh.world_size:
+            raise ValueError(f"rays per view ({n_view}) must divide over "
+                             f"{mesh.world_size} ranks")
+        rows = mesh.rows(n_view)
+        if cfg.backend == HitBackend.TILED:
+            # the tiled path is frame-shaped; a shard is a wavefront
+            cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
     if fit_cfg.replay_every and cfg.spp != 1:
         raise ValueError("replay_every requires spp == 1 (one recorded "
                          "structure per ray)")
@@ -242,14 +272,18 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
         sc, cams = rebuild_all(params)
         if fit_cfg.replay_every:
             if (step - start_step) % fit_cfg.replay_every == 0:
-                recs = record_views(sc, cfg, cams, k, accel=accel)
-            loss = replay_loss(sc, cfg, cams, targets, recs, k)
+                recs = record_views(sc, cfg, cams, k, accel=accel, rows=rows)
+            loss = replay_loss(sc, cfg, cams, targets, recs, k, rows=rows)
         else:
-            loss = multiview_loss(sc, cfg, cams, targets, k, accel=accel)
+            loss = multiview_loss(sc, cfg, cams, targets, k, accel=accel,
+                                  rows=rows)
         loss.backward()
         with torch.no_grad():
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
+            if mesh is not None:
+                loss, *grads = sharding.all_reduce_sum(
+                    mesh, [loss.detach(), *grads])
             if trainable is not None:
                 grads = [g if trainable(i, p) else torch.zeros_like(g)
                          for i, (g, p) in enumerate(zip(grads, params))]
@@ -271,9 +305,13 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
         losses.append(float(loss.detach()))
         if (fit_cfg.ckpt_dir and fit_cfg.save_every
                 and (step + 1) % fit_cfg.save_every == 0):
-            pathlib.Path(fit_cfg.ckpt_dir).mkdir(parents=True, exist_ok=True)
-            ckpt.save(pathlib.Path(fit_cfg.ckpt_dir) / f"ckpt_{step + 1}",
-                      (params, opt.state_dict()), step=step + 1)
+            if mesh is None or mesh.rank == 0:
+                pathlib.Path(fit_cfg.ckpt_dir).mkdir(parents=True,
+                                                     exist_ok=True)
+                ckpt.save(pathlib.Path(fit_cfg.ckpt_dir) / f"ckpt_{step + 1}",
+                          (params, opt.state_dict()), step=step + 1)
+            if mesh is not None and mesh.group is not None:
+                dist.barrier(group=mesh.group)
     sc_out, cams_out = rebuild_all([p.detach() for p in params])
     return FitResult(scene=sc_out, losses=losses,
                      cameras=cams_out if fit_cfg.fit_cameras else None)

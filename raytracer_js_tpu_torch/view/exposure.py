@@ -39,6 +39,12 @@ def new_exposure_buffer(h: int, w: int, max_frames: int = -1,
         max_frames=max_frames)
 
 
+def reset(buf: ExposureBuffer) -> ExposureBuffer:
+    """Restart accumulation (camera moved, exposure_buffer.ts:63-66)."""
+    return dataclasses.replace(buf, pixels=torch.zeros_like(buf.pixels),
+                               frame_count=torch.zeros_like(buf.frame_count))
+
+
 def accumulate(buf: ExposureBuffer, frame: Tensor) -> ExposureBuffer:
     """Blend one frame into the running mean with weight ``1/(1+n)``, n the
     post-increment frame count: the first frame enters at weight 1/2 against

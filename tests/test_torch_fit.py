@@ -146,17 +146,23 @@ def test_fit_cameras_matches_reference():
 
 
 def test_fit_refuses_what_is_not_ported():
-    """The device mesh (ROADMAP A13) raises; the OCTREE accel and its
-    rebuild policy run: ``accel_every`` without an accel changes nothing,
-    and the fit through the octree follows the dense one."""
+    """Nothing is refused any more but ``replay_every`` with spp > 1: a
+    fit on the one-rank mesh equals the plain fit, and the OCTREE accel
+    and its rebuild policy run (``accel_every`` without an accel changes
+    nothing, and the fit through the octree follows the dense one)."""
+    from raytracer_js_tpu_torch.parallel import make_mesh
+
     ps = to_port_scene(color_scene((0.5, 0.5, 0.5)))
     cams = [to_port_camera(make_camera((0, 0, 0), 4, 4, 1.5, 1.5))]
     tgt = torch.zeros((1, 16, 3))
     cfg = to_port_cfg(RenderConfig(refmax=1))
-    with pytest.raises(NotImplementedError, match="A13"):
-        fit(ps, cfg, cams, tgt, mesh=object())
     fc = FitConfig(steps=3, lr=1e-2)
     dense = fit(ps, cfg, cams, tgt, fc)
+    meshed = fit(ps, cfg, cams, tgt, fc, mesh=make_mesh(device="cpu"))
+    assert meshed.losses == dense.losses
+    for a, b in zip(float_partition(meshed.scene)[0],
+                    float_partition(dense.scene)[0]):
+        assert torch.equal(a, b)
     assert fit(ps, cfg, cams, tgt, FitConfig(steps=3, lr=1e-2,
                                              accel_every=2)).losses \
         == dense.losses

@@ -67,6 +67,14 @@ b.add_sphere((4, 0, 0), 1.0, b.add_material(rt.ResponseType.REFLECTION,
 res = fit(b.build(device="cpu"), rt.RenderConfig(refmax=2, backend=rt.HitBackend.PALLAS),
           [cam], torch.zeros((1, 64, 3)), FitConfig(steps=2, replay_every=1))
 assert len(res.losses) == 2 and res.losses[1] < res.losses[0]
+from raytracer_js_tpu_torch import demo, live, parallel
+from raytracer_js_tpu_torch.ops import color, space
+from raytracer_js_tpu_torch.parallel import distributed, dryrun
+from raytracer_js_tpu_torch.utils import image, profiling, validate
+assert distributed.init_distributed(device="cpu") is False
+mesh = parallel.make_mesh(device="cpu")
+assert distributed.topology_summary(mesh)["process_count"] == 1
+assert validate.validate_scene(scene_o) == []
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
 print("rendered", float(hdr.sum()), trace_fused.LAUNCHES, nearest_hit.LAUNCHES,
       replay_grad.LAUNCHES)
