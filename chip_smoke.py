@@ -129,27 +129,39 @@ Phases, one JSON line each:
                 angle-0 cone reaches); need <= warp <= block. The same for
                 B7-wave on config 4's first packet round (the need: each
                 ray's chunks up to its own exit, ``wave_need``).
- 9f. main-OCTREE — the octree accel (``accel/octree``, plain PyTorch; no
-                TPU kernel, so no kernel row): (a) the native scene kit
-                (``native``) built by g++ from ``csrc/scenekit.cpp``, its
-                CSR scatter and covering levels equal to their NumPy
-                specifications on config 2 (depth 4) and a 2,000-prim
-                config 4 (depth 8); (b) BASELINE config 2 (256x256, 50
-                spheres, refmax 2, a depth-4 octree) through ``render_hdr``
-                OCTREE against PALLAS under the parity rule; (c) config 4
-                (1920x1088, 100k prims, refmax 2, depth 8, as ``bench.py
-                --c4-backend octree``) against 9b's PALLAS frame, at most
-                ``C4_MAX_ROUNDING_FRAC`` proven as rounding: the build's
-                host seconds, the DDA's steps and ms per search, the
-                frame's ms and peak device memory; every search the
-                octree's, none dense, no kernel launched; (d) config 4's
+ 9f. main-OCTREE — the octree accel (``accel/octree``) and its search
+                kernel (``octree_dda_kernel``, one launch a search; it
+                replaces the reference's ``lax.while_loop``, no TPU
+                kernel): (a) the native scene kit (``native``) built by
+                g++ from ``csrc/scenekit.cpp``, its CSR scatter and
+                covering levels equal to their NumPy specifications on
+                config 2 (depth 4) and a 2,000-prim config 4 (depth 8); the
+                kernel against its plain version, the live-ray loop, t bit
+                for bit, pid, each ray's steps and tests and the stats, on
+                the near-miss field (``octree_field``, depths 3 and 4: rays
+                tangent to spheres, along box faces, on cell faces,
+                axis-parallel, walks ended by the 3R + 2 cap); (b) BASELINE
+                config 2 (256x256, 50 spheres, refmax 2, a depth-4 octree)
+                through ``render_hdr`` OCTREE equal to PALLAS in every
+                pixel, the kernel against the loop on both bounces; (c)
+                config 4 (1920x1088, 100k prims, refmax 2, depth 8, as
+                ``bench.py --c4-backend octree``) against 9b's PALLAS
+                frame, at most ``C4_MAX_ROUNDING_FRAC`` proven as rounding;
+                the kernel against the loop on bounce 0 (2,088,960 rays)
+                and bounce 1 (the recorded live rays), each search's steps,
+                tests, ms (events around the wrapper, alone by the
+                profiler, the loop's) and bound; the build's host seconds,
+                the frame's ms and peak device memory; every search the
+                octree's, none dense, the kernel launched once a bounce and
+                nothing else; (d) config 4's
                 glass variant (``config4_glass_scene``) through TILED with
                 ``accel=``: B7 once, B6 each sweep round, ``unresolved`` 0,
                 no dense substance query, the grid query equal to the dense
                 one on 4,096 of the frame's transmission points; (e) an
                 OCTREE fit (4 views of the headline at 128x128, 4 SGD
                 steps, ``accel_every=2``) against the same fit on the CPU:
-                losses to rtol 1e-4, one rebuild each.
+                losses to rtol 1e-4, one rebuild each, one kernel launch
+                for each octree search on the card.
  9g. main-sharded, one rank — a one-rank NCCL group (``parallel.distributed.
                 init_distributed``, ``file://`` rendezvous), counters reset
                 before each path: ``render_hdr_sharded`` on the headline
@@ -235,6 +247,7 @@ from raytracer_js_tpu_torch.accel import candidates as cand
 from raytracer_js_tpu_torch.accel import octree
 from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
+from raytracer_js_tpu_torch.kernels import octree_dda as od
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
 from raytracer_js_tpu_torch.kernels import trace_tiled as tt
@@ -289,6 +302,7 @@ KERNEL_SOURCE = "raytracer_js_tpu_torch/csrc/trace_fused.cu"
 NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
 REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
 TILED_SOURCE = "raytracer_js_tpu_torch/csrc/trace_tiled.cu"
+OCTREE_SOURCE = "raytracer_js_tpu_torch/csrc/octree_dda.cu"
 FIT_VIEWS = 8
 #: phase 9f: BASELINE config 2's frame, the octree depths of configs 2 and
 #: 4 (``BASELINE.md``; ``bench.py --c4-backend octree``), the substance
@@ -522,6 +536,107 @@ def near_miss_field(n: int = 600, seed: int = 0, device=None):
         b.add_sphere(tuple(p), 0.25, (m, mm)[i % 3 == 0],
                      b.add_solid_texture((.8, .3, .2)))
     return b.build(device)
+
+
+def octree_field(builder=SceneBuilder):
+    """The octree search's near-miss field, as a builder (the port's or the
+    reference's ``SceneBuilder``, whose methods agree): a 4x4x4 lattice of
+    spheres with small boxes between them, a few triangles, and a ground
+    box that the grid cannot hold (coarse)."""
+    b = builder()
+    b.set_sky(b.add_solid_texture((0.3, 0.4, 0.6)))
+    m = b.add_material(ResponseType.REFLECTION)
+    tex = b.add_solid_texture((1.0, 1.0, 1.0))
+    for i in range(4):
+        for j in range(4):
+            for k in range(4):
+                b.add_sphere((float(i), float(j), float(k)), 0.3, m, tex)
+    for i in range(3):
+        for j in range(3):
+            b.add_box((i + 0.5, j + 0.5, 1.5), 0.15, m, tex)
+    for i in range(3):
+        v = np.array([i + 0.2, 0.4, 2.5])
+        b.add_triangle(v, v + (0.6, 0.0, 0.0), v + (0.0, 0.6, 0.1), m, tex)
+    b.add_box((1.5, 1.5, -3.0), (20.0, 20.0, 0.5), m, tex)
+    return b
+
+
+def _unit(v):
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def octree_field_rays(scene, accel, seed=0):
+    """Rays of the near-miss field that stress the walk's and the tests'
+    rounding -> (org, dir) f32 on the accel's device, and each ray's kind:
+    tangent to spheres within a few ulps, along box faces and edges, on cell
+    faces with the direction in the face, origins inside the grid,
+    axis-parallel (below and above the 1e-12 clamp), a zero direction and
+    origins far from the grid (walks that end at the 3R + 2 cap)."""
+    rng = np.random.default_rng(seed)
+    sc, sr, bc, bh = (getattr(scene, k).detach().cpu().numpy().astype(
+        np.float64) for k in ("sphere_center", "sphere_radius",
+                              "box_center", "box_half"))
+    lo = accel.root_lo.cpu().numpy()
+    size = float(accel.root_size)
+    cs = np.float32(accel.root_size.cpu().numpy() / np.float32(accel.res))
+    org, dirs, kinds = [], [], []
+
+    def add(kind, o, d):
+        org.append(np.asarray(o, np.float64))
+        dirs.append(np.asarray(d, np.float64))
+        kinds.append(kind)
+
+    for s in rng.choice(len(sr), 12, replace=False):
+        d = _unit(rng.normal(size=3))
+        u = _unit(np.cross(d, rng.normal(size=3)))
+        for eps in (-2e-7, 0.0, 2e-7):
+            add("graze_sphere", sc[s] + u * sr[s] * (1 + eps) - 4.0 * d, d)
+    for bi in range(min(6, len(bh) - 1)):
+        c, h = bc[bi], bh[bi]
+        add("graze_box", (c[0] - 3.0, c[1] + h[1], c[2] + 0.5 * h[2]),
+            (1.0, 0.0, 0.0))
+        add("graze_box", (c[0] - 3.0, c[1] + h[1], c[2] + h[2]),
+            _unit((1.0, 1e-7, 0.0)))
+        add("graze_box", (c[0] + 0.3 * h[0], c[1] - 3.0, c[2] - h[2]),
+            (0.0, 1.0, 0.0))
+    for a in range(3):
+        for kk in (1, 3, 5):
+            o = lo.astype(np.float64) + rng.uniform(0.2, 0.8, 3) * size
+            o[a] = float(np.float32(lo[a] + np.float32(kk) * cs))
+            d = _unit(rng.normal(size=3))
+            d[a] = 0.0
+            add("cell_face", o, _unit(d))
+            d[a] = 1e-13
+            add("cell_face", o, d)
+    for _ in range(16):
+        add("inside", lo + rng.uniform(0.0, 1.0, 3) * size,
+            _unit(rng.normal(size=3)))
+    for a in range(3):
+        for sgn in (1.0, -1.0):
+            o = lo + rng.uniform(0.1, 0.9, 3) * size
+            o[a] = lo[a] - 2.0 if sgn > 0 else lo[a] + size + 2.0
+            d = np.zeros(3)
+            d[a] = sgn
+            add("axis", o, d)
+            d2 = d.copy()
+            d2[(a + 1) % 3] = 5e-13
+            add("axis", o, d2)
+            d3 = d.copy()
+            d3[(a + 2) % 3] = -3e-12
+            add("axis", o, d3)
+    # a zero direction: t_new is NaN, so the walk never ends before the cap;
+    # from far away t_cur + eps_t == t_cur, and a walk can stall on a cell
+    # boundary
+    add("cap", lo + 0.37 * size, (0.0, 0.0, 0.0))
+    for _ in range(24):
+        d = _unit(rng.normal(size=3))
+        aim = lo + rng.uniform(0.3, 0.7, 3) * size
+        add("far", aim - 3e5 * d, d)
+    dev = accel.root_lo.device
+    return (torch.as_tensor(np.array(org, np.float32), device=dev),
+            torch.as_tensor(np.array(dirs, np.float32), device=dev),
+            np.array(kinds))
 
 
 def tri_edge_field(n: int = 16, n_free: int = 300, seed: int = 3,
@@ -1300,9 +1415,11 @@ def wave_work(wave, k, blk_chunks):
 #: expressions (one each for an add, multiply, compare, min/max, select,
 #: sqrt or divide), the running-minimum fold included. The bounds count
 #: the tests only: the shading per ray is a few hundred operations, under
-#: 1% of the tests at these prim counts.
+#: 1% of the tests at these prim counts. ``octree_step`` is one step of the
+#: octree search's walk (the cell, its exit, the jump, the stop test).
 OPS = {"sphere": 29, "sphere_unit": 29, "box": 34, "tri": 63,
-       "tri_edges": 57, "replay_fwd": 120, "replay_bwd": 400}
+       "tri_edges": 57, "replay_fwd": 120, "replay_bwd": 400,
+       "octree_step": 52}
 #: one H100 SXM at its published peaks (NVIDIA data sheet): float32 outside
 #: the tensor cores, and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -1392,13 +1509,14 @@ def random_rays(n, seed, device):
 
 
 def reset_launches() -> None:
-    for counts in (tf.LAUNCHES, nh.LAUNCHES, rg.LAUNCHES, tt.LAUNCHES):
+    for counts in (tf.LAUNCHES, nh.LAUNCHES, rg.LAUNCHES, tt.LAUNCHES,
+                   od.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches_now() -> dict:
-    return {**tf.LAUNCHES, **nh.LAUNCHES, **rg.LAUNCHES,
+    return {**tf.LAUNCHES, **nh.LAUNCHES, **rg.LAUNCHES, **od.LAUNCHES,
             "tiled_frame": tt.LAUNCHES["frame"],
             "tiled_wave": tt.LAUNCHES["wave"]}
 
@@ -1511,10 +1629,10 @@ def ptxas_of(log: str, names) -> dict:
 
 
 #: the entry functions whose ptxas report is printed: B5's kernels at
-#: refmax 2 (the fit's), B3, B1 and B2
+#: refmax 2 (the fit's), B3, B1, B2 and the octree search
 PTXAS_KERNELS = ("replay_bwd_kernelILi2E", "replay_fwd_kernelILi2E",
                  "nh_scalar_kernel", "trace_frame_kernel",
-                 "trace_rays_kernel")
+                 "trace_rays_kernel", "octree_dda_kernel")
 
 
 def host_trace(fn, reps=5) -> dict:
@@ -1638,12 +1756,70 @@ def peak_memory(fn) -> tuple:
                  "before_bytes": before}
 
 
+def compare_octree(name, scene, accel, org, dir):
+    """The octree search kernel (through ``nearest_hit_octree``) against its
+    plain version, the live-ray loop, on one set of rays, both on the card:
+    t bit for bit, pid, each ray's steps and tests, and the stats equal ->
+    (report, the kernel's stats, its per-ray counts)."""
+    st_k, pr_k, st_p, pr_p = {}, {}, {}, {}
+    t_k, p_k = octree.nearest_hit_octree(scene, accel, org, dir, stats=st_k,
+                                         per_ray=pr_k)
+    t_p, p_p = octree.nearest_hit_octree_plain(scene, accel, org, dir,
+                                               stats=st_p, per_ray=pr_p)
+    torch.cuda.synchronize()
+    both = torch.isfinite(t_k) & torch.isfinite(t_p)
+    rep = dict(rays=int(org.shape[0]), hits=int((p_k >= 0).sum()),
+               t_bits_equal=torch.equal(bits(t_k), bits(t_p)),
+               pid_equal=torch.equal(p_k, p_p),
+               steps_equal=torch.equal(pr_k["steps"], pr_p["steps"]),
+               tests_equal=torch.equal(pr_k["tests"], pr_p["tests"]),
+               stats_kernel=st_k, stats_plain=st_p,
+               cap_rays=int((pr_k["steps"] == 3 * accel.res + 2).sum()),
+               max_abs_err=float((t_k - t_p)[both].abs().max())
+               if bool(both.any()) else 0.0)
+    rep["ok"] = (rep["t_bits_equal"] and rep["pid_equal"]
+                 and rep["steps_equal"] and rep["tests_equal"]
+                 and st_k == st_p)
+    emit(phase="octree_dda", case=name, prims=scene.n_prims,
+         depth=accel.max_depth, max_per_cell=accel.max_per_cell, **rep)
+    check(rep["ok"], f"octree_dda {name}: the kernel differs from the "
+          f"live-ray loop: {rep}")
+    return rep, st_k, pr_k
+
+
+def octree_bound(scene, accel, n, st):
+    """The least time of one octree search of ``n`` rays with the kernel's
+    stats ``st`` -> (bound_ms, bound_by): the rays in (24 B) and out (t,
+    pid, steps, tests: 16 B), the accel and the prim tables read once; each
+    DDA step's operations (``OPS["octree_step"]``), each coarse test at its
+    class's operations, each grid test at the cheapest operations of the
+    classes the grid holds (config 4's grid holds spheres only)."""
+    ns, nb = scene.n_spheres, scene.n_boxes
+    cls_ops = torch.tensor([OPS["sphere"], OPS["box"], OPS["tri"]],
+                           device=accel.cell_ids.device)
+
+    def ops_of(pid):
+        return cls_ops[(pid >= ns).long() + (pid >= ns + nb).long()]
+
+    coarse = accel.coarse_ids[accel.coarse_ids >= 0]
+    nnz = int(accel.cell_offsets[-1])
+    grid_ops = (int(ops_of(accel.cell_ids[:nnz]).min()) if nnz else 0)
+    fine_tests = st["tests"] - n * coarse.numel()
+    ops = (st["ray_steps"] * OPS["octree_step"] + fine_tests * grid_ops
+           + n * int(ops_of(coarse).sum()))
+    nbytes = (n * (24 + 16) + accel_bytes(accel)
+              + 16 * ns + 24 * nb + 36 * scene.n_tris)
+    return bound(float(ops), float(nbytes))
+
+
 def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     """Phase 9f, main-OCTREE (module docstring): (a) the native scene kit,
-    (b) config 2 and (c) config 4 through ``render_hdr`` OCTREE against
-    their PALLAS frames (``hdr4_p``, ``pid4_p``: 9b's), (d) config 4's
-    glass variant through TILED with the accel, (e) an OCTREE fit against
-    the CPU. Returns the numbers PERF.md records."""
+    the search kernel against the live-ray loop on the near-miss field, (b)
+    config 2 and (c) config 4 through ``render_hdr`` OCTREE against their
+    PALLAS frames (``hdr4_p``, ``pid4_p``: 9b's), the kernel against the
+    loop on both bounces of each, (d) config 4's glass variant through
+    TILED with the accel, (e) an OCTREE fit against the CPU. Returns the
+    numbers PERF.md records and the kernel's row."""
     out = {}
     # (a) the scene kit: built by g++ from csrc/scenekit.cpp, equal to its
     # NumPy specification on the builds' own inputs
@@ -1683,6 +1859,23 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
          build_seconds=native.build_seconds,
          first_call_seconds=first_call_s, cases=cases)
     out["native_build_s"] = native.build_seconds
+    errs = []
+
+    # (a2) the search kernel against the live-ray loop on the near-miss
+    # field: tangent and face-grazing rays, cell faces, axis-parallel rays,
+    # and walks that end at the cap
+    field = octree_field().build(device=dev)
+    for depth in (3, 4):
+        acc_f = octree.build_octree(field, rt.OctreeConfig(max_depth=depth))
+        org_f, dir_f, kinds = octree_field_rays(field, acc_f, seed=depth)
+        rep_f, _, per_ray = compare_octree(
+            f"a_near_miss_field_depth{depth}", field, acc_f, org_f, dir_f)
+        errs.append(rep_f["max_abs_err"])
+        cap = torch.as_tensor(kinds == "cap", device=dev)
+        check(bool((per_ray["steps"][cap] == 3 * acc_f.res + 2).all())
+              and rep_f["cap_rays"] >= 1 and rep_f["hits"] > 40,
+              f"the near-miss field's cap rays did not reach the cap: "
+              f"{rep_f}")
 
     # (b) BASELINE config 2: 256x256, refmax 2, a depth-4 octree, against
     # PALLAS (B3) under the parity rule (proven flips only)
@@ -1703,17 +1896,25 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     zeros2 = torch.zeros((C2_H, C2_W), dtype=torch.int32, device=dev)
     vs2 = parity.compare(img2, zeros2, img2_p, zeros2,
                          prove=parity.flip_prover(c2, rec2, pid2_p.T))
+    pixels_equal2 = torch.equal(img2, img2_p)
     emit(phase="main-OCTREE", case="b_config2_vs_PALLAS", w=C2_W, h=C2_H,
          prims=c2.n_prims, depth=C2_DEPTH, max_per_cell=acc2.max_per_cell,
          coarse=int((acc2.coarse_ids >= 0).sum()), searches=n2,
-         launches=launched2,
+         launches=launched2, pixels_equal=pixels_equal2,
          winners_equal_frac=float((rec2["pid"].T == pid2_p).all(dim=1)
                                   .float().mean()), **vs2)
-    check(vs2["ok"], f"config 2 OCTREE differs from PALLAS: {vs2}")
+    check(vs2["ok"] and pixels_equal2,
+          f"config 2 OCTREE differs from PALLAS: {vs2}")
     check(n2["octree_search"] == cfg_o.refmax and n2["dense_search"] == 0
-          and not any(launched2.values()),
-          f"config 2 OCTREE did not search the octree alone: {n2}, "
-          f"{launched2}")
+          and launched2["octree_dda"] == cfg_o.refmax
+          and not any(v for k, v in launched2.items() if k != "octree_dda"),
+          f"config 2 OCTREE did not search the octree alone, one kernel "
+          f"launch a bounce: {n2}, {launched2}")
+    for b in range(cfg_o.refmax):
+        live = rec2["alive"][b]
+        errs.append(compare_octree(
+            f"b_config2_bounce{b}", c2, acc2, rec2["org"][b][live],
+            rec2["dir"][b][live])[0]["max_abs_err"])
 
     # (c) BASELINE config 4 at full width, as bench.py --c4-backend octree
     t0 = time.perf_counter()
@@ -1725,12 +1926,21 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     for b, (o, d) in enumerate(((org4, dir4), (
             rec4_o["org"][1][rec4_o["alive"][1]],
             rec4_o["dir"][1][rec4_o["alive"][1]]))):
-        st = {}
-        octree.nearest_hit_octree(c4, acc4, o, d, stats=st)
-        ms = event_ms(lambda: octree.nearest_hit_octree(c4, acc4, o, d),
-                      warmup=1, timed=3)
-        dda[f"bounce{b}"] = dict(rays=int(o.shape[0]), **st,
-                                 ms=statistics.median(ms), ms_runs=ms)
+        rep_b, st, _ = compare_octree(f"c_config4_bounce{b}", c4, acc4, o,
+                                      d)
+        errs.append(rep_b["max_abs_err"])
+        # the wrapper by events and alone by the profiler; the live-ray
+        # loop on the same rays
+        timing = kernel_report(lambda: od.launch(c4, acc4, o, d),
+                               "octree_dda_kernel")
+        plain = event_ms(lambda: octree.nearest_hit_octree_plain(
+            c4, acc4, o, d), warmup=1, timed=3)
+        bnd = octree_bound(c4, acc4, int(o.shape[0]), st)
+        dda[f"bounce{b}"] = dict(
+            rays=int(o.shape[0]), **st, ms=timing["ms"]["median"],
+            kernel_ms=median_of(timing), timing=timing,
+            plain_ms=statistics.median(plain), plain_ms_runs=plain,
+            bound_ms=bnd[0], bound_by=bnd[1])
     reset_launches()
     with counting_searches() as n4:
         hdr4_o, mem4 = peak_memory(
@@ -1767,9 +1977,10 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     check(tuple(hdr4_o.shape) == (C4_H, C4_W, 3)
           and hdr4_o.device.type == "cuda", "bad config-4 OCTREE frame")
     check(n4["octree_search"] == cfg_o.refmax and n4["dense_search"] == 0
-          and not any(launched4.values()),
-          f"config 4 OCTREE did not search the octree alone: {n4}, "
-          f"{launched4}")
+          and launched4["octree_dda"] == cfg_o.refmax
+          and not any(v for k, v in launched4.items() if k != "octree_dda"),
+          f"config 4 OCTREE did not search the octree alone, one kernel "
+          f"launch a bounce: {n4}, {launched4}")
     check(vs4["ok"], f"config 4 OCTREE differs from PALLAS: {vs4}")
 
     # (d) transmission at scale: config 4's glass variant through TILED,
@@ -1874,12 +2085,14 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
 
     octree.build_octree = counting_build
     try:
+        reset_launches()
         with counting_searches() as nf:
             t0 = time.perf_counter()
             r_dev = fit(start, cfg_o, cams_f, targets_f, fc,
                         accel=octree.build_octree(start, rt.OctreeConfig()))
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - t0
+        launched_f = launches_now()
         start_cpu = start.to("cpu")
         r_cpu = fit(start_cpu, cfg_o,
                     fit_cameras(OCT_FIT_W, OCT_FIT_W, n=OCT_FIT_VIEWS,
@@ -1895,16 +2108,21 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
          centers_moved=float((r_dev.scene.sphere_center
                               - start.sphere_center).abs().max()),
          losses_card=r_dev.losses,
-         losses_cpu=r_cpu.losses, rebuilds=rebuilds, searches=nf)
+         losses_cpu=r_cpu.losses, rebuilds=rebuilds, searches=nf,
+         launches=launched_f)
     check(np.allclose(r_dev.losses, r_cpu.losses, rtol=1e-4, atol=0.0),
           "the OCTREE fit on the card differs from the CPU")
     check(rebuilds["cuda"] == rebuilds["cpu"] == 1,
           f"the fits rebuilt the octree at other steps: {builds}")
     check(nf["octree_search"] == fc.steps * len(cams_f) * cfg_o.refmax
-          and nf["dense_search"] == 0,
-          f"the OCTREE fit did not search the octree: {nf}")
+          and nf["dense_search"] == 0
+          and launched_f["octree_dda"] == nf["octree_search"],
+          f"the OCTREE fit did not search the octree, one kernel launch a "
+          f"search: {nf}, {launched_f}")
     check(all(np.isfinite(r_dev.losses)) and r_dev.losses[-1]
           < r_dev.losses[0], f"OCTREE fit losses: {r_dev.losses}")
+    out["row"] = dict(launches=launched4["octree_dda"],
+                      max_abs_err=max(errs), **dda["bounce0"])
     return out
 
 # ---------------------------------------------------------------------------
@@ -2969,8 +3187,9 @@ def main() -> int:
                                 n_live_c, tiles_c)
     rules7w = wave_work(wave_a0, k_wa, blk_wa)
 
-    # ---- 9f. main-OCTREE: the octree accel (no TPU kernel) -------------------
-    octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4)
+    # ---- 9f. main-OCTREE: the octree accel and its search kernel ------------
+    oct_row = octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4,
+                           dir4)["row"]
 
     # ---- 9g, 9h. main-sharded: one NCCL rank, two gloo ranks ---------------
     shard_times = sharded_phase(dev, head, head_cam, c3, c3_cam)
@@ -3505,6 +3724,14 @@ def main() -> int:
         row("nh_culled_kernel", NH_SOURCE, src + "nearest_hit.py:113",
             launches_c["culled"], worst(b8), b8_ms, b8_plain_ms, b8_bound,
             kernel_ms=b8_kernel_ms, kernel_timing=KERNEL_MS_TIMING),
+        # no Pallas kernel: the reference's DDA is a lax.while_loop (:530)
+        row("octree_dda_kernel", OCTREE_SOURCE,
+            "raytracer_js_tpu/accel/octree.py:426", oct_row["launches"],
+            oct_row["max_abs_err"], oct_row["ms"], oct_row["plain_ms"],
+            (oct_row["bound_ms"], oct_row["bound_by"]),
+            kernel_ms=oct_row["kernel_ms"], kernel_timing=KERNEL_MS_TIMING,
+            case="config 4 bounce 0, 2,088,960 rays, depth 8",
+            ptxas=ptxas_of(build.log, ["octree_dda_kernel"])),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,11 +13,13 @@ primitives at ``l_cut``:
 
 The build is host NumPy (with the native scene kit's CSR scatter,
 ``native.grid_csr``) and reproduces the reference package's arrays bit for
-bit; its tensors are then put on the scene's device once. The queries are
-plain PyTorch on that device: :func:`nearest_hit_octree` (a coarse brute
-pass, then a grid DDA with the empty-space skip, a Python loop over the
-still-live rays) and :func:`point_query_candidates` (the substance query's
-candidate superset). The structure is discrete: callers search under
+bit; its tensors are then put on the scene's device once. The queries run
+on that device: :func:`nearest_hit_octree` (a coarse brute pass, then a
+grid DDA with the empty-space skip; on the card one kernel launch,
+``kernels/octree_dda``, on the CPU its plain version
+:func:`nearest_hit_octree_plain`, a Python loop over the still-live rays)
+and :func:`point_query_candidates` (the substance query's candidate
+superset, plain PyTorch). The structure is discrete: callers search under
 ``torch.no_grad`` on detached inputs, and an optimization loop rebuilds it
 as geometry moves (``optim/fit``'s ``accel_every``).
 """
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import OctreeConfig
+from ..kernels import _build
 from ..models.scene import Scene, prim_aabbs
 from ..ops import intersect as I
 from ..ops.vecmath import cross, dot
@@ -406,25 +409,72 @@ def _argmin_pid(t: Tensor, pid: Tensor) -> Tuple[Tensor, Tensor]:
 
 @torch.no_grad()
 def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
-                       dir: Tensor, stats: Optional[dict] = None
+                       dir: Tensor, stats: Optional[dict] = None,
+                       per_ray: Optional[dict] = None
                        ) -> Tuple[Tensor, Tensor]:
     """Nearest forward hit via the coarse brute pass and the fine-grid DDA
     -> (t [N], pid [N] i32, -1 on a miss).
+
+    CPU tensors take :func:`nearest_hit_octree_plain`; CUDA tensors launch
+    the search kernel (``kernels/octree_dda``: one launch for the whole
+    search, no sync), which equals the plain loop bit for bit in t, pid
+    and each ray's steps; any other device raises. ``stats`` (a dict)
+    receives ``steps`` (the most steps of a ray), ``ray_steps`` (the steps
+    summed over the rays) and ``tests`` (the candidate tests summed over
+    the rays: each ray's coarse ids >= 0 and each step's cell count);
+    ``per_ray`` (a dict) receives them per ray, ``steps`` and ``tests`` [N]
+    i32. Only a call with ``stats`` reads the counts back to the host.
+    """
+    if _build.on_cpu(org.device):
+        return nearest_hit_octree_plain(scene, accel, org, dir, stats,
+                                        per_ray)
+    from ..kernels import octree_dda
+
+    t, pid, steps, tests = octree_dda.launch(scene, accel, org.contiguous(),
+                                             dir.contiguous())
+    if stats is not None:
+        stats.update(steps=int(steps.max()) if steps.numel() else 0,
+                     ray_steps=int(steps.sum()), tests=int(tests.sum()))
+    if per_ray is not None:
+        per_ray.update(steps=steps, tests=tests)
+    return t, pid
+
+
+@torch.no_grad()
+def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
+                             dir: Tensor, stats: Optional[dict] = None,
+                             per_ray: Optional[dict] = None
+                             ) -> Tuple[Tensor, Tensor]:
+    """The plain version of :func:`nearest_hit_octree` (same arguments and
+    results): a Python loop over the still-live rays.
 
     The DDA enumerates the finest cells a ray pierces near to far (the
     reference walker's order, test/octree-space-walker.test.ts:22-71) and
     stops a ray once its best hit precedes its current position: one
     batched [live rays, max_per_cell] candidate test per step, at most
     ``3R + 2`` steps. Each step works on the rays still live, gathered to
-    the front; every ray's arithmetic is that of the reference's
-    full-width masked loop, so (t, pid) are the same bit for bit. ``stats``
-    (a dict) receives ``steps`` and ``ray_steps`` (the live rays summed
-    over the steps).
+    the front (a ``torch.nonzero``, which waits for the device); every
+    ray's arithmetic is that of the reference's full-width masked loop, so
+    (t, pid) are the same bit for bit.
     """
     n = org.shape[0]
     dev = org.device
     R = accel.res
     cell_sz = accel.root_size / R
+    counting = stats is not None or per_ray is not None
+    if counting:
+        # each ray's steps and candidate tests: the coarse ids >= 0, then
+        # each step's cell count
+        n_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+        n_tests = torch.full((n,), int((accel.coarse_ids >= 0).sum()),
+                             dtype=torch.int32, device=dev)
+
+    def count(steps, ray_steps):
+        if stats is not None:
+            stats.update(steps=steps, ray_steps=ray_steps,
+                         tests=int(n_tests.sum()))
+        if per_ray is not None:
+            per_ray.update(steps=n_steps, tests=n_tests)
 
     # --- coarse brute pass ------------------------------------------------
     t_best = torch.full((n,), float("inf"), dtype=org.dtype, device=dev)
@@ -437,9 +487,9 @@ def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
         upd = t0 < t_best
         t_best = torch.where(upd, t0, t_best)
         pid_best = torch.where(upd & torch.isfinite(t0), p0, pid_best)
-    if stats is not None:
-        stats.update(steps=0, ray_steps=0)
     if accel.cell_ids.shape[0] == 0:
+        if counting:
+            count(0, 0)
         return t_best, pid_best
 
     # --- fine-grid DDA with empty-space skipping --------------------------
@@ -478,6 +528,9 @@ def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
         lin = ((cell[:, 0] * R + cell[:, 1]) * R + cell[:, 2]).long()
         base = accel.cell_offsets[lin]
         cnt = accel.cell_offsets[lin + 1] - base
+        if counting:
+            n_steps[live] += 1
+            n_tests[live] += torch.clamp(cnt, max=accel.max_per_cell)
         idx = torch.clamp(base[:, None] + j[None, :], 0, nk - 1).long()
         pid = torch.where(j[None, :] < cnt[:, None], accel.cell_ids[idx],
                           -1)                                    # [n, K]
@@ -503,8 +556,8 @@ def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
         o, d, iv, sp = o[keep], d[keep], iv[keep], sp[keep]
         tc, tx, dtc, et = t_new[keep], tx[keep], dtc[keep], et[keep]
         tbl, pbl = tbl[keep], pbl[keep]
-    if stats is not None:
-        stats.update(steps=steps, ray_steps=ray_steps)
+    if counting:
+        count(steps, ray_steps)
     pid_best = torch.where(torch.isfinite(t_best), pid_best, -1)
     return t_best, pid_best
 

@@ -35,6 +35,7 @@ def _ctype(param: str):
 
 def test_sources_are_every_cu_file():
     assert sorted(p.name for p in _build.SOURCES) == ["nearest_hit.cu",
+                                                      "octree_dda.cu",
                                                       "replay_grad.cu",
                                                       "trace_fused.cu",
                                                       "trace_tiled.cu"]
@@ -43,6 +44,7 @@ def test_sources_are_every_cu_file():
 def test_signatures_match_the_c_entries():
     entries = _c_entries()
     assert sorted(entries) == sorted(_build.SIGNATURES)
+    assert "rt_octree_dda" in entries
     for name, (ret, params) in entries.items():
         argtypes, restype = _build.SIGNATURES[name]
         assert [_ctype(p) for p in params] == argtypes, name

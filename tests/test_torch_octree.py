@@ -84,7 +84,7 @@ def test_build_empty_scene():
         ps, pa, torch.zeros((4, 3)),
         torch.tensor([[1.0, 0.0, 0.0]]).repeat(4, 1), stats=stats)
     assert bool((pid == -1).all()) and bool(torch.isinf(t).all())
-    assert stats == {"steps": 0, "ray_steps": 0}
+    assert stats == {"steps": 0, "ray_steps": 0, "tests": 0}
 
 
 def test_like_pins_shapes_and_refuses_growth(mixed):
