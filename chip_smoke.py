@@ -130,30 +130,39 @@ Phases, one JSON line each:
                 B7-wave on config 4's first packet round (the need: each
                 ray's chunks up to its own exit, ``wave_need``).
  9f. main-OCTREE — the octree accel (``accel/octree``) and its search
-                kernel (``octree_dda_kernel``, one launch a search; it
-                replaces the reference's ``lax.while_loop``, no TPU
-                kernel): (a) the native scene kit (``native``) built by
-                g++ from ``csrc/scenekit.cpp``, its CSR scatter and
-                covering levels equal to their NumPy specifications on
-                config 2 (depth 4) and a 2,000-prim config 4 (depth 8); the
-                kernel against its plain version, the live-ray loop, t bit
-                for bit, pid, each ray's steps and tests and the stats, on
-                the near-miss field (``octree_field``, depths 3 and 4: rays
-                tangent to spheres, along box faces, on cell faces,
-                axis-parallel, walks ended by the 3R + 2 cap); (b) BASELINE
-                config 2 (256x256, 50 spheres, refmax 2, a depth-4 octree)
-                through ``render_hdr`` OCTREE equal to PALLAS in every
-                pixel, the kernel against the loop on both bounces; (c)
-                config 4 (1920x1088, 100k prims, refmax 2, depth 8, as
+                kernel (``octree_dda_kernel``, one launch a search, one
+                thread a ray, dead rays masked; it replaces the
+                reference's ``lax.while_loop``, no TPU kernel): (a) the
+                native scene kit (``native``) built by g++ from
+                ``csrc/scenekit.cpp``, its CSR scatter and covering levels
+                equal to their NumPy specifications on config 2 (depth 4)
+                and a 2,000-prim config 4 (depth 8); the kernel against its
+                plain version, the live-ray loop, t bit for bit, pid, each
+                ray's steps and tests and the stats, each case without and
+                with a live mask (dead rays: t +inf, pid -1, no steps or
+                tests), on the near-miss field (``octree_field``, depths 3
+                and 4: rays tangent to spheres, along box faces, on cell
+                faces, axis-parallel, walks ended by the 3R + 2 cap; a
+                random half dead); (b) BASELINE config 2 (256x256, 50
+                spheres, refmax 2, a depth-4 octree) through ``render_hdr``
+                OCTREE equal to PALLAS in every pixel, the frame and the
+                recording equal with every ray walking (no mask), the
+                kernel against the loop on both bounces (the live rays; all
+                rays with the frame's status and with a random half dead);
+                (c) config 4 (1920x1088, 100k prims, refmax 2, depth 8, as
                 ``bench.py --c4-backend octree``) against 9b's PALLAS
                 frame, at most ``C4_MAX_ROUNDING_FRAC`` proven as rounding;
-                the kernel against the loop on bounce 0 (2,088,960 rays)
-                and bounce 1 (the recorded live rays), each search's steps,
-                tests, ms (events around the wrapper, alone by the
-                profiler, the loop's) and bound; the build's host seconds,
-                the frame's ms and peak device memory; every search the
-                octree's, none dense, the kernel launched once a bounce and
-                nothing else; (d) config 4's
+                the kernel against the loop on bounce 0 (2,088,960 rays;
+                also a random half dead), bounce 1 as the frame sends it
+                (every ray, the frame's status as the mask; also unmasked)
+                and bounce 1's live rays alone, each search's steps, tests,
+                ms (events around the wrapper, alone by the profiler, the
+                loop's) and bound; the build's host seconds, the frame's ms,
+                its device time by kernel name and its idle share
+                (``frame_breakdown``) and peak device memory; the frame and
+                the recording equal with every ray walking; every search
+                the octree's, none dense, the kernel launched once a bounce
+                and nothing else; (d) config 4's
                 glass variant (``config4_glass_scene``) through TILED with
                 ``accel=``: B7 once, B6 each sweep round, ``unresolved`` 0,
                 no dense substance query, the grid query equal to the dense
@@ -161,7 +170,10 @@ Phases, one JSON line each:
                 OCTREE fit (4 views of the headline at 128x128, 4 SGD
                 steps, ``accel_every=2``) against the same fit on the CPU:
                 losses to rtol 1e-4, one rebuild each, one kernel launch
-                for each octree search on the card.
+                for each octree search on the card; with PyTorch's
+                deterministic algorithms, the fit with the live mask equal
+                bit for bit to the fit with every ray walking (losses and
+                every leaf).
  9g. main-sharded, one rank — a one-rank NCCL group (``parallel.distributed.
                 init_distributed``, ``file://`` rendezvous), counters reset
                 before each path: ``render_hdr_sharded`` on the headline
@@ -1692,7 +1704,7 @@ def recorded_rays(scene, cfg, org, dir, accel=None) -> dict:
         for b in range(cfg.refmax):
             alive = state.status == 0
             _t, pid = trace_mod.nearest_hit(scene, cfg, state.org, state.dir,
-                                            accel)
+                                            accel, live=alive)
             pid = torch.where(alive, pid, -1).to(torch.int32)
             for k, v in zip(out, (pid, state.org, state.dir, alive)):
                 out[k].append(v)
@@ -1756,19 +1768,22 @@ def peak_memory(fn) -> tuple:
                  "before_bytes": before}
 
 
-def compare_octree(name, scene, accel, org, dir):
+def compare_octree(name, scene, accel, org, dir, live=None):
     """The octree search kernel (through ``nearest_hit_octree``) against its
-    plain version, the live-ray loop, on one set of rays, both on the card:
-    t bit for bit, pid, each ray's steps and tests, and the stats equal ->
+    plain version, the live-ray loop, on one set of rays and live mask
+    (None: every ray), both on the card: t bit for bit, pid, each ray's
+    steps and tests, and the stats equal; the dead rays (inf, -1, 0, 0) ->
     (report, the kernel's stats, its per-ray counts)."""
     st_k, pr_k, st_p, pr_p = {}, {}, {}, {}
     t_k, p_k = octree.nearest_hit_octree(scene, accel, org, dir, stats=st_k,
-                                         per_ray=pr_k)
+                                         per_ray=pr_k, live=live)
     t_p, p_p = octree.nearest_hit_octree_plain(scene, accel, org, dir,
-                                               stats=st_p, per_ray=pr_p)
+                                               stats=st_p, per_ray=pr_p,
+                                               live=live)
     torch.cuda.synchronize()
     both = torch.isfinite(t_k) & torch.isfinite(t_p)
     rep = dict(rays=int(org.shape[0]), hits=int((p_k >= 0).sum()),
+               live=int(org.shape[0] if live is None else live.sum()),
                t_bits_equal=torch.equal(bits(t_k), bits(t_p)),
                pid_equal=torch.equal(p_k, p_p),
                steps_equal=torch.equal(pr_k["steps"], pr_p["steps"]),
@@ -1777,9 +1792,13 @@ def compare_octree(name, scene, accel, org, dir):
                cap_rays=int((pr_k["steps"] == 3 * accel.res + 2).sum()),
                max_abs_err=float((t_k - t_p)[both].abs().max())
                if bool(both.any()) else 0.0)
+    rep["dead_missed"] = live is None or bool(
+        torch.isinf(t_k[~live]).all() and (p_k[~live] == -1).all()
+        and (pr_k["steps"][~live] == 0).all()
+        and (pr_k["tests"][~live] == 0).all())
     rep["ok"] = (rep["t_bits_equal"] and rep["pid_equal"]
                  and rep["steps_equal"] and rep["tests_equal"]
-                 and st_k == st_p)
+                 and st_k == st_p and rep["dead_missed"])
     emit(phase="octree_dda", case=name, prims=scene.n_prims,
          depth=accel.max_depth, max_per_cell=accel.max_per_cell, **rep)
     check(rep["ok"], f"octree_dda {name}: the kernel differs from the "
@@ -1787,14 +1806,110 @@ def compare_octree(name, scene, accel, org, dir):
     return rep, st_k, pr_k
 
 
-def octree_bound(scene, accel, n, st):
+def half_dead(n, seed, device):
+    """A live mask with a random half of ``n`` rays dead."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(size=n) < 0.5, device=device)
+
+
+@contextlib.contextmanager
+def unmasked_search():
+    """While active, the OCTREE search ignores its live mask: every ray
+    walks, as before the mask (for showing that a dead ray's answer is
+    never read)."""
+    real = octree.nearest_hit_octree
+
+    def search(*a, live=None, **kw):
+        return real(*a, **kw)
+
+    octree.nearest_hit_octree = search
+    try:
+        yield
+    finally:
+        octree.nearest_hit_octree = real
+
+
+def frame_breakdown(fn, frames=3) -> dict:
+    """One frame's device time by kernel name, from one ``torch.profiler``
+    trace of ``frames`` frames (each ended by a synchronize, after one
+    outside the trace): the mean ms and count of each name a frame, the
+    octree search launches' own ms in order, the device's busy ms (the
+    union of its operations) against the frame's host span, and the
+    largest gaps between operations."""
+    act = torch.profiler.ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for i in range(frames):
+            with torch.profiler.record_function(f"bd_frame{i}"):
+                fn()
+                torch.cuda.synchronize()
+    evs = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.name.startswith("bd_frame")
+                   and "CUDA" not in str(e.device_type))
+    ops = sorted(((e.time_range.start, e.time_range.end, e.name)
+                  for e in evs if "CUDA" in str(e.device_type)
+                  and not e.name.startswith("bd_frame")))
+    per = []
+    for a, b in spans:
+        mine = [o for o in ops if a <= o[0] <= b]
+        if not mine:
+            continue
+        by, busy, gaps = {}, 0.0, []
+        cur_a, cur_b = mine[0][0], mine[0][1]
+        for x, y, name in mine:
+            c, t = by.get(name[:96], (0, 0.0))
+            by[name[:96]] = (c + 1, t + (y - x) * 1e-3)
+            if x > cur_b:
+                busy += cur_b - cur_a
+                gaps.append((x - cur_b) * 1e-3)
+                cur_a, cur_b = x, y
+            else:
+                cur_b = max(cur_b, y)
+        busy += cur_b - cur_a
+        per.append(dict(host_ms=(b - a) * 1e-3, busy_ms=busy * 1e-3,
+                        first_op_ms=(mine[0][0] - a) * 1e-3,
+                        ops=len(mine), by_name=by,
+                        octree_ms=[(y - x) * 1e-3 for x, y, n in mine
+                                   if "octree_dda" in n],
+                        gaps_ms=sorted(gaps, reverse=True)[:5]))
+    if not per:
+        return dict(frames=0)
+    names = set().union(*(p["by_name"] for p in per))
+    by_name = sorted(([n, statistics.mean(p["by_name"].get(n, (0, 0))[0]
+                                          for p in per),
+                       statistics.mean(p["by_name"].get(n, (0, 0.0))[1]
+                                       for p in per)] for n in names),
+                     key=lambda r: -r[2])
+    return dict(frames=len(per),
+                host_ms=[p["host_ms"] for p in per],
+                busy_ms=[p["busy_ms"] for p in per],
+                idle_share=[1 - p["busy_ms"] / p["host_ms"] for p in per],
+                first_op_ms=[p["first_op_ms"] for p in per],
+                ops=[p["ops"] for p in per],
+                octree_ms=[p["octree_ms"] for p in per],
+                gaps_ms=[p["gaps_ms"] for p in per],
+                device_ms=statistics.mean(sum(t for _, t in p["by_name"]
+                                              .values()) for p in per),
+                by_name=by_name[:16],
+                rest_ms=sum(r[2] for r in by_name[16:]))
+
+
+def octree_bound(scene, accel, n, st, live=None):
     """The least time of one octree search of ``n`` rays with the kernel's
-    stats ``st`` -> (bound_ms, bound_by): the rays in (24 B) and out (t,
-    pid, steps, tests: 16 B), the accel and the prim tables read once; each
-    DDA step's operations (``OPS["octree_step"]``), each coarse test at its
-    class's operations, each grid test at the cheapest operations of the
-    classes the grid holds (config 4's grid holds spheres only)."""
+    stats ``st`` and live mask ``live`` (None: every ray) -> (bound_ms,
+    bound_by). Bytes: a live ray reads its origin and direction (24 B), a
+    dead one none; each ray reads its mask byte when there is a mask and
+    writes t, pid, steps, tests (16 B). Of the accel, what a search can
+    need: the skip field, the CSR offsets an occupied cell reads (a cell
+    with skip > 0 reads none), the listed ids, the coarse list and the root,
+    each once; the prim tables once. Operations: each DDA step's
+    (``OPS["octree_step"]``), each coarse test of a live ray at its class's,
+    each grid test at the cheapest of the classes the grid holds (config
+    4's grid holds spheres only)."""
     ns, nb = scene.n_spheres, scene.n_boxes
+    n_live = n if live is None else int(live.sum())
     cls_ops = torch.tensor([OPS["sphere"], OPS["box"], OPS["tri"]],
                            device=accel.cell_ids.device)
 
@@ -1802,12 +1917,19 @@ def octree_bound(scene, accel, n, st):
         return cls_ops[(pid >= ns).long() + (pid >= ns + nb).long()]
 
     coarse = accel.coarse_ids[accel.coarse_ids >= 0]
-    nnz = int(accel.cell_offsets[-1])
+    offs = accel.cell_offsets
+    nnz = int(offs[-1])
+    occ = offs[1:] > offs[:-1]
+    # offsets[c] and offsets[c + 1] of each occupied cell c
+    offs_read = int((torch.cat([occ, occ.new_zeros(1)])
+                     | torch.cat([occ.new_zeros(1), occ])).sum())
     grid_ops = (int(ops_of(accel.cell_ids[:nnz]).min()) if nnz else 0)
-    fine_tests = st["tests"] - n * coarse.numel()
+    fine_tests = st["tests"] - n_live * coarse.numel()
     ops = (st["ray_steps"] * OPS["octree_step"] + fine_tests * grid_ops
-           + n * int(ops_of(coarse).sum()))
-    nbytes = (n * (24 + 16) + accel_bytes(accel)
+           + n_live * int(ops_of(coarse).sum()))
+    accel_need = (accel.skip_dist.numel() + 4 * offs_read + 4 * nnz
+                  + 4 * accel.coarse_ids.numel() + 16)
+    nbytes = (n_live * 24 + n * 16 + (0 if live is None else n) + accel_need
               + 16 * ns + 24 * nb + 36 * scene.n_tris)
     return bound(float(ops), float(nbytes))
 
@@ -1871,6 +1993,9 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
         rep_f, _, per_ray = compare_octree(
             f"a_near_miss_field_depth{depth}", field, acc_f, org_f, dir_f)
         errs.append(rep_f["max_abs_err"])
+        errs.append(compare_octree(
+            f"a_near_miss_field_depth{depth}_half_dead", field, acc_f, org_f,
+            dir_f, half_dead(org_f.shape[0], depth, dev))[0]["max_abs_err"])
         cap = torch.as_tensor(kinds == "cap", device=dev)
         check(bool((per_ray["steps"][cap] == 3 * acc_f.res + 2).all())
               and rep_f["cap_rays"] >= 1 and rep_f["hits"] > 40,
@@ -1892,6 +2017,14 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     img2_p = rt.render_hdr(c2, c2_cam, cfg_p)
     org2, dir2 = pixel_rays(c2_cam)
     rec2 = recorded_rays(c2, cfg_o, org2, dir2, acc2)
+    # a dead ray's answer is never read: the frame and the recording with
+    # every ray walking (no mask) are the same bit for bit
+    pid2_o = record_paths(c2, cfg_o, org2, dir2, accel=acc2)
+    with unmasked_search():
+        same2 = (torch.equal(rt.render_hdr(c2, c2_cam, cfg_o, accel=acc2),
+                             img2)
+                 and torch.equal(record_paths(c2, cfg_o, org2, dir2,
+                                              accel=acc2), pid2_o))
     pid2_p = record_paths(c2, cfg_p, org2, dir2)
     zeros2 = torch.zeros((C2_H, C2_W), dtype=torch.int32, device=dev)
     vs2 = parity.compare(img2, zeros2, img2_p, zeros2,
@@ -1901,10 +2034,13 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
          prims=c2.n_prims, depth=C2_DEPTH, max_per_cell=acc2.max_per_cell,
          coarse=int((acc2.coarse_ids >= 0).sum()), searches=n2,
          launches=launched2, pixels_equal=pixels_equal2,
+         frame_and_recording_equal_unmasked=same2,
          winners_equal_frac=float((rec2["pid"].T == pid2_p).all(dim=1)
                                   .float().mean()), **vs2)
     check(vs2["ok"] and pixels_equal2,
           f"config 2 OCTREE differs from PALLAS: {vs2}")
+    check(same2, "config 2 OCTREE with the live mask differs from the "
+          "search without it")
     check(n2["octree_search"] == cfg_o.refmax and n2["dense_search"] == 0
           and launched2["octree_dda"] == cfg_o.refmax
           and not any(v for k, v in launched2.items() if k != "octree_dda"),
@@ -1915,6 +2051,13 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
         errs.append(compare_octree(
             f"b_config2_bounce{b}", c2, acc2, rec2["org"][b][live],
             rec2["dir"][b][live])[0]["max_abs_err"])
+        # full width, as the frame sends them: with the frame's status and
+        # with a random half dead
+        for tag, mask in (("frame_status", live),
+                          ("half_dead", half_dead(live.shape[0], b, dev))):
+            errs.append(compare_octree(
+                f"b_config2_bounce{b}_full_{tag}", c2, acc2,
+                rec2["org"][b], rec2["dir"][b], mask)[0]["max_abs_err"])
 
     # (c) BASELINE config 4 at full width, as bench.py --c4-backend octree
     t0 = time.perf_counter()
@@ -1922,25 +2065,41 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     torch.cuda.synchronize()
     build4_s = time.perf_counter() - t0
     rec4_o = recorded_rays(c4, cfg_o, org4, dir4, acc4)
+    alive4 = rec4_o["alive"][1]
+    o1, d1 = rec4_o["org"][1], rec4_o["dir"][1]
+    # bounce 0 (every ray live), bounce 1 at full width as the frame sends
+    # it (the dead rays masked), bounce 1's live rays alone
+    searches = {"bounce0": (org4, dir4, None),
+                "bounce1": (o1, d1, alive4),
+                "bounce1_live": (o1[alive4].contiguous(),
+                                 d1[alive4].contiguous(), None)}
     dda = {}
-    for b, (o, d) in enumerate(((org4, dir4), (
-            rec4_o["org"][1][rec4_o["alive"][1]],
-            rec4_o["dir"][1][rec4_o["alive"][1]]))):
-        rep_b, st, _ = compare_octree(f"c_config4_bounce{b}", c4, acc4, o,
-                                      d)
+    for b, (name, (o, d, live)) in enumerate(searches.items()):
+        rep_b, st, _ = compare_octree(f"c_config4_{name}", c4, acc4, o, d,
+                                      live)
         errs.append(rep_b["max_abs_err"])
+        # the other mask: bounce 0 with a random half dead, bounce 1 with
+        # every ray walking
+        other = (half_dead(o.shape[0], 40 + b, dev) if live is None
+                 and name == "bounce0" else None)
+        if name != "bounce1_live":
+            errs.append(compare_octree(
+                f"c_config4_{name}_" + ("half_dead" if other is not None
+                                        else "unmasked"),
+                c4, acc4, o, d, other)[0]["max_abs_err"])
         # the wrapper by events and alone by the profiler; the live-ray
         # loop on the same rays
-        timing = kernel_report(lambda: od.launch(c4, acc4, o, d),
+        timing = kernel_report(lambda: od.launch(c4, acc4, o, d, live),
                                "octree_dda_kernel")
         plain = event_ms(lambda: octree.nearest_hit_octree_plain(
-            c4, acc4, o, d), warmup=1, timed=3)
-        bnd = octree_bound(c4, acc4, int(o.shape[0]), st)
-        dda[f"bounce{b}"] = dict(
-            rays=int(o.shape[0]), **st, ms=timing["ms"]["median"],
-            kernel_ms=median_of(timing), timing=timing,
-            plain_ms=statistics.median(plain), plain_ms_runs=plain,
-            bound_ms=bnd[0], bound_by=bnd[1])
+            c4, acc4, o, d, live=live), warmup=1, timed=3)
+        bnd = octree_bound(c4, acc4, int(o.shape[0]), st, live)
+        dda[name] = dict(
+            rays=int(o.shape[0]),
+            live=int(o.shape[0] if live is None else live.sum()), **st,
+            ms=timing["ms"]["median"], kernel_ms=median_of(timing),
+            timing=timing, plain_ms=statistics.median(plain),
+            plain_ms_runs=plain, bound_ms=bnd[0], bound_by=bnd[1])
     reset_launches()
     with counting_searches() as n4:
         hdr4_o, mem4 = peak_memory(
@@ -1949,6 +2108,16 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     # the counted call above is the warm-up
     frame4 = event_ms(lambda: rt.render_hdr(c4, c4_cam, cfg_o, accel=acc4),
                       warmup=0, timed=3)
+    breakdown4 = frame_breakdown(
+        lambda: rt.render_hdr(c4, c4_cam, cfg_o, accel=acc4))
+    # a dead ray's answer is never read: the frame and the recording with
+    # every ray walking are the same bit for bit
+    with unmasked_search():
+        same4 = (torch.equal(rt.render_hdr(c4, c4_cam, cfg_o, accel=acc4),
+                             hdr4_o)
+                 and torch.equal(record_paths(c4, cfg_o, org4, dir4,
+                                              accel=acc4),
+                                 rec4_o["pid"].T.contiguous()))
     zeros4 = torch.zeros((C4_H, C4_W), dtype=torch.int32, device=dev)
     graze = [parity.grazing_prover(c4, org4, dir4),
              parity.grazing_prover(c4, org4, dir4, pid=rec4_o["pid"][0]),
@@ -1959,7 +2128,7 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
         prove_rounding=lambda i: graze[0](i) | graze[1](i) | graze[2](i),
         max_rounding_frac=C4_MAX_ROUNDING_FRAC)
     out.update(build4_s=build4_s, frame4_ms=statistics.median(frame4),
-               frame4_peak=mem4, dda=dda)
+               frame4_peak=mem4, dda=dda, breakdown4=breakdown4)
     emit(phase="main-OCTREE", case="c_config4_vs_PALLAS", w=C4_W, h=C4_H,
          prims=c4.n_prims, refmax=cfg_o.refmax, depth=C4_DEPTH,
          build_host_seconds=build4_s, max_per_cell=acc4.max_per_cell,
@@ -1968,6 +2137,8 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
          accel_device_bytes=accel_bytes(acc4), dda=dda,
          frame_ms=statistics.median(frame4), frame_ms_runs=frame4,
          frame_timing="CUDA events, median of 3 after one warm-up",
+         frame_breakdown=breakdown4,
+         frame_and_recording_equal_unmasked=same4,
          memory=mem4, searches=n4, launches=launched4,
          finite=bool(torch.isfinite(hdr4_o).all()),
          rounding_frac=vs4["rounding"] / vs4["pixels"],
@@ -1982,6 +2153,8 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
           f"config 4 OCTREE did not search the octree alone, one kernel "
           f"launch a bounce: {n4}, {launched4}")
     check(vs4["ok"], f"config 4 OCTREE differs from PALLAS: {vs4}")
+    check(same4, "config 4 OCTREE with the live mask differs from the "
+          "search without it")
 
     # (d) transmission at scale: config 4's glass variant through TILED,
     # the octree serving the substance query
@@ -2100,8 +2273,33 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
                     accel=octree.build_octree(start_cpu, rt.OctreeConfig()))
     finally:
         octree.build_octree = real_build
+    # a dead ray's answer is never read, gradients included: the fit
+    # with the mask and with every ray walking, each with PyTorch's
+    # deterministic algorithms (the gathers' backward sums in a fixed
+    # order), are the same bit for bit
+    fits = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for masked in (True, False, True):
+            with contextlib.ExitStack() as stack:
+                if not masked:
+                    stack.enter_context(unmasked_search())
+                fits.append(fit(start, cfg_o, cams_f, targets_f, fc,
+                                accel=octree.build_octree(
+                                    start, rt.OctreeConfig())))
+    finally:
+        torch.use_deterministic_algorithms(False)
     rebuilds = {d: sum(1 for dd, like in builds if dd == d and like)
                 for d in ("cuda", "cpu")}
+
+    def same_fit(a, b):
+        return a.losses == b.losses and all(
+            torch.equal(x, y) for x, y in zip(float_partition(a.scene)[0],
+                                              float_partition(b.scene)[0]))
+
+    fit_masks = dict(masked_equals_unmasked=same_fit(fits[0], fits[1]),
+                     masked_twice_equal=same_fit(fits[0], fits[2]),
+                     losses=[f.losses for f in fits])
     emit(phase="main-OCTREE", case="e_fit_card_vs_cpu", views=len(cams_f),
          w=OCT_FIT_W, h=OCT_FIT_W, steps=fc.steps, optimizer=fc.optimizer,
          lr=fc.lr, accel_every=fc.accel_every, seconds=fit_s,
@@ -2109,7 +2307,11 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
                               - start.sphere_center).abs().max()),
          losses_card=r_dev.losses,
          losses_cpu=r_cpu.losses, rebuilds=rebuilds, searches=nf,
-         launches=launched_f)
+         launches=launched_f, masked_vs_unmasked=fit_masks)
+    check(fit_masks["masked_equals_unmasked"]
+          and fit_masks["masked_twice_equal"],
+          f"the OCTREE fit with the live mask differs from the fit without "
+          f"it: {fit_masks}")
     check(np.allclose(r_dev.losses, r_cpu.losses, rtol=1e-4, atol=0.0),
           "the OCTREE fit on the card differs from the CPU")
     check(rebuilds["cuda"] == rebuilds["cpu"] == 1,
@@ -2122,7 +2324,10 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     check(all(np.isfinite(r_dev.losses)) and r_dev.losses[-1]
           < r_dev.losses[0], f"OCTREE fit losses: {r_dev.losses}")
     out["row"] = dict(launches=launched4["octree_dda"],
-                      max_abs_err=max(errs), **dda["bounce0"])
+                      max_abs_err=max(errs), **dda["bounce0"],
+                      bounce1={k: dda["bounce1"][k] for k in (
+                          "rays", "live", "ray_steps", "ms", "kernel_ms",
+                          "plain_ms", "bound_ms", "bound_by")})
     return out
 
 # ---------------------------------------------------------------------------
@@ -3731,6 +3936,7 @@ def main() -> int:
             (oct_row["bound_ms"], oct_row["bound_by"]),
             kernel_ms=oct_row["kernel_ms"], kernel_timing=KERNEL_MS_TIMING,
             case="config 4 bounce 0, 2,088,960 rays, depth 8",
+            bounce1_as_the_frame_launches_it=oct_row["bounce1"],
             ptxas=ptxas_of(build.log, ["octree_dda_kernel"])),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

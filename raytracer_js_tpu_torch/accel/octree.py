@@ -55,7 +55,9 @@ class OctreeAccel:
     cell_ids: Tensor        # [K] i32
     #: chessboard distance from each cell to the nearest occupied cell (0
     #: for occupied), capped at 255: the DDA jumps through proven-empty
-    #: space instead of marching cell by cell
+    #: space instead of marching cell by cell. 0 exactly where the cell's
+    #: CSR count is > 0: the search kernel reads a cell's offsets only
+    #: where its skip is 0
     skip_dist: Tensor       # [R^3] u8
     max_depth: int = 4
     l_cut: int = 1
@@ -410,28 +412,32 @@ def _argmin_pid(t: Tensor, pid: Tensor) -> Tuple[Tensor, Tensor]:
 @torch.no_grad()
 def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
                        dir: Tensor, stats: Optional[dict] = None,
-                       per_ray: Optional[dict] = None
+                       per_ray: Optional[dict] = None,
+                       live: Optional[Tensor] = None
                        ) -> Tuple[Tensor, Tensor]:
     """Nearest forward hit via the coarse brute pass and the fine-grid DDA
     -> (t [N], pid [N] i32, -1 on a miss).
 
     CPU tensors take :func:`nearest_hit_octree_plain`; CUDA tensors launch
     the search kernel (``kernels/octree_dda``: one launch for the whole
-    search, no sync), which equals the plain loop bit for bit in t, pid
-    and each ray's steps; any other device raises. ``stats`` (a dict)
-    receives ``steps`` (the most steps of a ray), ``ray_steps`` (the steps
-    summed over the rays) and ``tests`` (the candidate tests summed over
-    the rays: each ray's coarse ids >= 0 and each step's cell count);
-    ``per_ray`` (a dict) receives them per ray, ``steps`` and ``tests`` [N]
-    i32. Only a call with ``stats`` reads the counts back to the host.
+    search, one thread a ray, no sync), which equals the plain loop bit
+    for bit in t, pid and each ray's steps; any other device raises.
+    ``live`` ([N] bool, None for every ray) marks the rays whose
+    answer the caller reads: the others take no walk and get t = +inf, pid
+    -1 and 0 steps and tests. ``stats`` (a dict) receives ``steps`` (the
+    most steps of a ray), ``ray_steps`` (the steps summed over the rays)
+    and ``tests`` (the candidate tests summed over the rays: each ray's
+    coarse ids >= 0 and each step's cell count); ``per_ray`` (a dict)
+    receives them per ray, ``steps`` and ``tests`` [N] i32. Only a call
+    with ``stats`` reads the counts back to the host.
     """
     if _build.on_cpu(org.device):
         return nearest_hit_octree_plain(scene, accel, org, dir, stats,
-                                        per_ray)
+                                        per_ray, live)
     from ..kernels import octree_dda
 
     t, pid, steps, tests = octree_dda.launch(scene, accel, org.contiguous(),
-                                             dir.contiguous())
+                                             dir.contiguous(), live)
     if stats is not None:
         stats.update(steps=int(steps.max()) if steps.numel() else 0,
                      ray_steps=int(steps.sum()), tests=int(tests.sum()))
@@ -443,10 +449,12 @@ def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
 @torch.no_grad()
 def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
                              dir: Tensor, stats: Optional[dict] = None,
-                             per_ray: Optional[dict] = None
+                             per_ray: Optional[dict] = None,
+                             live: Optional[Tensor] = None
                              ) -> Tuple[Tensor, Tensor]:
     """The plain version of :func:`nearest_hit_octree` (same arguments and
-    results): a Python loop over the still-live rays.
+    results): a Python loop over the still-live rays. A ray that ``live``
+    marks dead keeps the coarse pass's initial miss and never walks.
 
     The DDA enumerates the finest cells a ray pierces near to far (the
     reference walker's order, test/octree-space-walker.test.ts:22-71) and
@@ -468,6 +476,8 @@ def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
         n_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
         n_tests = torch.full((n,), int((accel.coarse_ids >= 0).sum()),
                              dtype=torch.int32, device=dev)
+        if live is not None:
+            n_tests = torch.where(live, n_tests, 0)
 
     def count(steps, ray_steps):
         if stats is not None:
@@ -485,6 +495,8 @@ def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
         t0, p0 = _argmin_pid(prim_hit_t(scene, org[:, None, :],
                                         dir[:, None, :], ids), ids)
         upd = t0 < t_best
+        if live is not None:
+            upd = upd & live
         t_best = torch.where(upd, t0, t_best)
         pid_best = torch.where(upd & torch.isfinite(t0), p0, pid_best)
     if accel.cell_ids.shape[0] == 0:
@@ -509,17 +521,20 @@ def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
     nk = accel.cell_ids.shape[0]
     j = torch.arange(accel.max_per_cell, dtype=torch.int32, device=dev)
 
-    live = torch.nonzero(t_cur <= t_exit).flatten()
-    # the live rays' state, gathered to the front
-    o, d, iv, sp = org[live], dir[live], inv[live], step_pos[live]
-    tc, tx, dtc, et = t_cur[live], t_exit[live], dt_cheb[live], eps_t[live]
-    tbl, pbl = t_best[live], pid_best[live]
+    walk = t_cur <= t_exit
+    if live is not None:
+        walk = walk & live
+    rows = torch.nonzero(walk).flatten()
+    # the walking rays' state, gathered to the front
+    o, d, iv, sp = org[rows], dir[rows], inv[rows], step_pos[rows]
+    tc, tx, dtc, et = t_cur[rows], t_exit[rows], dt_cheb[rows], eps_t[rows]
+    tbl, pbl = t_best[rows], pid_best[rows]
     steps = ray_steps = 0
     for _ in range(3 * R + 2):
-        if live.numel() == 0:
+        if rows.numel() == 0:
             break
         steps += 1
-        ray_steps += live.numel()
+        ray_steps += rows.numel()
         # position-based stepping: re-derive the cell from the current
         # param (jumps make incremental per-axis bookkeeping moot)
         p = o + (tc + et)[:, None] * d
@@ -529,8 +544,8 @@ def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
         base = accel.cell_offsets[lin]
         cnt = accel.cell_offsets[lin + 1] - base
         if counting:
-            n_steps[live] += 1
-            n_tests[live] += torch.clamp(cnt, max=accel.max_per_cell)
+            n_steps[rows] += 1
+            n_tests[rows] += torch.clamp(cnt, max=accel.max_per_cell)
         idx = torch.clamp(base[:, None] + j[None, :], 0, nk - 1).long()
         pid = torch.where(j[None, :] < cnt[:, None], accel.cell_ids[idx],
                           -1)                                    # [n, K]
@@ -549,10 +564,10 @@ def nearest_hit_octree_plain(scene: Scene, accel: OctreeAccel, org: Tensor,
         t_jump = tc + torch.clamp(k - 2.0, min=0.0) * dtc
         t_new = torch.maximum(torch.maximum(t_exit_cell, t_jump), tc + et)
         done = (~torch.isinf(tbl) & (tbl <= t_new)) | (t_new > tx)
-        t_best[live] = tbl
-        pid_best[live] = pbl
+        t_best[rows] = tbl
+        pid_best[rows] = pbl
         keep = torch.nonzero(~done).flatten()
-        live = live[keep]
+        rows = rows[keep]
         o, d, iv, sp = o[keep], d[keep], iv[keep], sp[keep]
         tc, tx, dtc, et = t_new[keep], tx[keep], dtc[keep], et[keep]
         tbl, pbl = tbl[keep], pbl[keep]

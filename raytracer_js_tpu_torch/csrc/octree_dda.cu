@@ -20,17 +20,44 @@
 // eps_t), and stops once the best hit precedes the new position or the ray
 // leaves the root, or after 3R + 2 steps. Besides (t, pid) it writes each
 // ray's step count and candidate-test count (coarse ids >= 0 plus each
-// step's cell count).
+// step's cell count). A ray that the optional live mask marks dead takes
+// no walk: t = +inf, pid -1, 0 steps and 0 tests.
 //
-// What bounds it on this card: the gathers. Each step reads two CSR
-// offsets and one skip byte at the ray's cell, and each candidate its id
-// and its prim's row; a depth-8 grid's offsets alone are 67 MB, more than
-// the 50 MB L2, and neighbouring rays share cells only while they stay
-// together. Then divergence: a warp runs as long as its longest walk (at
-// depth 8, 25.6 steps a ray on average at config 4's bounce 0, up to 770).
-// The design: one thread per ray, all of its state in registers, one launch
-// and no host round trip, each ray leaving at its own exit. Reordering the
-// rays, persistent warps and compaction are later work.
+// What bounds it on this card: each step's dependent chain (the cell from
+// the position, its skip byte, and in an occupied cell the offsets, ids and
+// rows, then the advance) and the spread of the walks' lengths, not the
+// bytes. At depth 8 (config 4, 100k prims) a walk takes 25.6 steps on
+// average and up to 310 at bounce 0 and 313 at bounce 1 (the cap is 3R + 2
+// = 770); 74% of bounce 0's steps cross empty cells. The CSR offsets
+// [R^3 + 1] i32 are 67 MB, more than the 50 MB L2; the skip field [R^3] u8
+// is 16.7 MB and stays in L2. Camera rays are coherent: neighbouring
+// threads read the same cells (on an H100 a thread-a-ray search took 2.6x
+// as long on the same rays shuffled), so a ray's place in its warp matters
+// too.
+//
+// The design, for that:
+// - Empty cells read only the skip byte. The build makes the skip field
+//   from the counts (accel/octree.build_octree: occ = diff(offsets) > 0,
+//   skip = min(chessboard distance to an occupied cell, 255), at least 1 off
+//   the occupied cells, the NumPy fallback's too), so skip[c] == 0 exactly
+//   where cell c lists an id. A step reads skip[c] first and reads the two
+//   offsets only when it is 0; a cell with skip > 0 has count 0, so it
+//   tests the same ids (none) without them.
+// - Finished rays take no walk: a ray the live mask marks dead reads its
+//   mask byte and writes its miss, nothing else.
+// - A sphere test computes a root only where it is the answer (the near
+//   root where the discriminant is >= 0, the far one where the near is
+//   behind): the same value, fewer IEEE divisions and square roots.
+// - One thread a ray, launched in ray order, so that a warp's camera rays
+//   walk the same cells together; every function inlined, no stack frame.
+//   Persistent warps refilling their lanes from a ray queue (Aila and
+//   Laine, "Understanding the Efficiency of Ray Traversal on GPUs", HPG
+//   2009) were tried: on an H100 they ran 7% slower on camera rays and
+//   took a stack frame, and saved 0.2 ms on a frame's second bounce, whose
+//   live rays lie scattered among dead ones; a frame that waits on its
+//   host launches does not show it (PERF.md).
+// - Every ray's arithmetic, and the order of its candidate tests, is the
+//   loop's: which thread runs a ray changes nothing in its result.
 //
 // Precision: built with --fmad=false and without fast math, so every
 // expression rounds once; `/` and sqrtf are IEEE. Every expression repeats
@@ -49,7 +76,7 @@
 // [S, 3] and radii [S], box centers and half sizes [B, 3], triangle
 // vertices v0, v1, v2 [T, 3]. The accel: root_lo [3], root_size [],
 // coarse ids [Nc] i32, cell offsets [R^3 + 1] i32, cell ids [K] i32, skip
-// distances [R^3] u8.
+// distances [R^3] u8. The live mask [N] u8 (torch.bool) or null.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -147,7 +174,7 @@ __device__ __forceinline__ int cell_of(float p, float lo, float cell_sz,
 
 // accel/octree.prim_hit_t for one (ray, prim), pid in [0, n_prims): the
 // first forward hit parameter, +inf on a miss
-__device__ float prim_hit_t(const Prims& P, V3 o, V3 d, int pid) {
+__device__ __forceinline__ float prim_hit_t(const Prims& P, V3 o, V3 d, int pid) {
   if (pid < P.n_sph) {
     const V3 c = load3(P.sph_c, pid);
     const float r = __ldg(P.sph_r + pid);
@@ -156,11 +183,14 @@ __device__ float prim_hit_t(const Prims& P, V3 o, V3 d, int pid) {
     const float a = dot3(d, d);
     const float cc = dot3(oc, oc) - r * r;
     const float disc = b_half * b_half - a * cc;
+    // disc >= 0 ? (tn >= 0 ? tn : (tf >= 0 ? tf : inf)) : inf, each root
+    // computed only where it is the answer
+    if (!(disc >= 0.f)) return kInf;
     const float sq = sqrtf(clamp_min0(disc));
     const float tn = (-b_half - sq) / a;
+    if (tn >= 0.f) return tn;
     const float tf = (-b_half + sq) / a;
-    const float ts = tn >= 0.f ? tn : (tf >= 0.f ? tf : kInf);
-    return disc >= 0.f ? ts : kInf;
+    return tf >= 0.f ? tf : kInf;
   }
   if (pid < P.n_sph + P.n_box) {
     // ops/intersect._slab on lo = c - h, hi = c + h
@@ -200,122 +230,184 @@ __device__ float prim_hit_t(const Prims& P, V3 o, V3 d, int pid) {
   return ok ? tt : kInf;
 }
 
-__global__ void __launch_bounds__(kBlock)
-    octree_dda_kernel(Prims P, Grid G, const float* __restrict__ org,
-                      const float* __restrict__ dir, long long n,
-                      float* __restrict__ t_out, int* __restrict__ pid_out,
-                      int* __restrict__ steps_out,
-                      int* __restrict__ tests_out) {
-  const long long r = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (r >= n) return;
+// One ray's search state, held in registers by the thread that runs it
+struct Ray {
+  V3 o, d;
+  float ix, iy, iz;  // the |dir|-floored inverse direction
+  float t_cur, t_exit, dt_cheb, eps_t;
+  float t_best;
+  int pid_best, steps, tests;
+  long long r;
+};
+
+// The grid's constants, the same for every ray
+struct Walk {
+  V3 lo;
+  float cell_sz;
+  int R, K, max_steps;
+};
+
+// The coarse brute pass of ray `ray.r` (every ray, the list in order) and
+// its walk's set-up; returns whether the ray walks the grid.
+__device__ __forceinline__ bool start_ray(const Prims& P, const Grid& G,
+                                          const Walk& W,
+                                          const float* __restrict__ org,
+                                          const float* __restrict__ dir,
+                                          Ray& ray) {
+  const long long r = ray.r;
   const V3 o{org[3 * r], org[3 * r + 1], org[3 * r + 2]};
   const V3 d{dir[3 * r], dir[3 * r + 1], dir[3 * r + 2]};
-
-  // --- coarse brute pass: every ray, the list in order -------------------
-  float t_best = kInf;
-  int pid_best = -1;
-  int tests = 0;
+  ray.o = o;
+  ray.d = d;
+  ray.t_best = kInf;
+  ray.pid_best = -1;
+  ray.tests = 0;
+  ray.steps = 0;
   for (int c = 0; c < G.n_coarse; ++c) {
     const int id = __ldg(G.coarse + c);
     if (id < 0) continue;  // padding
-    ++tests;
+    ++ray.tests;
     const float t = prim_hit_t(P, o, d, id);
-    if (t < t_best) {
-      t_best = t;
-      pid_best = id;
+    if (t < ray.t_best) {
+      ray.t_best = t;
+      ray.pid_best = id;
     }
   }
+  if (G.n_ids <= 0) return false;
+  const V3 lo = W.lo;
+  const float rs = __ldg(G.root_size);
+  const V3 hi{lo.x + rs, lo.y + rs, lo.z + rs};
+  const float ix = safe_inv(d.x), iy = safe_inv(d.y), iz = safe_inv(d.z);
+  const float tax = (lo.x - o.x) * ix, tbx = (hi.x - o.x) * ix;
+  const float tay = (lo.y - o.y) * iy, tby = (hi.y - o.y) * iy;
+  const float taz = (lo.z - o.z) * iz, tbz = (hi.z - o.z) * iz;
+  const float t_enter = nan_max(
+      nan_max(nan_min(tax, tbx), nan_min(tay, tby)), nan_min(taz, tbz));
+  ray.t_exit = nan_min(
+      nan_min(nan_max(tax, tbx), nan_max(tay, tby)), nan_max(taz, tbz));
+  ray.t_cur = clamp_min0(t_enter);
+  ray.ix = ix;
+  ray.iy = iy;
+  ray.iz = iz;
+  // time to cross one chessboard ring of cells (max-axis speed)
+  ray.dt_cheb =
+      W.cell_sz / nan_max(nan_max(fabsf(d.x), fabsf(d.y)), fabsf(d.z));
+  ray.eps_t = kEpsT * ray.dt_cheb;
+  return ray.t_cur <= ray.t_exit;
+}
 
-  // --- fine-grid DDA with empty-space skipping --------------------------
-  int steps = 0;
-  if (G.n_ids > 0) {
-    const int R = G.res;
-    const float rs = __ldg(G.root_size);
-    // root_size / R: torch multiplies by the float 1/R, the same float for
-    // a power of two R
-    const float cell_sz = rs / (float)R;
-    const V3 lo = load3(G.root_lo, 0);
-    const V3 hi{lo.x + rs, lo.y + rs, lo.z + rs};
-    const float ix = safe_inv(d.x), iy = safe_inv(d.y), iz = safe_inv(d.z);
-    const float tax = (lo.x - o.x) * ix, tbx = (hi.x - o.x) * ix;
-    const float tay = (lo.y - o.y) * iy, tby = (hi.y - o.y) * iy;
-    const float taz = (lo.z - o.z) * iz, tbz = (hi.z - o.z) * iz;
-    const float t_enter = nan_max(
-        nan_max(nan_min(tax, tbx), nan_min(tay, tby)), nan_min(taz, tbz));
-    const float t_exit = nan_min(
-        nan_min(nan_max(tax, tbx), nan_max(tay, tby)), nan_max(taz, tbz));
-    float t_cur = clamp_min0(t_enter);
-    const float spx = d.x >= 0.f ? 1.f : 0.f;
-    const float spy = d.y >= 0.f ? 1.f : 0.f;
-    const float spz = d.z >= 0.f ? 1.f : 0.f;
-    // time to cross one chessboard ring of cells (max-axis speed)
-    const float dt_cheb =
-        cell_sz / nan_max(nan_max(fabsf(d.x), fabsf(d.y)), fabsf(d.z));
-    const float eps_t = kEpsT * dt_cheb;
-    const int K = G.max_per_cell;
-    const int max_steps = 3 * R + 2;
-    bool live = t_cur <= t_exit;
-    while (live && steps < max_steps) {
-      ++steps;
-      // position-based stepping: the cell from the current param
-      const float s = t_cur + eps_t;
-      const int cx = cell_of(o.x + s * d.x, lo.x, cell_sz, R);
-      const int cy = cell_of(o.y + s * d.y, lo.y, cell_sz, R);
-      const int cz = cell_of(o.z + s * d.z, lo.z, cell_sz, R);
-      const int lin = (cx * R + cy) * R + cz;
-      const int base = __ldg(G.offsets + lin);
-      const int cnt = __ldg(G.offsets + lin + 1) - base;
-      const int m = cnt < K ? cnt : K;
-      float t_min = kInf;
-      int p_min = -1;
-      for (int j = 0; j < m; ++j) {
-        const int id = __ldg(G.ids + base + j);
-        const float t = prim_hit_t(P, o, d, id);
-        if (t < t_min) {
-          t_min = t;
-          p_min = id;
-        }
+// One DDA step of a walking ray; returns whether it walks on.
+__device__ __forceinline__ bool step_ray(const Prims& P, const Grid& G,
+                                         const Walk& W, Ray& ray) {
+  ++ray.steps;
+  const V3 o = ray.o, d = ray.d, lo = W.lo;
+  const float cell_sz = W.cell_sz;
+  const int R = W.R;
+  const float t_cur = ray.t_cur;
+  // position-based stepping: the cell from the current param
+  const float s = t_cur + ray.eps_t;
+  const int cx = cell_of(o.x + s * d.x, lo.x, cell_sz, R);
+  const int cy = cell_of(o.y + s * d.y, lo.y, cell_sz, R);
+  const int cz = cell_of(o.z + s * d.z, lo.z, cell_sz, R);
+  const int lin = (cx * R + cy) * R + cz;
+  // the skip byte first: 0 exactly where the cell lists an id
+  const unsigned skip = __ldg(G.skip + lin);
+  if (skip == 0u) {
+    const int base = __ldg(G.offsets + lin);
+    const int cnt = __ldg(G.offsets + lin + 1) - base;
+    const int m = cnt < W.K ? cnt : W.K;
+    float t_min = kInf;
+    int p_min = -1;
+    for (int j = 0; j < m; ++j) {
+      const int id = __ldg(G.ids + base + j);
+      const float t = prim_hit_t(P, o, d, id);
+      if (t < t_min) {
+        t_min = t;
+        p_min = id;
       }
-      tests += m;
-      if (t_min < t_best) {
-        t_best = t_min;
-        pid_best = p_min;
-      }
-      // advance at least to the cell's exit; through empty space jump k - 2
-      // rings (the skip field proves no occupied cell within k - 1 rings)
-      const float nbx = lo.x + ((float)cx + spx) * cell_sz;
-      const float nby = lo.y + ((float)cy + spy) * cell_sz;
-      const float nbz = lo.z + ((float)cz + spz) * cell_sz;
-      const float t_exit_cell =
-          nan_min(nan_min((nbx - o.x) * ix, (nby - o.y) * iy),
-                  (nbz - o.z) * iz);
-      const float k = (float)__ldg(G.skip + lin);
-      const float t_jump = t_cur + clamp_min0(k - 2.0f) * dt_cheb;
-      const float t_new = nan_max(nan_max(t_exit_cell, t_jump), t_cur + eps_t);
-      // torch: (~isinf(t_best) & (t_best <= t_new)) | (t_new > t_exit)
-      live = !((fabsf(t_best) != kInf && t_best <= t_new) || t_new > t_exit);
-      t_cur = t_new;
+    }
+    ray.tests += m;
+    if (t_min < ray.t_best) {
+      ray.t_best = t_min;
+      ray.pid_best = p_min;
     }
   }
-  t_out[r] = t_best;
-  pid_out[r] = fabsf(t_best) < kInf ? pid_best : -1;  // isfinite
-  steps_out[r] = steps;
-  tests_out[r] = tests;
+  // advance at least to the cell's exit; through empty space jump k - 2
+  // rings (the skip field proves no occupied cell within k - 1 rings)
+  const float nbx = lo.x + ((float)cx + (d.x >= 0.f ? 1.f : 0.f)) * cell_sz;
+  const float nby = lo.y + ((float)cy + (d.y >= 0.f ? 1.f : 0.f)) * cell_sz;
+  const float nbz = lo.z + ((float)cz + (d.z >= 0.f ? 1.f : 0.f)) * cell_sz;
+  const float t_exit_cell = nan_min(
+      nan_min((nbx - o.x) * ray.ix, (nby - o.y) * ray.iy),
+      (nbz - o.z) * ray.iz);
+  const float k = (float)skip;
+  const float t_jump = t_cur + clamp_min0(k - 2.0f) * ray.dt_cheb;
+  const float t_new =
+      nan_max(nan_max(t_exit_cell, t_jump), t_cur + ray.eps_t);
+  ray.t_cur = t_new;
+  // torch: (~isinf(t_best) & (t_best <= t_new)) | (t_new > t_exit)
+  const float tb = ray.t_best;
+  const bool done = (fabsf(tb) != kInf && tb <= t_new) || t_new > ray.t_exit;
+  return !done && ray.steps < W.max_steps;
+}
+
+__device__ __forceinline__ void finish(const Ray& ray,
+                                       float* __restrict__ t_out,
+                                       int* __restrict__ pid_out,
+                                       int* __restrict__ steps_out,
+                                       int* __restrict__ tests_out) {
+  const long long r = ray.r;
+  t_out[r] = ray.t_best;
+  pid_out[r] = fabsf(ray.t_best) < kInf ? ray.pid_best : -1;  // isfinite
+  steps_out[r] = ray.steps;
+  tests_out[r] = ray.tests;
+}
+
+__global__ void __launch_bounds__(kBlock)
+    octree_dda_kernel(Prims P, Grid G, const float* __restrict__ org,
+                      const float* __restrict__ dir,
+                      const unsigned char* __restrict__ live, long long n,
+                      float* __restrict__ t_out, int* __restrict__ pid_out,
+                      int* __restrict__ steps_out,
+                      int* __restrict__ tests_out) {
+  Ray ray;
+  ray.r = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (ray.r >= n) return;
+  Walk W;
+  W.lo = load3(G.root_lo, 0);
+  W.R = G.res;
+  // root_size / R: torch multiplies by the float 1/R, the same float for a
+  // power of two R
+  W.cell_sz = __ldg(G.root_size) / (float)G.res;
+  W.K = G.max_per_cell;
+  W.max_steps = 3 * G.res + 2;
+  if (live != nullptr && live[ray.r] == 0) {
+    ray.t_best = kInf;  // a dead ray: no walk, a miss
+    ray.pid_best = -1;
+    ray.steps = 0;
+    ray.tests = 0;
+  } else if (start_ray(P, G, W, org, dir, ray)) {
+    while (step_ray(P, G, W, ray)) {
+    }
+  }
+  finish(ray, t_out, pid_out, steps_out, tests_out);
 }
 
 }  // namespace
 
-// One launch for the whole search of n rays (org, dir [n, 3] f32) ->
-// t_out [n] f32, pid_out [n] i32 and each ray's steps_out and tests_out
-// [n] i32, on `stream`; returns the launch's CUDA error (0 on success).
+// One launch for the whole search of n rays (org, dir [n, 3] f32; live [n]
+// u8 or null, a dead ray taking no walk) -> t_out [n] f32, pid_out [n] i32
+// and each ray's steps_out and tests_out [n] i32, on `stream`; returns the
+// launch's CUDA error (0 on success).
 extern "C" int rt_octree_dda(
     const float* sph_c, const float* sph_r, int n_sph, const float* box_c,
     const float* box_h, int n_box, const float* v0, const float* v1,
     const float* v2, int n_tri, const float* root_lo, const float* root_size,
     const int* coarse, int n_coarse, const int* offsets, const int* ids,
     int n_ids, const unsigned char* skip, int res, int max_per_cell,
-    const float* org, const float* dir, long long n, float* t_out,
-    int* pid_out, int* steps_out, int* tests_out, int device, void* stream) {
+    const float* org, const float* dir, const unsigned char* live,
+    long long n, float* t_out, int* pid_out, int* steps_out, int* tests_out,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
@@ -325,6 +417,6 @@ extern "C" int rt_octree_dda(
                n_coarse, n_ids, res, max_per_cell};
   const long long grid = (n + kBlock - 1) / kBlock;
   octree_dda_kernel<<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
-      P, G, org, dir, n, t_out, pid_out, steps_out, tests_out);
+      P, G, org, dir, live, n, t_out, pid_out, steps_out, tests_out);
   return (int)cudaGetLastError();
 }

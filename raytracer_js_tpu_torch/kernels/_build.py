@@ -154,10 +154,10 @@ SIGNATURES = {
     # sphere centers, radii (+ count), box centers, halves (+ count), tri
     # v0, v1, v2 (+ count), root_lo, root_size, coarse ids (+ count), cell
     # offsets, cell ids (+ count), skip field, res, max_per_cell, org, dir,
-    # n, t, pid, steps, tests, device, stream
+    # live mask, n, t, pid, steps, tests, device, stream
     "rt_octree_dda": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
-                       _I, _P, _P, _I, _P, _I, _I, _P, _P, _LL, _P, _P, _P,
-                       _P, _I, _P], _I),
+                       _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _LL, _P, _P,
+                       _P, _P, _I, _P], _I),
     "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
     # atten2, g_color, n_glob, g_org, g_dir, out, partial, blocks, device,
     # stream

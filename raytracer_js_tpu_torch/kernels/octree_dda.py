@@ -11,7 +11,7 @@ and :func:`launch` for CUDA tensors. ``LAUNCHES`` counts launches.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,12 +22,15 @@ Tensor = torch.Tensor
 LAUNCHES = {"octree_dda": 0}
 
 
-def launch(scene, accel, org: Tensor, dir: Tensor
+def launch(scene, accel, org: Tensor, dir: Tensor,
+           live: Optional[Tensor] = None
            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Launch the search on the current stream -> (t [N] f32, pid [N] i32,
     steps [N] i32, tests [N] i32): each ray's DDA steps and candidate tests
-    (its coarse ids >= 0, then each step's cell count). No rays is answered
-    here without a launch. Does not synchronize."""
+    (its coarse ids >= 0, then each step's cell count). ``live`` ([N]
+    bool, or None for every ray) marks the rays to search; the others get
+    t = +inf, pid -1 and 0 steps and tests. No rays is answered here
+    without a launch. Does not synchronize."""
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"the octree kernel needs CUDA tensors, got {dev}")
@@ -35,6 +38,8 @@ def launch(scene, accel, org: Tensor, dir: Tensor
     f32, i32 = torch.float32, torch.int32
     _build.need(org, "org", f32, (n, 3), dev)
     _build.need(dir, "dir", f32, (n, 3), dev)
+    if live is not None:
+        _build.need(live, "live", torch.bool, (n,), dev)
     t = torch.empty((n,), dtype=f32, device=dev)
     pid = torch.empty((n,), dtype=i32, device=dev)
     steps = torch.empty((n,), dtype=i32, device=dev)
@@ -69,9 +74,9 @@ def launch(scene, accel, org: Tensor, dir: Tensor
         R, accel.max_per_cell]
     lib = _build.load()
     err = lib.rt_octree_dda(
-        *prims, *grid, _build.ptr(org), _build.ptr(dir), n, _build.ptr(t),
-        _build.ptr(pid), _build.ptr(steps), _build.ptr(tests), dev.index,
-        _build.stream(dev))
+        *prims, *grid, _build.ptr(org), _build.ptr(dir), _build.ptr(live), n,
+        _build.ptr(t), _build.ptr(pid), _build.ptr(steps), _build.ptr(tests),
+        dev.index, _build.stream(dev))
     _build.check(lib, err, "octree_dda_kernel")
     LAUNCHES["octree_dda"] += 1
     return t, pid, steps, tests

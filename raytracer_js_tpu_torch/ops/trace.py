@@ -93,16 +93,19 @@ def nearest_hit_brute(scene: Scene, org: Tensor,
 
 
 def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
-                dir: Tensor, accel=None) -> Tuple[Tensor, Tensor]:
+                dir: Tensor, accel=None,
+                live: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Backend dispatch for the nearest-hit search; ``accel`` is the
-    OCTREE backend's ``accel/octree.OctreeAccel``."""
+    OCTREE backend's ``accel/octree.OctreeAccel``. ``live`` ([N] bool) marks
+    the rays whose answer the caller reads: the OCTREE search walks only
+    those (the others get a miss); the other searches answer every ray."""
     if cfg.backend == HitBackend.OCTREE and accel is not None:
         from ..accel.octree import nearest_hit_octree
 
         # discrete, as PALLAS: detached inputs, no graph
         with torch.no_grad():
             return nearest_hit_octree(scene, accel, org.detach(),
-                                      dir.detach())
+                                      dir.detach(), live=live)
     if cfg.backend == HitBackend.PALLAS:
         # the search is discrete: detached inputs, no graph. Kernel B3
         # streams prims one at a time (1..384 prims); B4 tiles them
@@ -322,7 +325,10 @@ def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
     serves the OCTREE search and the transmission substance query."""
     alive = state.status == int(RayStatus.ALIVE)
     if pid_override is None:
-        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir, accel)
+        # a dead ray's answer is never read: every use of pid below is
+        # masked by alive (hit, miss) or by hit
+        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir, accel,
+                                  live=alive)
     else:
         pid = pid_override
     hit = alive & (pid >= 0)
@@ -455,7 +461,8 @@ def record_paths(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     rec = []
     for b in range(cfg.refmax):
         alive = state.status == int(RayStatus.ALIVE)
-        _t, pid = nearest_hit(scene, cfg, state.org, state.dir, accel)
+        _t, pid = nearest_hit(scene, cfg, state.org, state.dir, accel,
+                              live=alive)
         pid = torch.where(alive, pid, -1).to(torch.int32)
         rec.append(pid)
         state = _bounce(scene, cfg, state, rng, b, prows, pid_override=pid,

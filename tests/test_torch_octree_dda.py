@@ -1,10 +1,11 @@
 """The octree search kernel (``csrc/octree_dda.cu``) on the CPU: a float32
 model of its per-ray control flow in NumPy (one ray at a time, its own
-``3R + 2`` cap, the first minimum of a strict ``<``, the slots past a
-cell's count skipped) against the port's live-ray loop
-(``accel/octree.nearest_hit_octree_plain``) bit for bit in t, pid and each
-ray's steps and tests, and the same rays through the reference's DDA under
-the rounding rule of ``tests/test_torch_octree.py``. The kernel itself
+``3R + 2`` cap, the skip byte read before a cell's offsets, the first
+minimum of a strict ``<``, the slots past a cell's count skipped) against
+the port's live-ray loop (``accel/octree.nearest_hit_octree_plain``) bit
+for bit in t, pid and each ray's steps and tests, and the same rays
+through the reference's DDA under the rounding rule of
+``tests/test_torch_octree.py``. The kernel itself
 runs only on the card (``chip_smoke.py`` phase 9f holds it against the
 plain loop there); its dispatch is checked here."""
 import jax.numpy as jnp
@@ -149,21 +150,28 @@ def _model_ray(g, o, d):
             cell = [min(max(_int_rz(np.floor((p[a] - lo[a]) / cell_sz)), 0),
                         R - 1) for a in range(3)]
             lin = (cell[0] * R + cell[1]) * R + cell[2]
-            base = int(g["off"][lin])
-            m = min(int(g["off"][lin + 1]) - base, K)
-            t_min, p_min = INF, -1
-            for j in range(m):
-                pid = int(g["ids"][base + j])
-                t = _prim_t(g, o, d, pid)
-                if t < t_min:
-                    t_min, p_min = t, pid
-            tests += m
-            if t_min < t_best:
-                t_best, pid_best = t_min, p_min
+            # the skip byte first: 0 exactly where the cell lists an id,
+            # and only then the offsets
+            skip = int(g["skip"][lin])
+            if skip > 0:
+                assert g["off"][lin + 1] == g["off"][lin], lin
+            else:
+                base = int(g["off"][lin])
+                m = min(int(g["off"][lin + 1]) - base, K)
+                assert m > 0, lin
+                t_min, p_min = INF, -1
+                for j in range(m):
+                    pid = int(g["ids"][base + j])
+                    t = _prim_t(g, o, d, pid)
+                    if t < t_min:
+                        t_min, p_min = t, pid
+                tests += m
+                if t_min < t_best:
+                    t_best, pid_best = t_min, p_min
             nb = lo + (np.array(cell, f32) + sp) * cell_sz
             tq = (nb - o) * inv
             t_exit_cell = _nan_min(_nan_min(tq[0], tq[1]), tq[2])
-            k = f32(g["skip"][lin])
+            k = f32(skip)
             t_jump = t_cur + _clamp0(k - f32(2)) * dt_cheb
             t_new = _nan_max(_nan_max(t_exit_cell, t_jump), t_cur + eps_t)
             live = not ((not np.isinf(t_best) and t_best <= t_new)
@@ -330,7 +338,7 @@ def test_dispatch_card_launches_and_never_runs_the_plain_loop(
     t_m, p_m, s_m, n_m = _model(ps, pa, o, d)
     calls = []
 
-    def fake_launch(scene, accel, org, dir):
+    def fake_launch(scene, accel, org, dir, live=None):
         calls.append(org.shape[0])
         return t_m, p_m, s_m, n_m
 
