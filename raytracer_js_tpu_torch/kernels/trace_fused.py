@@ -45,6 +45,7 @@ from ..models.camera import Camera, angle_steps, pixel_rays
 from ..models.scene import Scene, box_volumes, sphere_volumes
 from ..ops import sampling
 from ..ops.vecmath import cross, length
+from ..utils.profiling import span
 from . import _build
 from . import nearest_hit as nh
 from ._build import need as _need, on_cpu as _on_cpu, ptr as _ptr
@@ -813,8 +814,9 @@ def trace_frame_fused(scene: Scene, cfg: RenderConfig, cam: Camera,
     """
     run = (trace_frame_fused_plain if _on_cpu(scene.device)
            else trace_frame_fused_cuda)
-    return run(scene, cfg, cam, seed=seed, sample=sample,
-               start_refr=start_refr)[0]
+    with span("rt.fused.frame"):
+        return run(scene, cfg, cam, seed=seed, sample=sample,
+                   start_refr=start_refr)[0]
 
 
 def trace_rays_fused(scene: Scene, cfg: RenderConfig, org: Tensor,

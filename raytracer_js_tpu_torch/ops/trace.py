@@ -47,6 +47,7 @@ from ..config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
 from ..kernels import nearest_hit as nh
 from ..models import textures as tex_mod
 from ..models.scene import Scene, prim_volumes
+from ..utils.profiling import span
 from . import intersect, sampling
 from .vecmath import reflect, refract, uv_map_sphere
 
@@ -325,12 +326,24 @@ def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
     serves the OCTREE search and the transmission substance query."""
     alive = state.status == int(RayStatus.ALIVE)
     if pid_override is None:
-        # a dead ray's answer is never read: every use of pid below is
+        # a dead ray's answer is never read: every use of pid in _shade is
         # masked by alive (hit, miss) or by hit
-        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir, accel,
-                                  live=alive)
+        with span("rt.trace.search"):
+            _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir,
+                                      accel, live=alive)
     else:
         pid = pid_override
+    with span("rt.trace.shade"):
+        return _shade(scene, cfg, state, rng, bounce, prows, alive, pid,
+                      accel)
+
+
+def _shade(scene: Scene, cfg: RenderConfig, state: RayState, rng, bounce,
+           prows: Optional[PrimRows], alive: Tensor, pid: Tensor,
+           accel) -> RayState:
+    """The rest of a :func:`_bounce` given the winners ``pid`` (-1 = miss)
+    of the ``alive`` rays: the surface recompute, the gathers, shading and
+    respawn."""
     hit = alive & (pid >= 0)
 
     if scene.n_prims == 0:

@@ -25,6 +25,7 @@ from .models.camera import Camera, pixel_rays
 from .models.scene import Scene
 from .ops import sampling
 from .ops import trace as trace_mod
+from .utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -55,12 +56,14 @@ def refuse_grad(scene: Scene, *tensors: Tensor, backend: str = "FUSED"
     without a word."""
     from .parallel.sharding import float_partition
 
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*float_partition(scene)[0], *tensors)):
-        raise RuntimeError(
-            f"the {backend} backend has no backward: an input requires "
-            f"grad; render with HitBackend.PALLAS or HitBackend.BRUTE to "
-            f"differentiate")
+    with span("rt.render.refuse_grad"):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad
+                for t in (*float_partition(scene)[0], *tensors)):
+            raise RuntimeError(
+                f"the {backend} backend has no backward: an input requires "
+                f"grad; render with HitBackend.PALLAS or HitBackend.BRUTE to "
+                f"differentiate")
 
 
 def _average(one, spp: int, stochastic: bool) -> Tensor:
@@ -131,47 +134,51 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
     """
     from .kernels import trace_fused
 
-    if cfg.backend == HitBackend.TILED and (
-            (scene.n_prims <= TILED_MIN_PRIMS and tables is None)
-            or scene.has_both):
-        # small scenes render faster on the whole-table wavefront path, and
-        # the tiled kernels have no BOTH branch
-        cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
-    if seed is None:
-        seed = sampling.DEFAULT_SEED
-    if cfg.backend == HitBackend.TILED:
-        from . import render_tiled as rtl
+    with span("rt.render"):
+        if cfg.backend == HitBackend.TILED and (
+                (scene.n_prims <= TILED_MIN_PRIMS and tables is None)
+                or scene.has_both):
+            # small scenes render faster on the whole-table wavefront path,
+            # and the tiled kernels have no BOTH branch
+            cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
+        if seed is None:
+            seed = sampling.DEFAULT_SEED
+        if cfg.backend == HitBackend.TILED:
+            from . import render_tiled as rtl
 
-        # before the host builds tables for a frame that would raise
-        refuse_grad(scene, camera.pos, camera.front, camera.left, camera.up,
-                    backend="TILED")
-        if tables is None:
-            tables = rtl.frame_tables(scene, camera)
-        # image scenes: a solid-search record pass + one flat replay shading
-        frame = (rtl.render_frame_tiled_replay_shaded
-                 if scene.textures.has_images or scene.sky_box is not None
-                 else rtl.render_frame_tiled)
+            # before the host builds tables for a frame that would raise
+            refuse_grad(scene, camera.pos, camera.front, camera.left,
+                        camera.up, backend="TILED")
+            if tables is None:
+                tables = rtl.frame_tables(scene, camera)
+            # image scenes: a solid-search record pass + one flat replay
+            # shading
+            frame = (rtl.render_frame_tiled_replay_shaded
+                     if scene.textures.has_images or scene.sky_box is not None
+                     else rtl.render_frame_tiled)
 
-        def one_tiled(s):
-            return frame(scene, cfg, camera, tables=tables, seed=seed,
-                         sample=s, accel=accel)
+            def one_tiled(s):
+                return frame(scene, cfg, camera, tables=tables, seed=seed,
+                             sample=s, accel=accel)
 
-        return _average(one_tiled, cfg.spp, _stochastic(scene, cfg))
-    if cfg.backend == HitBackend.FUSED and trace_fused.supports_frame(scene):
-        # headline path: rays are generated inside the kernel
-        refuse_grad(scene, camera.pos, camera.front, camera.left, camera.up)
-        refr0 = (start_substance(scene, camera.pos)
-                 if scene.has_transmission else None)
+            return _average(one_tiled, cfg.spp, _stochastic(scene, cfg))
+        if (cfg.backend == HitBackend.FUSED
+                and trace_fused.supports_frame(scene)):
+            # headline path: rays are generated inside the kernel
+            refuse_grad(scene, camera.pos, camera.front, camera.left,
+                        camera.up)
+            refr0 = (start_substance(scene, camera.pos)
+                     if scene.has_transmission else None)
 
-        def one_frame(s):
-            return trace_fused.trace_frame_fused(scene, cfg, camera,
-                                                 seed=seed, sample=s,
-                                                 start_refr=refr0)
+            def one_frame(s):
+                return trace_fused.trace_frame_fused(scene, cfg, camera,
+                                                     seed=seed, sample=s,
+                                                     start_refr=refr0)
 
-        return _average(one_frame, cfg.spp, _stochastic(scene, cfg))
-    org, dir = pixel_rays(camera)
-    colors = render_rays(scene, cfg, org, dir, seed, accel=accel)
-    return colors.reshape(camera.h, camera.w, 3)
+            return _average(one_frame, cfg.spp, _stochastic(scene, cfg))
+        org, dir = pixel_rays(camera)
+        colors = render_rays(scene, cfg, org, dir, seed, accel=accel)
+        return colors.reshape(camera.h, camera.w, 3)
 
 
 # Convenience alias matching the package-level API.

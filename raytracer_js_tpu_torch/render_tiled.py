@@ -49,6 +49,7 @@ from .kernels import trace_tiled as tt
 from .models import textures as tex_mod
 from .models.scene import Scene
 from .ops import sampling
+from .utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -355,6 +356,13 @@ def _sweep_perm(scene: Scene):
     return scene_p, sph, tri
 
 
+def _read_any(x: Tensor) -> bool:
+    """``bool(x.any())``, the frame path's blocking device-to-host read, in
+    an ``rt.sync`` span: the spans count the reads and time the waits."""
+    with span("rt.sync"):
+        return bool(x.any())
+
+
 def _epilogue(cr, cg, cb, path, status, atten: float):
     """EXHAUST blackout and the light-hit inverse-square law."""
     exhausted = status == _ALIVE
@@ -388,92 +396,94 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
     from .kernels.nearest_hit import nearest_hit_pallas
     from .ops.trace import RayState, _bounce
 
-    n = flat[0].shape[0]
-    cap = min(cap, n)
-    working = (flat[10] == _ALIVE) & (bounce < cfg.refmax)
-    if not bool(working.any()):
-        return flat, bounce, refr, rec
-    org_a = torch.stack(flat[0:3], -1)
-    dir_a = torch.stack(flat[3:6], -1)
-    key = (_pos_cell(scene, org_a) * 64 + _dir_bin(dir_a)).to(torch.int32)
-    key = torch.where(working, key, 1 << 30)
-    perm = torch.sort(key, stable=True).indices
-    flat_s = [f[perm] for f in flat]
-    bounce_s, refr_s = bounce[perm], refr[perm]
-    rid_s = rid[perm] if rid is not None else None
-    rec_s = rec[perm] if rec is not None else None
-    sl = [f[:cap] for f in flat_s]
-    org = torch.stack(sl[0:3], -1)
-    dirs = torch.stack(sl[3:6], -1)
-    # working rays are the sorted prefix: the search skips every block
-    # past them
-    nl = torch.clamp(working.sum(), max=cap).to(torch.int32)
-    work_sl = (sl[10] == _ALIVE) & (bounce_s[:cap] < cfg.refmax)
-    if sweep_tab is not None:
-        scene_s, sph_e, tri_e = sweep_tab
-        kw = {}
-        if SWEEP_LISTED:
-            if sph_e is not None and sph_e[1].shape[0] >= LISTED_MIN_TILES:
-                kw["tile_ids"] = _block_tile_select(org, dirs, work_sl,
-                                                    sph_e[1])
-                kw["sph_fan"] = sph_e[2]
-            if tri_e is not None and tri_e[1].shape[0] >= LISTED_MIN_TILES:
-                kw["tri_tile_ids"] = _block_tile_select(org, dirs, work_sl,
-                                                        tri_e[1])
-                kw["tri_fan"] = tri_e[2]
-        if (not kw and SWEEP_CULL and sph_e is not None and sph_e[2] == 1
-                and sph_e[1].shape[0] <= LISTED_MAX_TILES):
-            # the in-kernel block-cone cull of sphere tiles (B8)
-            kw["tile_bounds"] = sph_e[1]
-        _t, pid = nearest_hit_pallas(scene_s, org, dirs, n_live=nl, **kw)
-        # winners map back from permuted-class to global ids
-        pid = pid.long()
-        if sph_e is not None:
-            loc = torch.clamp(pid, 0, max(scene.n_spheres - 1, 0))
-            pid = torch.where((pid >= 0) & (pid < scene.n_spheres),
-                              sph_e[0].long()[loc], pid)
-        if tri_e is not None:
-            b_end = scene.n_spheres + scene.n_boxes
-            loc = torch.clamp(pid - b_end, 0, max(scene.n_tris - 1, 0))
-            pid = torch.where(pid >= b_end, b_end + tri_e[0].long()[loc],
-                              pid)
-    else:
-        _t, pid = nearest_hit_pallas(scene, org, dirs, n_live=nl)
-    pid = torch.where(work_sl, pid, -1).to(torch.int32)
-    st = RayState(org=org, dir=dirs, color=torch.stack(sl[6:9], -1),
-                  path=sl[9], refr=refr_s[:cap],
-                  status=torch.where(work_sl, _ALIVE, torch.where(
-                      sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
-    rng = (seed, rid_s[:cap]) if scene.has_rough else None
-    out = _bounce(scene, cfg, st, rng, bounce_s[:cap], prows,
-                  pid_override=pid, accel=accel)
-    cont = work_sl & (out.status == _ALIVE)
-    status_out = torch.where(out.status == _CAP, _ALIVE, out.status).to(
-        torch.int32)
-    new_sl = [out.org[:, 0], out.org[:, 1], out.org[:, 2], out.dir[:, 0],
-              out.dir[:, 1], out.dir[:, 2], out.color[:, 0], out.color[:, 1],
-              out.color[:, 2], out.path, status_out]
-    # scatter back: position k of the sorted order is ray perm[k]
-    flat_n = []
-    for a, f in zip(new_sl, flat_s):
-        g = torch.empty_like(f)
-        g[perm] = torch.cat([a.to(f.dtype), f[cap:]])
-        flat_n.append(g)
-    bounce_n = torch.empty_like(bounce)
-    bounce_n[perm] = torch.cat([bounce_s[:cap] + cont.to(bounce.dtype),
-                                bounce_s[cap:]])
-    refr_n = torch.empty_like(refr)
-    refr_n[perm] = torch.cat([out.refr, refr_s[cap:]])
-    if rec is not None:
-        # a working slice ray records its winner (-1 = resolved miss) at its
-        # current bounce column
-        upd = (work_sl[:, None] & (bounce_s[:cap, None] == torch.arange(
-            cfg.refmax, device=rec.device)))
-        head = torch.where(upd, pid[:, None], rec_s[:cap])
-        rec_n = torch.empty_like(rec)
-        rec_n[perm] = torch.cat([head, rec_s[cap:]])
-        rec = rec_n
-    return flat_n, bounce_n, refr_n, rec
+    with span("rt.tiled.round"):
+        n = flat[0].shape[0]
+        cap = min(cap, n)
+        working = (flat[10] == _ALIVE) & (bounce < cfg.refmax)
+        if not _read_any(working):
+            return flat, bounce, refr, rec
+        org_a = torch.stack(flat[0:3], -1)
+        dir_a = torch.stack(flat[3:6], -1)
+        key = (_pos_cell(scene, org_a) * 64 + _dir_bin(dir_a)).to(torch.int32)
+        key = torch.where(working, key, 1 << 30)
+        perm = torch.sort(key, stable=True).indices
+        flat_s = [f[perm] for f in flat]
+        bounce_s, refr_s = bounce[perm], refr[perm]
+        rid_s = rid[perm] if rid is not None else None
+        rec_s = rec[perm] if rec is not None else None
+        sl = [f[:cap] for f in flat_s]
+        org = torch.stack(sl[0:3], -1)
+        dirs = torch.stack(sl[3:6], -1)
+        # working rays are the sorted prefix: the search skips every block
+        # past them
+        nl = torch.clamp(working.sum(), max=cap).to(torch.int32)
+        work_sl = (sl[10] == _ALIVE) & (bounce_s[:cap] < cfg.refmax)
+        if sweep_tab is not None:
+            scene_s, sph_e, tri_e = sweep_tab
+            kw = {}
+            if SWEEP_LISTED:
+                if sph_e is not None and sph_e[1].shape[0] >= LISTED_MIN_TILES:
+                    kw["tile_ids"] = _block_tile_select(org, dirs, work_sl,
+                                                        sph_e[1])
+                    kw["sph_fan"] = sph_e[2]
+                if tri_e is not None and tri_e[1].shape[0] >= LISTED_MIN_TILES:
+                    kw["tri_tile_ids"] = _block_tile_select(org, dirs, work_sl,
+                                                            tri_e[1])
+                    kw["tri_fan"] = tri_e[2]
+            if (not kw and SWEEP_CULL and sph_e is not None and sph_e[2] == 1
+                    and sph_e[1].shape[0] <= LISTED_MAX_TILES):
+                # the in-kernel block-cone cull of sphere tiles (B8)
+                kw["tile_bounds"] = sph_e[1]
+            _t, pid = nearest_hit_pallas(scene_s, org, dirs, n_live=nl, **kw)
+            # winners map back from permuted-class to global ids
+            pid = pid.long()
+            if sph_e is not None:
+                loc = torch.clamp(pid, 0, max(scene.n_spheres - 1, 0))
+                pid = torch.where((pid >= 0) & (pid < scene.n_spheres),
+                                  sph_e[0].long()[loc], pid)
+            if tri_e is not None:
+                b_end = scene.n_spheres + scene.n_boxes
+                loc = torch.clamp(pid - b_end, 0, max(scene.n_tris - 1, 0))
+                pid = torch.where(pid >= b_end, b_end + tri_e[0].long()[loc],
+                                  pid)
+        else:
+            _t, pid = nearest_hit_pallas(scene, org, dirs, n_live=nl)
+        pid = torch.where(work_sl, pid, -1).to(torch.int32)
+        st = RayState(org=org, dir=dirs, color=torch.stack(sl[6:9], -1),
+                      path=sl[9], refr=refr_s[:cap],
+                      status=torch.where(work_sl, _ALIVE, torch.where(
+                          sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
+        rng = (seed, rid_s[:cap]) if scene.has_rough else None
+        out = _bounce(scene, cfg, st, rng, bounce_s[:cap], prows,
+                      pid_override=pid, accel=accel)
+        cont = work_sl & (out.status == _ALIVE)
+        status_out = torch.where(out.status == _CAP, _ALIVE, out.status).to(
+            torch.int32)
+        new_sl = [out.org[:, 0], out.org[:, 1], out.org[:, 2],
+                  out.dir[:, 0], out.dir[:, 1], out.dir[:, 2],
+                  out.color[:, 0], out.color[:, 1], out.color[:, 2],
+                  out.path, status_out]
+        # scatter back: position k of the sorted order is ray perm[k]
+        flat_n = []
+        for a, f in zip(new_sl, flat_s):
+            g = torch.empty_like(f)
+            g[perm] = torch.cat([a.to(f.dtype), f[cap:]])
+            flat_n.append(g)
+        bounce_n = torch.empty_like(bounce)
+        bounce_n[perm] = torch.cat([bounce_s[:cap] + cont.to(bounce.dtype),
+                                    bounce_s[cap:]])
+        refr_n = torch.empty_like(refr)
+        refr_n[perm] = torch.cat([out.refr, refr_s[cap:]])
+        if rec is not None:
+            # a working slice ray records its winner (-1 = resolved miss) at
+            # its current bounce column
+            upd = (work_sl[:, None] & (bounce_s[:cap, None] == torch.arange(
+                cfg.refmax, device=rec.device)))
+            head = torch.where(upd, pid[:, None], rec_s[:cap])
+            rec_n = torch.empty_like(rec)
+            rec_n[perm] = torch.cat([head, rec_s[cap:]])
+            rec = rec_n
+        return flat_n, bounce_n, refr_n, rec
 
 
 def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
@@ -713,7 +723,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
             t_done = torch.zeros((n,), dtype=torch.float32, device=dev)
             c_round = min(packet_c_max, ESC_MAX)
             for fine in [False] * (cfg.refmax - 1) + [True] * EXTRA_ROUNDS:
-                if not bool(working(cols, bounce).any()):
+                if not _read_any(working(cols, bounce)):
                     break
                 # rays at the bounce cap pass through the packet round
                 capped = (cols[10] == _ALIVE) & (bounce >= cfg.refmax)
@@ -738,7 +748,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
             cap = min(n, RESCUE_CAP)
             sweep_tab = None
         max_rounds = (cfg.refmax + 3) * (-(-n // cap))
-        while rounds < max_rounds and bool(working(cols, bounce).any()):
+        while rounds < max_rounds and _read_any(working(cols, bounce)):
             cols, bounce, refr, rec = _rescue_round(
                 scene, cfg, cols, bounce, refr, seed, rid, prows, cap=cap,
                 sweep_tab=sweep_tab, rec=rec, accel=accel)

@@ -3,7 +3,8 @@
 Port of ``raytracer_js_tpu.utils.profiling``. The reference's only
 instrumentation is a wall-clock FPS HUD with a 32-sample moving average
 (main.ts:244-263) and a debug ray counter (raytracer.ts:77,98): here a
-rays/s meter, the HUD's moving average, and a ``torch.profiler`` trace.
+rays/s meter, the HUD's moving average, a ``torch.profiler`` trace, and
+the named spans (:func:`span`) the frame path records into that trace.
 """
 from __future__ import annotations
 
@@ -72,6 +73,56 @@ def profile_trace(logdir: Optional[str]) -> Iterator[None]:
     path = pathlib.Path(logdir)
     path.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path / "trace.json"))
+
+
+#: what :func:`span` returns while no profiler runs: one shared no-op
+_NO_SPAN = contextlib.nullcontext()
+if hasattr(torch.autograd.profiler, "_is_profiler_enabled"):
+    def _profiling() -> bool:
+        return torch.autograd.profiler._is_profiler_enabled
+else:
+    _profiling = torch._C._autograd._profiler_enabled
+
+#: span name -> [times entered, host seconds inside], summed over every
+#: stretch in which a profiler ran (the spans are counted only then)
+SPAN_TOTALS: dict = {}
+
+
+class _Span:
+    """A span while a profiler runs: a record function of the host alone
+    (``_RecordFunctionFast``, an operator's scope: unlike
+    ``torch.profiler.record_function`` it puts no annotation on the
+    device's timeline, which a reduction of the trace would take for one
+    more device operation), and its entry in :data:`SPAN_TOTALS`."""
+
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rf = torch._C._profiler._RecordFunctionFast(name)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.rf.__exit__(*exc)
+        tot = SPAN_TOTALS.setdefault(self.name, [0, 0.0])
+        tot[0] += 1
+        tot[1] += dt
+        return False
+
+
+def span(name: str):
+    """A named span of the program, for ``with``: while a ``torch.profiler``
+    runs (:func:`profile_trace`, or any other), an event ``name`` on the
+    trace's host timeline, counted and timed in :data:`SPAN_TOTALS`;
+    otherwise one shared no-op context, so a span costs a flag test when
+    nobody traces. The frame path's spans are named ``rt.*`` (README)."""
+    if _profiling():
+        return _Span(name)
+    return _NO_SPAN
 
 
 def block(x):
