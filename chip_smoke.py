@@ -199,6 +199,26 @@ Phases, one JSON line each:
                 ``accumulate``; ``demo.main`` at 128x128 (4 frames, then
                 ``--orbit 2``) on the card (BRUTE, the reference's
                 ``refmax=4`` config): the images written.
+ 9j. main-shade — the wavefront shade kernel (``kernels/shade``,
+                ``shade_bounce_kernel``, one launch a bounce; it replaces
+                the plain ``ops/trace._shade``, no TPU kernel): (a) the
+                kernel against ``_shade`` (and the epilogue on the last
+                bounce), every column of the state and the next ALIVE mask
+                bit for bit, at both bounces of refmax 2 on config 4's
+                frame rays (the octree search), the 600-sphere near-miss
+                field, the rough scene with its glass as diffuse (the RNG
+                live) and ``tri_edge_field``, and on states with every
+                status (TILED's capped one too) and a per-ray bounce; (b)
+                config 4's OCTREE and TILED frames equal to the plain
+                path's bit for bit (``plain_shade``), the launches counted
+                (OCTREE: 2 and 0 plain; TILED: one a sweep round), each
+                frame's ms, device operations and idle share; (c)
+                ``config4_glass_scene`` (OCTREE at 480x272) and a cube-sky
+                scene on the plain ``_shade``; (d) the kernel alone at
+                config 4's bounce 0 and bounce 1 against its bound (bytes)
+                and the plain ``_shade``, and ``engages``'s host time
+                (config 4, grad on). ``python3 chip_smoke.py --shade``
+                runs the build and this phase alone.
      times (sharded) — the sharded headline frame at one rank against
                 ``render_rays`` FUSED, the all-reduce of a config-5 fit
                 step's gradients at one rank (NCCL) and at two (gloo), and
@@ -261,6 +281,7 @@ from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
 from raytracer_js_tpu_torch.kernels import octree_dda as od
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
+from raytracer_js_tpu_torch.kernels import shade
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
 from raytracer_js_tpu_torch.kernels import trace_tiled as tt
 from raytracer_js_tpu_torch.models.camera import move, pixel_rays, rotate_h
@@ -315,6 +336,7 @@ NH_SOURCE = "raytracer_js_tpu_torch/csrc/nearest_hit.cu"
 REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
 TILED_SOURCE = "raytracer_js_tpu_torch/csrc/trace_tiled.cu"
 OCTREE_SOURCE = "raytracer_js_tpu_torch/csrc/octree_dda.cu"
+SHADE_SOURCE = "raytracer_js_tpu_torch/csrc/shade.cu"
 FIT_VIEWS = 8
 #: phase 9f: BASELINE config 2's frame, the octree depths of configs 2 and
 #: 4 (``BASELINE.md``; ``bench.py --c4-backend octree``), the substance
@@ -1644,7 +1666,8 @@ def ptxas_of(log: str, names) -> dict:
 #: refmax 2 (the fit's), B3, B1, B2 and the octree search
 PTXAS_KERNELS = ("replay_bwd_kernelILi2E", "replay_fwd_kernelILi2E",
                  "nh_scalar_kernel", "trace_frame_kernel",
-                 "trace_rays_kernel", "octree_dda_kernel")
+                 "trace_rays_kernel", "octree_dda_kernel",
+                 "shade_bounce_kernel")
 
 
 def host_trace(fn, reps=5) -> dict:
@@ -2340,6 +2363,321 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
 SHARD_FIT = FitConfig(steps=2, lr=1e-2, optimizer="sgd", replay_every=1)
 #: seconds the two gloo ranks of 9h may take, start to exit
 GLOO_JOIN_S = 600
+
+
+# ---------------------------------------------------------------------------
+# Phase 9j: the wavefront shade kernel
+# ---------------------------------------------------------------------------
+
+#: TILED's capped status (``render_tiled._CAP``) among the statuses of the
+#: all-status case
+SHADE_STATUSES = (0, 1, 2, 3, 4, rtl._CAP)
+
+
+@contextlib.contextmanager
+def plain_shade():
+    """While active, no wavefront engages the shade kernel: every bounce
+    takes the plain ``ops/trace._shade``."""
+    real = shade.engages
+    shade.engages = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        shade.engages = real
+
+
+def shade_plain(scene, cfg, state, pid, bounce, rng, last):
+    """The kernel's plain twin on the card: ``_shade`` (and the epilogue
+    where ``last``) -> (state, the next ALIVE mask)."""
+    alive = state.status == 0
+    out = trace_mod._shade(scene, cfg, state, rng, bounce,
+                           trace_mod.prim_rows(scene), alive, pid, None)
+    if last:
+        out = trace_mod._epilogue(cfg, out)
+    return out, out.status == 0
+
+
+def float_err(a, b) -> float:
+    """The largest |a - b| over two float tensors of one shape: 0 where
+    their bits agree, inf where one is NaN and the other is not."""
+    if a.numel() == 0:
+        return 0.0
+    d = torch.where(bits(a) == bits(b), 0.0, (a - b).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+
+def compare_shade(name, scene, cfg, state, pid, bounce, rng=None,
+                  last=False):
+    """The shade kernel against its plain twin on one bounce's state and
+    winners, both on the card: every column and the next ALIVE mask bit
+    for bit, and the largest difference of the float columns -> (report,
+    the plain output state, its ALIVE mask)."""
+    k, k_alive = trace_mod._bounce_kernel(scene, cfg, state, rng, bounce,
+                                          pid_override=pid, last=last)
+    p, p_alive = shade_plain(scene, cfg, state, pid, bounce, rng, last)
+    torch.cuda.synchronize()
+    differ = {}
+    for col in ("org", "dir", "color", "path", "refr", "status"):
+        a, b = bits(getattr(k, col)), bits(getattr(p, col))
+        differ[col] = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+    differ["alive"] = int((k_alive != p_alive).sum())
+    err = max(float_err(getattr(k, col), getattr(p, col))
+              for col in ("org", "dir", "color", "path", "refr"))
+    alive = state.status == 0
+    rep = dict(rays=int(state.org.shape[0]), alive=int(alive.sum()),
+               hits=int((alive & (pid >= 0)).sum()),
+               out_status={int(v): int((p.status == v).sum())
+                           for v in SHADE_STATUSES},
+               bounce=("per ray" if isinstance(bounce, torch.Tensor)
+                       else bounce), rough=scene.has_rough, last=last,
+               rays_differing=differ, max_abs_err=err)
+    rep["ok"] = not any(differ.values()) and err == 0.0
+    emit(phase="shade", case=name, prims=scene.n_prims, **rep)
+    check(rep["ok"], f"shade {name}: the kernel differs from the plain "
+          f"_shade: {rep}")
+    return rep, p, p_alive
+
+
+def shade_bounces(name, scene, cfg, org, dir, accel=None) -> list:
+    """A refmax-2 trace's two bounces of ``org``/``dir`` through
+    :func:`compare_shade` (the second with the epilogue), each bounce's
+    winners searched by ``cfg.backend`` on the plain twin's state."""
+    state, rng = trace_mod._start(scene, cfg, org, dir, DEFAULT_SEED, None,
+                                  None)
+    reps, live = [], None
+    for b in range(cfg.refmax):
+        _t, pid = trace_mod.nearest_hit(scene, cfg, state.org, state.dir,
+                                        accel, live=live)
+        rep, state, live = compare_shade(f"{name}_bounce{b}", scene, cfg,
+                                         state, pid, b, rng,
+                                         last=b == cfg.refmax - 1)
+        reps.append(rep)
+    return reps
+
+
+def all_status_state(scene, cfg, org, dir, accel=None, seed=11):
+    """A state with every status (TILED's capped one too), random colors
+    and paths, each ray's winner from the search and a per-ray bounce ->
+    (state, pid, bounce, rng)."""
+    g = np.random.default_rng(seed)
+    n = org.shape[0]
+    dev = org.device
+    state, rng = trace_mod._start(scene, cfg, org, dir, DEFAULT_SEED, None,
+                                  None)
+    status = np.where(g.random(n) < 0.6, 0, g.choice(SHADE_STATUSES, n))
+    state = dataclasses.replace(
+        state, status=torch.as_tensor(status, dtype=torch.int32, device=dev),
+        color=torch.as_tensor(g.uniform(0, 1, (n, 3)), dtype=torch.float32,
+                              device=dev),
+        path=torch.as_tensor(g.uniform(0, 20, n), dtype=torch.float32,
+                             device=dev))
+    _t, pid = trace_mod.nearest_hit(scene, cfg, org, dir, accel)
+    bounce = torch.as_tensor(g.integers(0, 4, n), dtype=torch.int32,
+                             device=dev)
+    return state, pid, bounce, rng
+
+
+def shade_bound(n, scene, per_ray_bounce=False):
+    """The least time of one shade launch over ``n`` rays -> (bound_ms,
+    bound_by): each ray reads org, dir, color (36 B), path, status, pid (12
+    B), a per-ray bounce and, on a rough scene, its ray id (4 B each), and
+    writes org, dir, color, path, status and alive (45 B); the tables are
+    read at the winners (L2). Operations do not bound it."""
+    per_ray = 48 + 45 + 4 * per_ray_bounce + 4 * scene.has_rough
+    return bound(0.0, float(n * per_ray))
+
+
+def host_us(fn, warmup=20, timed=200) -> float:
+    """Median host time of ``fn`` in microseconds: for host-only work."""
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e6
+
+
+def shade_phase(dev, c4=None, c4_cam=None, build=None) -> dict:
+    """Phase 9j, main-shade (module docstring): the shade kernel against
+    the plain ``_shade`` bit for bit on its cases, whole OCTREE and TILED
+    frames of config 4 against the plain path's, the scenes outside its
+    class on the plain path, and the kernel's time alone against its
+    bound."""
+    if c4 is None:
+        c4, c4_cam = config4_scene(device=dev), config4_camera(dev)
+    cfg_o = RenderConfig(refmax=2, backend=HitBackend.OCTREE)
+    cfg_p = RenderConfig(refmax=2, backend=HitBackend.PALLAS)
+    cam256 = make_camera((0.0, 0.0, 0.5), 256, 256, np.pi / 2, np.pi / 2,
+                         device=dev)
+    cam512 = make_camera((0.0, 0.0, 0.5), 512, 512, np.pi / 2, np.pi / 2,
+                         device=dev)
+
+    # (a) the kernel against its plain twin, both bounces
+    t0 = time.perf_counter()
+    acc4 = octree.build_octree(c4, rt.OctreeConfig(max_depth=C4_DEPTH))
+    org4, dir4 = pixel_rays(c4_cam)
+    reps = shade_bounces("a_config4", c4, cfg_o, org4, dir4, acc4)
+    field = near_miss_field(device=dev)
+    reps += shade_bounces("b_near_miss_600", field, cfg_p, *pixel_rays(cam512))
+    # the rough mirror scene with its glass as diffuse, which the class
+    # takes: the RNG is live
+    rough = dataclasses.replace(rough_scene(device=dev),
+                                has_transmission=False)
+    check(shade.supports(rough) and rough.has_rough,
+          "shade: the rough scene is outside the class")
+    reps += shade_bounces("c_rough", rough, cfg_p, *pixel_rays(cam512))
+    tri, org_t, dir_t = tri_edge_field(device=dev)
+    reps += shade_bounces("d_tri_edge", tri, cfg_p, org_t, dir_t)
+    for name, scene, cfg, cam, acc in (
+            ("e_all_status_rough", rough, cfg_p, cam512, None),
+            ("f_all_status_config4", c4, cfg_o, c4_cam, acc4)):
+        st, pid, bounce, rng = all_status_state(scene, cfg, *pixel_rays(cam),
+                                                accel=acc)
+        for last in (False, True):
+            reps.append(compare_shade(
+                f"{name}_{'last' if last else 'bounce'}", scene, cfg, st, pid,
+                bounce, rng, last=last)[0])
+    cases_s = time.perf_counter() - t0
+
+    # (b) whole frames of config 4: the kernel's against the plain path's
+    frames = {}
+    tables4 = rtl.frame_tables(c4, c4_cam)
+    cfg_t = RenderConfig(refmax=2, backend=HitBackend.TILED)
+    for path, cfg, kw in (("octree", cfg_o, dict(accel=acc4)),
+                          ("tiled", cfg_t, dict(tables=tables4))):
+        out = {}
+        for mode in ("kernel", "plain"):
+            ctx = plain_shade() if mode == "plain" else contextlib.nullcontext()
+            with ctx:
+                shade.LAUNCHES.update(shade=0, plain=0)
+                img = rt.render_hdr(c4, c4_cam, cfg, **kw)
+                torch.cuda.synchronize()
+                la = dict(shade.LAUNCHES)
+                ms = spread(event_ms(lambda: rt.render_hdr(c4, c4_cam, cfg,
+                                                           **kw),
+                                     warmup=1, timed=5))
+                bd = frame_breakdown(lambda: rt.render_hdr(c4, c4_cam, cfg,
+                                                           **kw))
+            out[mode] = dict(img=img, launches=la, frame_ms=ms,
+                             ops=bd.get("ops"), device_ms=bd.get("device_ms"),
+                             idle_share=bd.get("idle_share"),
+                             by_name=bd.get("by_name", [])[:6])
+        equal = torch.equal(bits(out["kernel"]["img"]),
+                            bits(out["plain"]["img"]))
+        err = float_err(out["kernel"]["img"], out["plain"]["img"])
+        for mode in out:
+            out[mode].pop("img")
+        frames[path] = dict(equal=equal, max_abs_err=err, **out)
+        emit(phase="main-shade", case=f"b_config4_{path}_frame", w=c4_cam.w,
+             h=c4_cam.h, bit_equal=equal, max_abs_err=err, **out)
+        check(equal, f"shade: the {path} frame differs from the plain path's")
+    la_o, la_t = (frames[p]["kernel"]["launches"] for p in ("octree",
+                                                            "tiled"))
+    check(la_o == {"shade": 2, "plain": 0}
+          and frames["octree"]["plain"]["launches"] == {"shade": 0,
+                                                         "plain": 2},
+          f"shade: the OCTREE frame's launches {frames['octree']}")
+    check(la_t["shade"] >= 1 and la_t["plain"] == 0
+          and frames["tiled"]["plain"]["launches"]["shade"] == 0,
+          f"shade: the TILED frame's launches {frames['tiled']}")
+
+    # (c) scenes outside the class take the plain _shade
+    small = make_camera((0.0, 0.0, 0.5), 480, 272, np.pi / 2, 0.5 * np.pi
+                        * 272 / 480, device=dev)
+    glass = config4_glass_scene(device=dev)
+    acc_g = octree.build_octree(glass, rt.OctreeConfig(max_depth=C4_DEPTH))
+    b = SceneBuilder()
+    faces = [b.add_solid_texture(c) for c in
+             ((.9, .2, .2), (.2, .9, .2), (.2, .2, .9), (.9, .9, .2),
+              (.2, .9, .9), (.9, .2, .9))]
+    b.set_sky_box(faces)
+    mm = b.add_material(ResponseType.REFLECTION, mirror=True)
+    b.add_sphere((4.0, 0.0, 0.3), 1.0, mm, faces[0])
+    cube = b.build(dev)
+    outside = {}
+    for name, scene, cfg, kw in (
+            ("glass_octree", glass, cfg_o, dict(accel=acc_g)),
+            ("cube_sky_brute", cube, RenderConfig(refmax=2), {})):
+        shade.LAUNCHES.update(shade=0, plain=0)
+        img = rt.render_hdr(scene, small, cfg, **kw)
+        torch.cuda.synchronize()
+        outside[name] = dict(launches=dict(shade.LAUNCHES),
+                             finite=bool(torch.isfinite(img).all()),
+                             in_class=shade.supports(scene))
+        check(outside[name]["launches"] == {"shade": 0, "plain": 2}
+              and outside[name]["finite"] and not outside[name]["in_class"],
+              f"shade: {name} did not take the plain _shade: "
+              f"{outside[name]}")
+    emit(phase="main-shade", case="c_outside_the_class", **outside)
+
+    # (d) the kernel alone against its bound: config 4's bounce 0 (every
+    # ray ALIVE) and bounce 1 as the frame launches it
+    st0, rng0 = trace_mod._start(c4, cfg_o, org4, dir4, DEFAULT_SEED, None,
+                                 None)
+    _t, pid0 = trace_mod.nearest_hit(c4, cfg_o, org4, dir4, acc4)
+    st1, alive1 = trace_mod._bounce_kernel(c4, cfg_o, st0, rng0, 0,
+                                           pid_override=pid0)
+    _t, pid1 = trace_mod.nearest_hit(c4, cfg_o, st1.org, st1.dir, acc4,
+                                     live=alive1)
+    n4 = org4.shape[0]
+    timed = {}
+    for name, st, pid, last in (("bounce0", st0, pid0, False),
+                                ("bounce1", st1, pid1, True)):
+        rep = kernel_report(lambda: shade.launch(
+            c4, st.org, st.dir, st.color, st.path, st.status, pid,
+            int(name[-1]), rng0, last=last), "shade_bounce")
+        plain_ms = cuda_median_ms(lambda: shade_plain(
+            c4, cfg_o, st, pid, int(name[-1]), rng0, last), timed=5)
+        bound_ms, bound_by = shade_bound(n4, c4)
+        timed[name] = dict(alive=int((st.status == 0).sum()),
+                           ms=rep["ms"], kernel_ms=rep["kernel_ms"],
+                           device_ops=rep["device_ops"], plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bound_share=(None if rep["kernel_ms"] is None
+                                        else bound_ms
+                                        / rep["kernel_ms"]["median"]))
+    # the dispatch's host time, once a trace: config 4's leaf walk with
+    # grad enabled, as a frame of the benchmark pays it
+    engages_us = host_us(lambda: shade.engages(c4, st0.org, st0.dir,
+                                               st0.refr))
+    ptx = ptxas_of(build.log, ["shade_bounce_kernel"]) if build else None
+    emit(phase="main-shade", case="d_times", rays=n4, timing=MS_TIMING,
+         kernel_timing=KERNEL_MS_TIMING, ptxas=ptx, engages_us=engages_us,
+         **timed)
+    err = max([r["max_abs_err"] for r in reps]
+              + [f["max_abs_err"] for f in frames.values()])
+    return dict(cases=len(reps), cases_s=cases_s, frames=frames,
+                outside=outside, times=timed, engages_us=engages_us,
+                max_abs_err=err)
+
+
+def shade_only() -> int:
+    """``python3 chip_smoke.py --shade``: the build (with ptxas's report of
+    the shade kernel) and phase 9j alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    build = _build.build()
+    _build.load()
+    emit(phase="build", seconds=time.perf_counter() - t0, card=smi,
+         ptxas=ptxas_of(build.log, ["shade_bounce_kernel"]))
+    shade_phase(dev, build=build)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": smi.split(",")[0],
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def unsharded_step(scene, cfg, cam, target, seed):
@@ -3404,6 +3742,9 @@ def main() -> int:
     # ---- 9i. main-A9: progressive_render FUSED, the demo on the card -------
     a9_phase(dev, head, head_cam)
 
+    # ---- 9j. main-shade: the wavefront shade kernel -------------------------
+    shade_row = shade_phase(dev, c4, c4_cam, build)
+
     # ---- 10. times at the main paths' shapes -------------------------------
     # B1 and B2 by events around their wrappers (the tables kept on the
     # scene) and alone by the profiler, at refmax 2 and 1
@@ -3938,6 +4279,21 @@ def main() -> int:
             case="config 4 bounce 0, 2,088,960 rays, depth 8",
             bounce1_as_the_frame_launches_it=oct_row["bounce1"],
             ptxas=ptxas_of(build.log, ["octree_dda_kernel"])),
+        # no Pallas kernel: the reference's shade is XLA-fused glue
+        row("shade_bounce_kernel", SHADE_SOURCE,
+            "raytracer_js_tpu/ops/trace.py (XLA-fused, no kernel)",
+            shade_row["frames"]["octree"]["kernel"]["launches"]["shade"],
+            shade_row["max_abs_err"],
+            shade_row["times"]["bounce0"]["ms"]["median"],
+            shade_row["times"]["bounce0"]["plain_ms"],
+            (shade_row["times"]["bounce0"]["bound_ms"],
+             shade_row["times"]["bounce0"]["bound_by"]),
+            kernel_ms=shade_row["times"]["bounce0"]["kernel_ms"],
+            kernel_timing=KERNEL_MS_TIMING,
+            case="config 4 bounce 0, 2,088,960 rays",
+            bounce1_as_the_frame_launches_it=shade_row["times"]["bounce1"],
+            engages_us=shade_row["engages_us"],
+            ptxas=ptxas_of(build.log, ["shade_bounce_kernel"])),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -4106,4 +4462,6 @@ def frame_times(headline_only: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--frame-times"]:
         sys.exit(frame_times(sys.argv[2:] == ["--headline-only"]))
+    if sys.argv[1:2] == ["--shade"]:
+        sys.exit(shade_only())
     sys.exit(main())

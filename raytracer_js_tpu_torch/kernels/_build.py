@@ -158,6 +158,15 @@ SIGNATURES = {
     "rt_octree_dda": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
                        _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _LL, _P, _P,
                        _P, _P, _I, _P], _I),
+    # sphere centers, radii (+ count), box centers, halves (+ count), tri
+    # v0, v1, v2 (+ count), prim material and texture ids, material
+    # response, light, mirror, roughness, solid colors, sky row, org, dir,
+    # color, path, status, pid, bounce (+ the int bounce), rid, has_rough,
+    # seed, last, atten, n, the six outputs, device, stream
+    "rt_shade_bounce": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _I, _U, _I, _F, _LL, _P, _P, _P, _P, _P, _P, _I,
+                         _P], _I),
     "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
     # atten2, g_color, n_glob, g_org, g_dir, out, partial, blocks, device,
     # stream

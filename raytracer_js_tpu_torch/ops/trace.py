@@ -25,6 +25,12 @@ Behavioral contract (reference source in parentheses):
 * miss -> color times sky (equirect or cube map), MISS; alive after
   ``refmax`` bounces -> black.
 
+On CUDA tensors a scene of the shade kernel's class (``kernels/shade``:
+solid textures and sky, no transmission) shades each bounce in one launch
+of that kernel, the last bounce with the epilogue, when autograd would
+record nothing; ``_shade`` below is its plain twin, which every other case
+takes.
+
 Autograd: the hit search is discrete and runs under ``torch.no_grad()`` on
 detached inputs; gradients flow only through the surface recompute
 (``ops/intersect`` ``*_surface``), the color products, the inverse-square
@@ -37,6 +43,7 @@ no gradient there either.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -45,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
                       RenderConfig, ResponseType)
 from ..kernels import nearest_hit as nh
+from ..kernels import shade as shade_kernel
 from ..models import textures as tex_mod
 from ..models.scene import Scene, prim_volumes
 from ..utils.profiling import span
@@ -314,28 +322,89 @@ def sky_color(scene: Scene, dir: Tensor) -> Tensor:
 # The bounce loop
 # ---------------------------------------------------------------------------
 
+def _winners(scene: Scene, cfg: RenderConfig, state: RayState,
+             live: Optional[Tensor], pid_override: Optional[Tensor],
+             accel) -> Tensor:
+    """A bounce's winner per ray: ``pid_override``, else the nearest-hit
+    search. A dead ray's answer is never read (every use of pid in the
+    shade is masked by alive or by hit), so ``live`` goes to the search."""
+    if pid_override is not None:
+        return pid_override
+    with span("rt.trace.search"):
+        _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir, accel,
+                                  live=live)
+    return pid
+
+
 def _bounce(scene: Scene, cfg: RenderConfig, state: RayState, rng,
             bounce, prows: Optional[PrimRows],
-            pid_override: Optional[Tensor] = None, accel=None) -> RayState:
+            pid_override: Optional[Tensor] = None, accel=None,
+            live: Optional[Tensor] = None) -> RayState:
     """One wavefront pass: traverse -> intersect -> shade -> respawn.
 
     ``bounce`` is the RNG stream's bounce index: an int, or a per-ray [N]
     tensor (the TILED sweep rounds mix rays of several bounces).
     ``pid_override`` [N] supplies the winner per ray (-1 = miss) in place of
     the nearest-hit search: the path-replay mode. ``accel`` (the octree)
-    serves the OCTREE search and the transmission substance query."""
-    alive = state.status == int(RayStatus.ALIVE)
-    if pid_override is None:
-        # a dead ray's answer is never read: every use of pid in _shade is
-        # masked by alive (hit, miss) or by hit
-        with span("rt.trace.search"):
-            _t_hit, pid = nearest_hit(scene, cfg, state.org, state.dir,
-                                      accel, live=alive)
-    else:
-        pid = pid_override
+    serves the OCTREE search and the transmission substance query.
+    ``live`` is the state's ALIVE mask where the caller has it."""
+    alive = state.status == int(RayStatus.ALIVE) if live is None else live
+    pid = _winners(scene, cfg, state, alive, pid_override, accel)
     with span("rt.trace.shade"):
+        shade_kernel.count_plain(state.org.device)
         return _shade(scene, cfg, state, rng, bounce, prows, alive, pid,
                       accel)
+
+
+def _bounce_kernel(scene: Scene, cfg: RenderConfig, state: RayState, rng,
+                   bounce, live: Optional[Tensor] = None,
+                   pid_override: Optional[Tensor] = None, last: bool = False,
+                   accel=None) -> Tuple[RayState, Tensor]:
+    """:func:`_bounce` with the shade kernel (``kernels/shade``), for a
+    wavefront that :func:`shade_kernel.engages` admits -> (state, the next
+    bounce's ALIVE mask). ``live`` is this bounce's ALIVE mask for the
+    search (None: every ray, as at a trace's first bounce); ``last``
+    applies :func:`trace_rays`'s epilogue in the same launch."""
+    pid = _winners(scene, cfg, state, live, pid_override, accel)
+    with span("rt.trace.shade"):
+        org, dir, color, path, status, alive = shade_kernel.launch(
+            scene, state.org, state.dir, state.color, state.path,
+            state.status, pid, bounce, rng, last=last,
+            atten=cfg.distance_attenuation_factor)
+    return RayState(org=org, dir=dir, color=color, path=path,
+                    refr=state.refr, status=status), alive
+
+
+def _shader(scene: Scene, *tensors: Tensor, remat: bool = False):
+    """How each bounce of a wavefront of these state ``tensors`` shades,
+    chosen once: :func:`_bounce_kernel` where ``kernels/shade.engages``
+    (never under ``remat``), else the plain :func:`_bounce` with the
+    scene's prim rows built here (each bounce checkpointed under
+    ``remat``). Either is called as ``shader(cfg, state, rng, bounce,
+    live=None, pid_override=None, last=False, accel=None)`` -> (state, the
+    next bounce's ALIVE mask, which the plain bounce leaves None where
+    ``last``); ``live`` is this bounce's ALIVE mask, None where every ray
+    is ALIVE or the plain bounce is to compute it; ``last`` applies
+    :func:`_epilogue`."""
+    if not remat and shade_kernel.engages(scene, *tensors):
+        return functools.partial(_bounce_kernel, scene)
+    prows = prim_rows(scene)
+
+    def plain(cfg, state, rng, bounce, live=None, pid_override=None,
+              last=False, accel=None):
+        if remat:
+            state = checkpoint(_bounce, scene, cfg, state, rng, bounce,
+                               prows, pid_override, accel, live,
+                               use_reentrant=False)
+        else:
+            state = _bounce(scene, cfg, state, rng, bounce, prows,
+                            pid_override=pid_override, accel=accel,
+                            live=live)
+        if last:
+            return _epilogue(cfg, state), None
+        return state, state.status == int(RayStatus.ALIVE)
+
+    return plain
 
 
 def _shade(scene: Scene, cfg: RenderConfig, state: RayState, rng, bounce,
@@ -470,16 +539,16 @@ def record_paths(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     ``accel`` as in :func:`trace_rays`.
     """
     state, rng = _start(scene, cfg, org, dir, seed, ray_id, start_refr)
-    prows = prim_rows(scene)
+    shader = _shader(scene, state.org)
     rec = []
+    alive = state.status == int(RayStatus.ALIVE)
     for b in range(cfg.refmax):
-        alive = state.status == int(RayStatus.ALIVE)
         _t, pid = nearest_hit(scene, cfg, state.org, state.dir, accel,
                               live=alive)
         pid = torch.where(alive, pid, -1).to(torch.int32)
         rec.append(pid)
-        state = _bounce(scene, cfg, state, rng, b, prows, pid_override=pid,
-                        accel=accel)
+        state, alive = shader(cfg, state, rng, b, live=alive,
+                              pid_override=pid, accel=accel)
     return torch.stack(rec, dim=1)
 
 
@@ -499,20 +568,27 @@ def trace_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     Returns the final RayState: LIGHT rays carry the inverse-square
     attenuation, EXHAUST rays are black. Under ``cfg.remat`` each bounce
     is recomputed in the backward instead of keeping its residuals; the
-    counter RNG makes the recompute exact.
+    counter RNG makes the recompute exact. Whether the shade kernel shades
+    (:func:`_shader`) is decided once, here: under ``remat`` never.
     """
     state, rng = _start(scene, cfg, org, dir, seed, ray_id, start_refr)
-    prows = prim_rows(scene)
-    remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.refmax == 0:
+        return _epilogue(cfg, state)
+    shader = _shader(scene, state.org, state.dir, state.refr,
+                     remat=cfg.remat and torch.is_grad_enabled())
+    # every ray of _start is ALIVE: the first bounce takes live=None
+    alive = None
     for b in range(cfg.refmax):
-        pid_b = None if pid_seq is None else pid_seq[:, b]
-        if remat:
-            state = checkpoint(_bounce, scene, cfg, state, rng, b, prows,
-                               pid_b, accel, use_reentrant=False)
-        else:
-            state = _bounce(scene, cfg, state, rng, b, prows,
-                            pid_override=pid_b, accel=accel)
+        state, alive = shader(
+            cfg, state, rng, b, live=alive,
+            pid_override=None if pid_seq is None else pid_seq[:, b],
+            last=b == cfg.refmax - 1, accel=accel)
+    return state
 
+
+def _epilogue(cfg: RenderConfig, state: RayState) -> RayState:
+    """The end of a trace: ALIVE rays turn EXHAUST and black, LIGHT rays
+    take the inverse-square law."""
     # alive after refmax bounces -> black (raytracer.ts:256-263)
     exhausted = state.status == int(RayStatus.ALIVE)
     color = torch.where(exhausted[:, None], 0.0, state.color)

@@ -157,6 +157,16 @@ def float_leaf_names(scene: Scene) -> List[str]:
     return [".".join(p) for p in _float_paths(scene)]
 
 
+def records_grad(scene: Scene, *tensors: Tensor) -> bool:
+    """Whether autograd would record a computation on ``scene`` and
+    ``tensors``: grad is enabled and one of ``tensors`` or a float tensor
+    of the scene (:func:`float_partition`'s params) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return (any(t.requires_grad for t in tensors)
+            or any(_get(scene, p).requires_grad for p in _float_paths(scene)))
+
+
 def float_partition(scene: Scene) -> Tuple[List[Tensor],
                                             Callable[[list], Scene]]:
     """Split a scene into ``(params, rebuild)``.

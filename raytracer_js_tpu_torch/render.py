@@ -54,12 +54,10 @@ def refuse_grad(scene: Scene, *tensors: Tensor, backend: str = "FUSED"
     (FUSED, TILED): its kernels (and their plain versions) return detached
     values, so a loss through them would get zero or partial gradients
     without a word."""
-    from .parallel.sharding import float_partition
+    from .parallel.sharding import records_grad
 
     with span("rt.render.refuse_grad"):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad
-                for t in (*float_partition(scene)[0], *tensors)):
+        if records_grad(scene, *tensors):
             raise RuntimeError(
                 f"the {backend} backend has no backward: an input requires "
                 f"grad; render with HitBackend.PALLAS or HitBackend.BRUTE to "
@@ -108,11 +106,14 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
             return _average(one_fused, cfg.spp, _stochastic(scene, cfg))
         cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
 
-    refr0 = start_substance(scene, org[0]).expand(org.shape[0])
+    # the camera's substance matters only where a ray can refract, and
+    # sample 0 of one draws from the ray's own id
+    refr0 = (start_substance(scene, org[0]).expand(org.shape[0])
+             if scene.has_transmission else None)
 
     def one_sample(s):
-        return trace_mod.trace_rays(scene, cfg, org, dir, seed,
-                                    ray_id * cfg.spp + s,
+        rid = ray_id if cfg.spp == 1 else ray_id * cfg.spp + s
+        return trace_mod.trace_rays(scene, cfg, org, dir, seed, rid,
                                     start_refr=refr0, accel=accel).color
 
     return _average(one_sample, cfg.spp, True)

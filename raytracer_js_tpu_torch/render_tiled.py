@@ -375,16 +375,16 @@ def _epilogue(cr, cg, cb, path, status, atten: float):
 
 
 def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
-                  rid, prows, cap: int, sweep_tab=None, rec=None,
+                  rid, shader, cap: int, sweep_tab=None, rec=None,
                   accel=None):
     """One sweep round: sort the still-working rays to the front in
     (position cell, direction bin) order, search the first ``cap`` of them
     (with ``sweep_tab``, the :func:`_sweep_perm` tables: B6 listed per
     128-ray block for each class with ``LISTED_MIN_TILES`` tiles when
     ``SWEEP_LISTED``, else B8 culling the sphere tiles when ``SWEEP_CULL``;
-    B4 whole-table otherwise), shade and respawn through
-    ``ops/trace._bounce`` with ``pid_override``, and scatter the state
-    back. Each round fully resolves up to ``cap`` working rays (hit, miss
+    B4 whole-table otherwise), shade and respawn through ``shader`` (the
+    frame's ``ops/trace._shader``) with ``pid_override``, and scatter the
+    state back. Each round fully resolves up to ``cap`` working rays (hit, miss
     or continuation).
 
     ``flat`` holds the 11 state columns [n]; ``bounce``/``refr`` [n];
@@ -394,7 +394,7 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
     rec)``.
     """
     from .kernels.nearest_hit import nearest_hit_pallas
-    from .ops.trace import RayState, _bounce
+    from .ops.trace import RayState
 
     with span("rt.tiled.round"):
         n = flat[0].shape[0]
@@ -454,9 +454,9 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
                       status=torch.where(work_sl, _ALIVE, torch.where(
                           sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
         rng = (seed, rid_s[:cap]) if scene.has_rough else None
-        out = _bounce(scene, cfg, st, rng, bounce_s[:cap], prows,
-                      pid_override=pid, accel=accel)
-        cont = work_sl & (out.status == _ALIVE)
+        out, alive = shader(cfg, st, rng, bounce_s[:cap], pid_override=pid,
+                            accel=accel)
+        cont = work_sl & alive
         status_out = torch.where(out.status == _CAP, _ALIVE, out.status).to(
             torch.int32)
         new_sl = [out.org[:, 0], out.org[:, 1], out.org[:, 2],
@@ -710,11 +710,12 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
         return (cols[10] == _ALIVE) & (bounce < cfg.refmax)
 
     if cfg.refmax > 1:
-        from .ops.trace import prim_rows
+        from .ops.trace import _shader
 
         # rays continuing out of bounce 0 have spent one bounce
         bounce = (cols[10] == _ALIVE).to(torch.int32)
-        prows = prim_rows(scene)
+        # the shade is chosen once a frame
+        shader = _shader(scene, cols[0])
         if scene.n_prims <= SWEEP_MAX_PRIMS:
             cap = min(n, SWEEP_SLICE)
             sweep_tab = (_sweep_perm(scene) if SWEEP_LISTED or SWEEP_CULL
@@ -750,7 +751,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
         max_rounds = (cfg.refmax + 3) * (-(-n // cap))
         while rounds < max_rounds and _read_any(working(cols, bounce)):
             cols, bounce, refr, rec = _rescue_round(
-                scene, cfg, cols, bounce, refr, seed, rid, prows, cap=cap,
+                scene, cfg, cols, bounce, refr, seed, rid, shader, cap=cap,
                 sweep_tab=sweep_tab, rec=rec, accel=accel)
             rounds += 1
         unresolved = working(cols, bounce).sum().to(torch.int32)

@@ -37,6 +37,7 @@ def test_sources_are_every_cu_file():
     assert sorted(p.name for p in _build.SOURCES) == ["nearest_hit.cu",
                                                       "octree_dda.cu",
                                                       "replay_grad.cu",
+                                                      "shade.cu",
                                                       "trace_fused.cu",
                                                       "trace_tiled.cu"]
 
