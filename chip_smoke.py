@@ -50,7 +50,12 @@ Phases, one JSON line each:
                 rays exhausted at refmax. Up to 192 prims the backward's
                 sums equal the float32 model of its order
                 (``rg.bwd_sums_model``) bit for bit. Then B5's gradients
-                against autograd through the search path on view (a).
+                against autograd through the search path on view (a); then
+                (f) BASELINE config 5's size: the 1M-prim config-4 field
+                (the fit's class, global-atomic sphere sums), view 0 of
+                config 5 recorded through the octree, and both kernels
+                timed alone (``python3 chip_smoke.py --replay-1m`` runs
+                (f) by itself).
  6b. B7       — the tiled frame kernel against its plain version, every
                 plane bit for bit (and the chunks each warp scanned), and
                 every plane bit for bit against the plain version with the
@@ -1093,6 +1098,53 @@ def compare_replay(name, scene, org, dir, pid_seq, refmax, g_color=None):
           and sums_ok and repro_ok and model_equal is not False,
           f"B5 {name}: {rep}")
     return rep, k_col
+
+
+def replay_1m_phase(dev) -> dict:
+    """B5 at BASELINE config 5's size (phase 6f): the 1M-prim config-4
+    field (999,999 spheres, the global-atomic sphere sums), view 0 of config
+    5 (1920x1088 at (0, -4, 0.5)) recorded through the octree (depth 8),
+    its kernels against their plain versions on the card (colors and
+    per-ray cotangents bit for bit, the sums within 1e-5 of the sum of
+    the terms' magnitudes) and timed alone -> report."""
+    scene = config4_scene(1_000_000, device=dev)
+    cfg = RenderConfig(refmax=2, backend=HitBackend.OCTREE)
+    check(rg.supports_fit(scene, cfg) and not rg.supports_listed(scene, cfg),
+          "the 1M field is not in the fit's class alone")
+    accel = octree.build_octree(scene, rt.OctreeConfig(max_depth=8))
+    cam = make_camera((0.0, -4.0, 0.5), C4_W, C4_H, np.pi / 2,
+                      np.pi / 2 * C4_H / C4_W, device=dev)
+    org, dir = pixel_rays(cam)
+    pid = record_paths(scene, cfg, org, dir, accel=accel)
+    n = org.shape[0]
+    target = torch.as_tensor(np.random.default_rng(12).uniform(
+        0.0, 1.0, (n, 3)).astype(np.float32), device=dev)
+    tabs = rg.scene_tables(scene)
+    g = 2.0 * (rg.launch_fwd(tabs, org, dir, pid, 2, 1.0) - target) / n
+    rep, _ = compare_replay("f_config5_1m_view0", scene, org, dir, pid, 2, g)
+    rep.update(
+        fwd_ms=cuda_median_ms(lambda: rg.launch_fwd(tabs, org, dir, pid, 2,
+                                                    1.0)),
+        bwd_ms=cuda_median_ms(lambda: rg.launch_bwd(tabs, org, dir, pid, g,
+                                                    2, 1.0)),
+        finite=all(bool(torch.isfinite(x).all()) for x in
+                   rg.launch_bwd(tabs, org, dir, pid, g, 2, 1.0)))
+    emit(phase="B5", case="f_config5_1m_times", fwd_ms=rep["fwd_ms"],
+         bwd_ms=rep["bwd_ms"], finite=rep["finite"])
+    check(rep["finite"], "B5 at 1M: non-finite cotangents")
+    return rep
+
+
+def replay_1m_only() -> int:
+    """``python3 chip_smoke.py --replay-1m``: phase 6f alone."""
+    dev = card()
+    if dev is None:
+        return 1
+    replay_1m_phase(dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def bits(x):
@@ -2276,7 +2328,7 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
     real_build = octree.build_octree
 
     def counting_build(scene, *a, **kw):
-        builds.append((scene.device.type, kw.get("like") is not None))
+        builds.append(scene.device.type)
         return real_build(scene, *a, **kw)
 
     octree.build_octree = counting_build
@@ -2312,8 +2364,8 @@ def octree_phase(dev, head, c4, c4_cam, hdr4_p, pid4_p, org4, dir4) -> dict:
                                     start, rt.OctreeConfig())))
     finally:
         torch.use_deterministic_algorithms(False)
-    rebuilds = {d: sum(1 for dd, like in builds if dd == d and like)
-                for d in ("cuda", "cpu")}
+    # each fit's first build is the caller's; the rest are its rebuilds
+    rebuilds = {d: builds.count(d) - 1 for d in ("cuda", "cpu")}
 
     def same_fit(a, b):
         return a.losses == b.losses and all(
@@ -2653,17 +2705,26 @@ def shade_phase(dev, c4=None, c4_cam=None, build=None) -> dict:
                 max_abs_err=err)
 
 
-def shade_only() -> int:
-    """``python3 chip_smoke.py --shade``: the build (with ptxas's report of
-    the shade kernel) and phase 9j alone."""
+def card():
+    """The card, current and with TF32 refused; None (and why, on standard
+    error) without one."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+        return None
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def shade_only() -> int:
+    """``python3 chip_smoke.py --shade``: the build (with ptxas's report of
+    the shade kernel) and phase 9j alone."""
+    dev = card()
+    if dev is None:
+        return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3159,6 +3220,7 @@ def main() -> int:
          worst_leaf=max(ratios, key=ratios.get))
     check(worst <= 1.0 and abs(l_k - l_s) <= 1e-5 * abs(l_s),
           f"B5 grads differ from the search path's: {worst}")
+    b5.append(replay_1m_phase(dev))
 
     # ---- 6b. B7 against its plain version ----------------------------------
     b7 = [compare_tiled("a_one_tile_128x32", head, make_camera(
@@ -4464,4 +4526,6 @@ if __name__ == "__main__":
         sys.exit(frame_times(sys.argv[2:] == ["--headline-only"]))
     if sys.argv[1:2] == ["--shade"]:
         sys.exit(shade_only())
+    if sys.argv[1:2] == ["--replay-1m"]:
+        sys.exit(replay_1m_only())
     sys.exit(main())

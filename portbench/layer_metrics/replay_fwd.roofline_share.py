@@ -1,0 +1,9 @@
+"""``replay_fwd_kernel``'s (B5 forward) share of its roofline over the
+traced fit steps: ``roofline_replay.fwd_floor_s`` of a view times the
+views replayed, over the kernel's device time."""
+from portbench import roofline_replay
+
+
+def read(ctx, run):
+    return roofline_replay.share(ctx, run, "replay_fwd_kernel",
+                                 roofline_replay.fwd_floor_s)

@@ -18,8 +18,8 @@ kernel for later bounces). ``HitBackend.OCTREE`` with an ``accel``
 (``accel/octree.build_octree``, host-built with the native scene kit,
 ``native``) searches the octree's grid in plain PyTorch; the same accel
 serves the transmission substance query of every backend. Inverse rendering
-(``optim.fit``) differentiates the search path, or the replay of recorded
-winners through the replay kernels (``kernels/replay_grad``,
+(``fit``, ``optim/fit``) differentiates the search path, or the replay of
+recorded winners through the replay kernels (``kernels/replay_grad``,
 ``csrc/replay_grad.cu``). On CPU tensors every kernel runs its plain
 PyTorch version instead.
 """
@@ -35,10 +35,14 @@ from .config import (
 )
 from .models.camera import Camera, make_camera, pixel_rays
 from .models.scene import Scene, SceneBuilder
+from .optim import FitConfig, FitStep, fit
+from .parallel.sharding import float_leaf_names
 from .render import render, render_hdr
 
 __all__ = [
     "Camera",
+    "FitConfig",
+    "FitStep",
     "HitBackend",
     "OctreeConfig",
     "RenderConfig",
@@ -49,6 +53,8 @@ __all__ = [
     "TextureKind",
     "ToneMapConfig",
     "ToneMapperKind",
+    "fit",
+    "float_leaf_names",
     "make_camera",
     "pixel_rays",
     "render",

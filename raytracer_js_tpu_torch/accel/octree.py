@@ -36,6 +36,7 @@ from ..kernels import _build
 from ..models.scene import Scene, prim_aabbs
 from ..ops import intersect as I
 from ..ops.vecmath import cross, dot
+from ..utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -112,10 +113,12 @@ def covering_levels(lo: np.ndarray, hi: np.ndarray, root_lo: np.ndarray,
 
 
 def _aabbs_f64(scene: Scene) -> Tuple[np.ndarray, np.ndarray]:
-    """The float32 prim AABBs, read as float64 on the host."""
+    """The float32 prim AABBs, read as float64 on the host (an ``rt.sync``
+    span: the build's one read from the device)."""
     lo, hi = prim_aabbs(scene)
-    return (lo.detach().cpu().numpy().astype(np.float64),
-            hi.detach().cpu().numpy().astype(np.float64))
+    with span("rt.sync"):
+        lo, hi = lo.detach().cpu(), hi.detach().cpu()
+    return lo.numpy().astype(np.float64), hi.numpy().astype(np.float64)
 
 
 def _small_inside(lo: np.ndarray, hi: np.ndarray):

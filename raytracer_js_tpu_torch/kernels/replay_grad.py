@@ -20,7 +20,9 @@ roughness, transmission or triangles, ``spp == 1``, ``refmax <= 4``
 (:func:`supports`: at most 192 prims; :func:`supports_listed`: up to 16384
 spheres). One kernel serves both classes, since a thread indexes its prim
 directly; the reference's per-tile id lists (``build_tile_lists``) only
-shortened its pid-match scans and are not ported.
+shortened its pid-match scans and are not ported. So the port's fit takes
+it on a wider class of its own, :func:`supports_fit`: the listed class
+with no cap on the sphere count (BASELINE config 5's 1M spheres).
 
 Each kernel has a plain PyTorch version (:func:`replay_fwd_plain`,
 :func:`replay_bwd_plain`) with the kernel's expressions in the kernel's
@@ -86,6 +88,18 @@ def supports_listed(scene: Scene, cfg: RenderConfig) -> bool:
             and not scene.has_rough and not scene.has_transmission
             and scene.n_tris == 0 and 0 < scene.n_prims
             and scene.n_spheres <= LISTED_MAX_SPHERES
+            and scene.n_boxes <= SCAN_MAX_PRIMS
+            and cfg.refmax <= 4 and cfg.spp == 1)
+
+
+def supports_fit(scene: Scene, cfg: RenderConfig) -> bool:
+    """The port's class for the fit's replay: :func:`supports_listed`
+    without its cap on spheres (above ``SCAN_MAX_PRIMS`` prims the
+    backward sums sphere cotangents with global atomics whatever their
+    count); at most ``SCAN_MAX_PRIMS`` boxes."""
+    return (not scene.textures.has_images and scene.sky_box is None
+            and not scene.has_rough and not scene.has_transmission
+            and scene.n_tris == 0 and 0 < scene.n_prims
             and scene.n_boxes <= SCAN_MAX_PRIMS
             and cfg.refmax <= 4 and cfg.spp == 1)
 
@@ -747,7 +761,7 @@ def replay_colors(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     """Differentiable replay colors [N, 3] through kernel B5.
 
     The drop-in for ``trace_rays(..., pid_seq=pid_seq).color`` on the
-    :func:`supports_listed` class (the caller checks it); gradients reach
+    :func:`supports_fit` class (the caller checks it); gradients reach
     every scene float leaf the colors depend on and ``org``/``dir`` (the
     camera pose). The prim and sky colors are gathered from
     ``textures.solid_rgb`` outside the Function, so autograd carries their

@@ -5,11 +5,14 @@ pose, optimized with ``torch.optim`` (Adam or SGD with optax's defaults).
 A fit renders a batch of views per step (BASELINE config 5: 8 views) and
 differentiates either the search path or, with ``replay_every``, the
 search-free replay of recorded winners: kernel B5
-(``kernels/replay_grad``) on its class, autograd through
+(``kernels/replay_grad``) on the port's class for it
+(``replay_grad.supports_fit``, any sphere count), autograd through
 ``ops/trace.trace_rays(..., pid_seq=...)`` elsewhere. The OCTREE backend
 searches an ``accel/octree.OctreeAccel``, rebuilt from the moving geometry
 every ``accel_every`` steps. With a ``mesh`` (``parallel/sharding``) every
 view's rays are split over the ranks and the gradients all-reduced once.
+A step's parts are ``rt.fit.*`` spans (``utils/profiling.span``), and a
+``hook`` sees each step's parameters, gradients, loss and recording.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..parallel import sharding
 from ..parallel.sharding import float_partition
 from ..render import render_rays, start_substance
 from ..utils import checkpoint as ckpt
+from ..utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -53,9 +57,8 @@ class FitConfig:
     #: the OCTREE accel's staleness policy: rebuild the octree from the
     #: current geometry every N steps after the first (0 = never; the
     #: accel then goes stale as geometry moves, which changes which prim
-    #: is found, never the gradient flow). The rebuild keeps the first
-    #: accel's shapes (``build_octree(like=...)``) and raises when the
-    #: geometry outgrows them
+    #: is found, never the gradient flow). Each rebuild is a fresh build
+    #: at the first accel's depth, so moved geometry never outgrows it
     accel_every: int = 0
     #: optimize the camera poses too: each camera's (pos, front, left, up)
     #: joins the params after the scene's float leaves; the triad gradient
@@ -70,6 +73,29 @@ class FitResult:
     losses: list
     #: fitted cameras (None unless FitConfig.fit_cameras)
     cameras: Optional[list] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FitStep:
+    """What :func:`fit`'s ``hook`` sees of a step, after the gradients are
+    final (all-reduced, masked, projected) and before the optimizer step.
+    The tensors are the fit's own: copy what outlives the call."""
+
+    step: int
+    #: the step's loss (0-d, detached; the sum over the ranks with a mesh)
+    loss: Tensor
+    #: the parameters as the step used them, in ``trainable``'s order
+    #: (``parallel/sharding.float_leaf_names``, then each camera's pos,
+    #: front, left, up with ``fit_cameras``), and their gradients
+    params: List[Tensor]
+    grads: List[Tensor]
+    #: the winners the step replayed (per view, [rays, refmax] of its
+    #: rows; None without ``replay_every``), and whether it recorded them
+    recs: Optional[List[Tensor]]
+    recorded: bool
+    #: the fit's ``torch.optim`` optimizer, before its step (its ``state``
+    #: holds Adam's moments and step count)
+    optimizer: torch.optim.Optimizer
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -166,9 +192,10 @@ def replay_loss(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                 seed: int = sampling.DEFAULT_SEED,
                 rows: slice = ALL_ROWS) -> Tensor:
     """:func:`multiview_loss` through the replay of recorded winners:
-    kernel B5 where ``replay_grad.supports`` holds, else autograd through
-    the replaying trace loop. ``recs`` holds the winners of ``rows``."""
-    use_kernel = rg_kernel.supports(scene, cfg)
+    kernel B5 where ``replay_grad.supports_fit`` holds, else autograd
+    through the replaying trace loop. ``recs`` holds the winners of
+    ``rows``."""
+    use_kernel = rg_kernel.supports_fit(scene, cfg)
     total = torch.zeros((), dtype=torch.float32, device=targets.device)
     n_pix = 0
     for v, cam in enumerate(cameras):
@@ -188,7 +215,9 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
         targets: Tensor, fit_cfg: FitConfig = FitConfig(),
         seed: int = sampling.DEFAULT_SEED,
         trainable: Optional[Callable[[int, Tensor], bool]] = None,
-        mesh=None, accel=None) -> FitResult:
+        mesh=None, accel=None,
+        hook: Optional[Callable[[FitStep], Optional[bool]]] = None
+        ) -> FitResult:
     """Optimize the scene's float leaves (and, with ``fit_cameras``, the
     camera poses) to match ``targets`` [V, h*w, 3].
 
@@ -209,6 +238,10 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     optimizer step. Every rank thus takes the same step and the params stay
     replicated bit for bit. Each rank rebuilds the same accel. Only rank 0
     writes checkpoints; every rank restores.
+
+    ``hook(FitStep)`` is called once a step, after the gradients are final
+    and before the optimizer step; a true return ends the fit after that
+    step. Unset, it costs nothing and the steps are the same.
     """
     rows = ALL_ROWS
     if mesh is not None:
@@ -257,61 +290,78 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     losses = []
     recs = None
     for step in range(start_step, fit_cfg.steps):
-        if (accel is not None and fit_cfg.accel_every
-                and step > start_step
-                and (step - start_step) % fit_cfg.accel_every == 0):
-            from ..accel.octree import build_octree
-            from ..config import OctreeConfig
+        with span("rt.fit.step"):
+            if (accel is not None and fit_cfg.accel_every
+                    and step > start_step
+                    and (step - start_step) % fit_cfg.accel_every == 0):
+                from ..accel.octree import build_octree
+                from ..config import OctreeConfig
 
-            accel = build_octree(
-                rebuild_scene([p.detach() for p in params[:n_scene]]),
-                OctreeConfig(max_depth=accel.max_depth), l_cut=accel.l_cut,
-                like=accel)
-        k = step_seed(seed, step)
-        opt.zero_grad(set_to_none=True)
-        sc, cams = rebuild_all(params)
-        if fit_cfg.replay_every:
-            if (step - start_step) % fit_cfg.replay_every == 0:
-                recs = record_views(sc, cfg, cams, k, accel=accel, rows=rows)
-            loss = replay_loss(sc, cfg, cams, targets, recs, k, rows=rows)
-        else:
-            loss = multiview_loss(sc, cfg, cams, targets, k, accel=accel,
-                                  rows=rows)
-        loss.backward()
-        with torch.no_grad():
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in params]
-            if mesh is not None:
-                loss, *grads = sharding.all_reduce_sum(
-                    mesh, [loss.detach(), *grads])
-            if trainable is not None:
-                grads = [g if trainable(i, p) else torch.zeros_like(g)
-                         for i, (g, p) in enumerate(zip(grads, params))]
-            if fit_cfg.fit_cameras:
-                grads = _project_triad_grads(params, grads, n_scene,
-                                             len(cameras))
-            for p, g in zip(params, grads):
-                p.grad = g
-        opt.step()
-        if fit_cfg.fit_cameras:
-            # the retraction: a gradient step denormalizes the triad
+                with span("rt.fit.rebuild"):
+                    accel = build_octree(
+                        rebuild_scene([p.detach() for p in params[:n_scene]]),
+                        OctreeConfig(max_depth=accel.max_depth),
+                        l_cut=accel.l_cut)
+            k = step_seed(seed, step)
+            opt.zero_grad(set_to_none=True)
+            sc, cams = rebuild_all(params)
+            recorded = False
+            if fit_cfg.replay_every:
+                if (step - start_step) % fit_cfg.replay_every == 0:
+                    with span("rt.fit.record"):
+                        recs = record_views(sc, cfg, cams, k, accel=accel,
+                                            rows=rows)
+                    recorded = True
+                with span("rt.fit.replay"):
+                    loss = replay_loss(sc, cfg, cams, targets, recs, k,
+                                       rows=rows)
+            else:
+                loss = multiview_loss(sc, cfg, cams, targets, k, accel=accel,
+                                      rows=rows)
+            with span("rt.fit.backward"):
+                loss.backward()
             with torch.no_grad():
-                for i, cam in enumerate(rebuild_all(params)[1]):
-                    cam = renormalized(cam)
-                    o = n_scene + 4 * i
-                    params[o + 1].copy_(cam.front)
-                    params[o + 2].copy_(cam.left)
-                    params[o + 3].copy_(cam.up)
-        losses.append(float(loss.detach()))
-        if (fit_cfg.ckpt_dir and fit_cfg.save_every
-                and (step + 1) % fit_cfg.save_every == 0):
-            if mesh is None or mesh.rank == 0:
-                pathlib.Path(fit_cfg.ckpt_dir).mkdir(parents=True,
-                                                     exist_ok=True)
-                ckpt.save(pathlib.Path(fit_cfg.ckpt_dir) / f"ckpt_{step + 1}",
-                          (params, opt.state_dict()), step=step + 1)
-            if mesh is not None and mesh.group is not None:
-                dist.barrier(group=mesh.group)
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                         for p in params]
+                if mesh is not None:
+                    loss, *grads = sharding.all_reduce_sum(
+                        mesh, [loss.detach(), *grads])
+                if trainable is not None:
+                    grads = [g if trainable(i, p) else torch.zeros_like(g)
+                             for i, (g, p) in enumerate(zip(grads, params))]
+                if fit_cfg.fit_cameras:
+                    grads = _project_triad_grads(params, grads, n_scene,
+                                                 len(cameras))
+                for p, g in zip(params, grads):
+                    p.grad = g
+            stop = hook is not None and hook(FitStep(
+                step=step, loss=loss.detach(), params=params, grads=grads,
+                recs=recs, recorded=recorded, optimizer=opt))
+            with span("rt.fit.opt"):
+                opt.step()
+                if fit_cfg.fit_cameras:
+                    # the retraction: a gradient step denormalizes the triad
+                    with torch.no_grad():
+                        for i, cam in enumerate(rebuild_all(params)[1]):
+                            cam = renormalized(cam)
+                            o = n_scene + 4 * i
+                            params[o + 1].copy_(cam.front)
+                            params[o + 2].copy_(cam.left)
+                            params[o + 3].copy_(cam.up)
+            with span("rt.sync"):
+                losses.append(float(loss.detach()))
+            if (fit_cfg.ckpt_dir and fit_cfg.save_every
+                    and (step + 1) % fit_cfg.save_every == 0):
+                if mesh is None or mesh.rank == 0:
+                    pathlib.Path(fit_cfg.ckpt_dir).mkdir(parents=True,
+                                                         exist_ok=True)
+                    ckpt.save(
+                        pathlib.Path(fit_cfg.ckpt_dir) / f"ckpt_{step + 1}",
+                        (params, opt.state_dict()), step=step + 1)
+                if mesh is not None and mesh.group is not None:
+                    dist.barrier(group=mesh.group)
+        if stop:
+            break
     sc_out, cams_out = rebuild_all([p.detach() for p in params])
     return FitResult(scene=sc_out, losses=losses,
                      cameras=cams_out if fit_cfg.fit_cameras else None)
