@@ -290,23 +290,22 @@ from raytracer_js_tpu_torch.kernels import shade
 from raytracer_js_tpu_torch.kernels import trace_fused as tf
 from raytracer_js_tpu_torch.kernels import trace_tiled as tt
 from raytracer_js_tpu_torch.models.camera import move, pixel_rays, rotate_h
-from raytracer_js_tpu_torch.models.scene import prim_aabbs
+from raytracer_js_tpu_torch.models.scene import (float_leaf_names,
+                                                 float_partition, prim_aabbs)
 from raytracer_js_tpu_torch.ops import trace as trace_mod
-from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED
-from raytracer_js_tpu_torch.ops.trace import record_paths, trace_rays
+from raytracer_js_tpu_torch.ops.sampling import DEFAULT_SEED, step_seed
+from raytracer_js_tpu_torch.ops.trace import (record_paths, start_substance,
+                                              trace_rays)
 from raytracer_js_tpu_torch.optim import FitConfig, fit
-from raytracer_js_tpu_torch.optim.fit import (record_views, replay_loss,
-                                              step_seed)
+from raytracer_js_tpu_torch.optim.fit import record_views, replay_loss
 from raytracer_js_tpu_torch.parallel import distributed as pdist
 from raytracer_js_tpu_torch.parallel.dryrun import dryrun_multichip
 from raytracer_js_tpu_torch.parallel.sharding import (all_reduce_sum,
                                                        make_mesh,
                                                        render_hdr_sharded,
                                                        sharded_fit_step)
-from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
-                                                       float_partition)
 from raytracer_js_tpu_torch import render_tiled as rtl
-from raytracer_js_tpu_torch.render import render_rays, start_substance
+from raytracer_js_tpu_torch.render import render_rays
 from raytracer_js_tpu_torch.utils import parity
 from raytracer_js_tpu_torch.utils.mesh import icosphere
 from raytracer_js_tpu_torch.view import exposure, screen, view

@@ -16,12 +16,22 @@ tiled frame kernel for bounce 0, ``kernels/trace_tiled``,
 ``csrc/trace_tiled.cu``; sweep rounds through the listed nearest-hit
 kernel for later bounces). ``HitBackend.OCTREE`` with an ``accel``
 (``accel/octree.build_octree``, host-built with the native scene kit,
-``native``) searches the octree's grid in plain PyTorch; the same accel
-serves the transmission substance query of every backend. Inverse rendering
-(``fit``, ``optim/fit``) differentiates the search path, or the replay of
-recorded winners through the replay kernels (``kernels/replay_grad``,
-``csrc/replay_grad.cu``). On CPU tensors every kernel runs its plain
-PyTorch version instead.
+``native``) searches the octree's grid with one CUDA kernel launch a search
+(``kernels/octree_dda``, ``csrc/octree_dda.cu``); the same accel serves the
+transmission substance query of every backend. The wavefront loop
+(``ops/trace``: BRUTE, PALLAS, OCTREE and TILED's later bounces) shades
+each bounce of a solid-textured scene without transmission in one launch
+of the shade kernel (``kernels/shade``, ``csrc/shade.cu``). Inverse
+rendering (``fit``, ``optim/fit``) differentiates the search path, or the
+replay of recorded winners through the replay kernels
+(``kernels/replay_grad``, ``csrc/replay_grad.cu``). On CPU tensors every
+kernel runs its plain PyTorch version instead.
+
+The modules form one stack, each importing only from those below it:
+``config`` and ``models``, ``ops``, ``kernels`` (with
+``accel/candidates``), ``accel/octree``, ``ops/trace``, ``render_tiled``,
+``render``, ``parallel`` and ``optim``, then ``view``, ``demo`` and
+``live`` (``tests/test_torch_layers.py`` holds them to it).
 """
 from .config import (
     HitBackend,
@@ -36,7 +46,7 @@ from .config import (
 from .models.camera import Camera, make_camera, pixel_rays
 from .models.scene import Scene, SceneBuilder
 from .optim import FitConfig, FitStep, fit
-from .parallel.sharding import float_leaf_names
+from .models.scene import float_leaf_names
 from .render import render, render_hdr
 
 __all__ = [

@@ -31,8 +31,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..config import OctreeConfig
-from ..kernels import _build
+from ..kernels import _build, octree_dda
 from ..models.scene import Scene, prim_aabbs
 from ..ops import intersect as I
 from ..ops.vecmath import cross, dot
@@ -172,8 +173,6 @@ def build_octree(scene: Scene, cfg: Optional[OctreeConfig] = None,
     pinned capacity (rebuild without ``like`` to grow). Raises "octree cell
     overflow" when a cell would list more entities than the scene has.
     """
-    from .. import native
-
     cfg = cfg or OctreeConfig()
     dev = scene.device
     lo, hi = _aabbs_f64(scene)
@@ -437,8 +436,6 @@ def nearest_hit_octree(scene: Scene, accel: OctreeAccel, org: Tensor,
     if _build.on_cpu(org.device):
         return nearest_hit_octree_plain(scene, accel, org, dir, stats,
                                         per_ray, live)
-    from ..kernels import octree_dda
-
     t, pid, steps, tests = octree_dda.launch(scene, accel, org.contiguous(),
                                              dir.contiguous(), live)
     if stats is not None:

@@ -20,9 +20,10 @@ import numpy as np
 
 from .config import (RenderConfig, ResponseType, ToneMapConfig,
                      ToneMapperKind, resolve_device)
+from .models import camera as cam_mod
 from .models.camera import make_camera
 from .models.scene import REFR_GLASS, REFR_WATER, Scene, SceneBuilder
-from .optim.fit import step_seed
+from .ops.sampling import step_seed
 from .render import render_hdr
 from .utils.profiling import RayMeter, block
 from .view import exposure as ex
@@ -101,8 +102,6 @@ def run_orbit(args, scene, cam, cfg, tone, meter) -> int:
     reset the exposure buffer (any motion restarts accumulation,
     exposure_buffer.ts:63-66), re-accumulate ``--frames`` frames and write
     the pose's tone-mapped image."""
-    from .models import camera as cam_mod
-
     base, ext = (args.out.rsplit(".", 1) + ["png"])[:2]
     buf = ex.new_exposure_buffer(args.size, args.size, device=cam.device)
     step_h = 2.0 * np.pi / args.orbit

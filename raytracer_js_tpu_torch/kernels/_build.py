@@ -230,3 +230,23 @@ def need(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
 
 def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def prim_ptrs(scene, dev: torch.device) -> list:
+    """A scene's geometry as ``rt_octree_dda`` and ``rt_shade_bounce`` take
+    it: sphere centers, radii and count, box centers, halves and count,
+    triangle v0, v1, v2 and count (each table ``need``-checked float32 on
+    ``dev``, detached)."""
+    ns, nb, nt = scene.n_spheres, scene.n_boxes, scene.n_tris
+    prims = []
+    for name, rows, cols in (("sphere_center", ns, (3,)),
+                             ("sphere_radius", ns, ()),
+                             ("box_center", nb, (3,)),
+                             ("box_half", nb, (3,)),
+                             ("tri_v0", nt, (3,)), ("tri_v1", nt, (3,)),
+                             ("tri_v2", nt, (3,))):
+        prims.append(ptr(need(getattr(scene, name).detach(), name,
+                              torch.float32, (rows, *cols), dev)))
+        if name in ("sphere_radius", "box_half", "tri_v2"):
+            prims.append(rows)
+    return prims

@@ -40,12 +40,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from ..models.scene import Scene
+from ..models.scene import Scene, prim_aabbs
+from ..ops.intersect import INF as _INF, MT_EPS as _MT_EPS
+from ..ops.intersect import SLAB_DIR_EPS as _SLAB_EPS, safe_inv as _safe_inv
 from . import _build
 
 Tensor = torch.Tensor
@@ -68,10 +69,6 @@ DENSE_PART_ELEMS = 1 << 22
 BLOCK_R = 128
 BLOCK_K = 128
 CHUNK_T = 16
-
-_INF = math.inf
-_SLAB_EPS = 1e-12
-_MT_EPS = 1e-9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,12 +148,6 @@ class _Rays:
     iz: Tensor
     o_dot_o: Tensor
     o_dot_d: Tensor
-
-
-def _safe_inv(d: Tensor) -> Tensor:
-    tiny = d.abs() < _SLAB_EPS
-    return 1.0 / torch.where(tiny, torch.where(d < 0, -_SLAB_EPS, _SLAB_EPS),
-                             d)
 
 
 def _rays(org: Tensor, dir: Tensor) -> _Rays:
@@ -680,8 +671,6 @@ def _prep_list(pair, n: int) -> Tuple[Tensor, Tensor]:
 
 def listed_inputs(scene: Scene, n: int, tile_ids=None, tri_tile_ids=None,
                   sph_fan: int = 1, tri_fan: int = 1) -> ListedInputs:
-    from ..models.scene import prim_aabbs
-
     tabs = pack_tables(scene)
     stream = stream_tables(tabs, sph_fan, tri_fan)
     tabs = dataclasses.replace(

@@ -46,18 +46,7 @@ def launch(scene, accel, org: Tensor, dir: Tensor,
     tests = torch.empty((n,), dtype=i32, device=dev)
     if n == 0:
         return t, pid, steps, tests
-    ns, nb, nt = scene.n_spheres, scene.n_boxes, scene.n_tris
-    prims = []
-    for name, rows, cols in (("sphere_center", ns, (3,)),
-                             ("sphere_radius", ns, ()),
-                             ("box_center", nb, (3,)),
-                             ("box_half", nb, (3,)),
-                             ("tri_v0", nt, (3,)), ("tri_v1", nt, (3,)),
-                             ("tri_v2", nt, (3,))):
-        prims.append(_build.ptr(_build.need(getattr(scene, name).detach(),
-                                            name, f32, (rows, *cols), dev)))
-        if name in ("sphere_radius", "box_half", "tri_v2"):
-            prims.append(rows)
+    prims = _build.prim_ptrs(scene, dev)
     R = accel.res
     nc, nk = accel.coarse_ids.shape[0], accel.cell_ids.shape[0]
     grid = [

@@ -41,6 +41,7 @@ import torch
 
 from ..config import EPS_ADVANCE, JS_EPSILON, RayStatus, RenderConfig, ResponseType
 from ..models.scene import Scene
+from ..ops.intersect import SLAB_DIR_EPS as _SLAB_EPS, safe_inv as _safe_inv
 from . import _build
 
 Tensor = torch.Tensor
@@ -64,7 +65,6 @@ SPHERE_SLOTS = (0, 1, 2, 3, 6, 7, 8)
 #: many, each writes one partial row of per-prim sums
 BWD_BLOCK = 128
 
-_SLAB_EPS = 1e-12
 _ALIVE = int(RayStatus.ALIVE)
 _LIGHT = int(RayStatus.LIGHT)
 _KEEP = int(RayStatus.KEEP)
@@ -172,12 +172,6 @@ def pack_tables(sph_c, sph_r, sph_rgb, box_c, box_h, box_rgb, sky_rgb,
 # ---------------------------------------------------------------------------
 # The plain versions
 # ---------------------------------------------------------------------------
-
-def _safe_inv(d: Tensor) -> Tensor:
-    tiny = d.abs() < _SLAB_EPS
-    return 1.0 / torch.where(tiny, torch.where(d < 0, -_SLAB_EPS, _SLAB_EPS),
-                             d)
-
 
 def _mask(b: Tensor) -> Tensor:
     return torch.where(b, 1.0, 0.0)

@@ -13,10 +13,11 @@ fuses that glue). It equals the plain ``_shade`` (with the epilogue where
 ``ops/trace._shader`` decides once per ``trace_rays`` or
 ``record_paths`` call, and once per TILED frame, whether the kernel shades
 (:func:`engages`): CUDA tensors, a scene in the class (:func:`supports`)
-and nothing that autograd would record (``parallel/sharding.records_grad``,
-the test ``render.refuse_grad`` makes too). Everything else keeps the plain ``_shade``. ``LAUNCHES``
-counts the kernel's launches (``"shade"``) and the bounces on CUDA tensors
-that took the plain ``_shade`` (``"plain"``).
+and nothing that autograd would record (``models/scene.records_grad``,
+the test ``ops/trace.refuse_grad`` makes too). Everything else keeps the
+plain ``_shade``. ``LAUNCHES`` counts the kernel's launches (``"shade"``)
+and the bounces on CUDA tensors that took the plain ``_shade``
+(``"plain"``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..models.scene import records_grad
 from . import _build
 
 Tensor = torch.Tensor
@@ -43,8 +45,6 @@ def engages(scene, *tensors: Tensor) -> bool:
     CUDA tensors, a scene in the class, and nothing autograd would record
     (grad off, or no tensor given and no float tensor of the scene requires
     grad)."""
-    from ..parallel.sharding import records_grad
-
     return (not _build.on_cpu(tensors[0].device) and supports(scene)
             and not records_grad(scene, *tensors))
 
@@ -97,17 +97,7 @@ def launch(scene, org: Tensor, dir: Tensor, color: Tensor, path: Tensor,
         seed, rid = rng
         rid = _build.need(rid.to(i32).contiguous(), "rid", i32, (n,), dev)
     ns, nb, nt = scene.n_spheres, scene.n_boxes, scene.n_tris
-    prims = []
-    for name, rows, cols in (("sphere_center", ns, (3,)),
-                             ("sphere_radius", ns, ()),
-                             ("box_center", nb, (3,)),
-                             ("box_half", nb, (3,)),
-                             ("tri_v0", nt, (3,)), ("tri_v1", nt, (3,)),
-                             ("tri_v2", nt, (3,))):
-        prims.append(_build.ptr(_build.need(getattr(scene, name).detach(),
-                                            name, f32, (rows, *cols), dev)))
-        if name in ("sphere_radius", "box_half", "tri_v2"):
-            prims.append(rows)
+    prims = _build.prim_ptrs(scene, dev)
     m, tex = scene.materials, scene.textures
     n_mat, n_tex = m.response.shape[0], tex.solid_rgb.shape[0]
     tables = [

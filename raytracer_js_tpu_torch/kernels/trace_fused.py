@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +43,8 @@ from ..config import EPS_ADVANCE, JS_EPSILON, RayStatus, RenderConfig, ResponseT
 from ..models.camera import Camera, angle_steps, pixel_rays
 from ..models.scene import Scene, box_volumes, sphere_volumes
 from ..ops import sampling
+from ..ops.intersect import INF as _INF, MT_EPS as _MT_EPS
+from ..ops.intersect import SLAB_DIR_EPS as _SLAB_EPS, safe_inv as _safe_inv
 from ..ops.vecmath import cross, length
 from ..utils.profiling import span
 from . import _build
@@ -61,9 +62,6 @@ LAUNCHES = {"frame": 0, "rays": 0}
 #: block; B2: 32 consecutive rays)
 WARP = 32
 
-_INF = math.inf
-_SLAB_EPS = 1e-12
-_MT_EPS = 1e-9
 _ALIVE, _LIGHT, _KEEP, _MISS, _EXHAUST = (int(s) for s in RayStatus)
 
 # Table rows (mirrored by the enums in csrc/trace_fused.cu).
@@ -229,12 +227,6 @@ def scene_tables(scene: Scene) -> Tables:
 # ---------------------------------------------------------------------------
 # The plain core
 # ---------------------------------------------------------------------------
-
-def _safe_inv(d: Tensor) -> Tensor:
-    tiny = d.abs() < _SLAB_EPS
-    return 1.0 / torch.where(tiny, torch.where(d < 0, -_SLAB_EPS, _SLAB_EPS),
-                             d)
-
 
 def sphere_t(tabs: Tables, ox, oy, oz, dx, dy, dz, use_c0: bool,
              unit_d: bool) -> Tensor:

@@ -52,6 +52,8 @@ from ..accel.candidates import N_ATTR, SEG_ALIGN, bounding_spheres
 from ..config import EPS_ADVANCE, RayStatus
 from ..models.camera import Camera, angle_steps
 from ..models.scene import Scene
+from ..ops.intersect import INF as _INF, MT_EPS as _MT_EPS
+from ..ops.intersect import SLAB_DIR_EPS as _SLAB_EPS, safe_inv as _safe_inv
 from . import _build
 from ._build import need as _need, ptr as _ptr
 
@@ -83,9 +85,6 @@ STATE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "cr", "cg", "cb",
                "path", "status", "t", "pid", "u", "v", "nx", "ny", "nz")
 _INT_PLANES = ("status", "pid")
 
-_INF = math.inf
-_SLAB_EPS = 1e-12
-_MT_EPS = 1e-9
 _EPS_UV = 2.0 ** -52
 # uv scales as multiplications by f32 reciprocals: PyTorch's CUDA division
 # by a Python scalar multiplies by its reciprocal, so a division here would
@@ -132,12 +131,6 @@ def _flags(scene: Scene) -> dict:
     return dict(want_uv=has_img, sky_solid=not sky_glue,
                 has_trans=bool(scene.has_transmission),
                 want_normal=bool(scene.has_rough or scene.has_transmission))
-
-
-def _safe_inv(d: Tensor) -> Tensor:
-    tiny = d.abs() < _SLAB_EPS
-    return 1.0 / torch.where(tiny, torch.where(d < 0, -_SLAB_EPS, _SLAB_EPS),
-                             d)
 
 
 # ---------------------------------------------------------------------------

@@ -38,12 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import RenderConfig, ToneMapConfig, ToneMapperKind
+from .config import (RenderConfig, ToneMapConfig, ToneMapperKind,
+                     resolve_device)
+from .demo import build_demo_scene
 from .models import camera as cam_mod
 from .models.camera import Camera
 from .models.scene import Scene
-from .ops.sampling import DEFAULT_SEED
-from .optim.fit import step_seed
+from .ops.sampling import DEFAULT_SEED, step_seed
 from .render import render_hdr
 from .utils.profiling import SMA
 from .view import exposure as ex
@@ -179,7 +180,7 @@ def run(scene: Scene, camera: Camera, cfg: Optional[RenderConfig] = None,
         max_frames: int = 256, rng_seed: int = DEFAULT_SEED,
         out=sys.stdout) -> None:
     """Interactive loop on the controlling terminal (raw mode). Frame i
-    draws from ``optim.fit.step_seed(rng_seed, i)``."""
+    draws from ``ops/sampling.step_seed(rng_seed, i)``."""
     import termios
     import tty
 
@@ -229,9 +230,6 @@ def run(scene: Scene, camera: Camera, cfg: Optional[RenderConfig] = None,
 
 def main(argv=None) -> int:
     import argparse
-
-    from .config import resolve_device
-    from .demo import build_demo_scene
 
     ap = argparse.ArgumentParser(description="live terminal raytracer")
     ap.add_argument("--size", type=int, default=96)

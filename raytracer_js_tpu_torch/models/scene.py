@@ -7,13 +7,17 @@ Global primitive ids are ordered [spheres | boxes | triangles]; every
 nearest-hit path returns ids in this space.
 
 A :class:`Scene` is a plain dataclass of tensors that all live on one
-device (:attr:`Scene.device`); :meth:`Scene.to` moves it.
+device (:attr:`Scene.device`); :meth:`Scene.to` moves it. Its float
+tensors are the differentiable leaves (:func:`float_partition`,
+:func:`float_leaf_names`), and :func:`records_grad` says whether autograd
+would record through a scene: the backends without a backward refuse such
+calls (``ops/trace.refuse_grad``) and the shade kernel declines them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,6 +129,80 @@ def prim_volumes(scene: Scene) -> Tensor:
                         device=scene.device)
     return torch.cat([sphere_volumes(scene.sphere_radius),
                       box_volumes(scene.box_half), t_vol], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable-parameter partition
+# ---------------------------------------------------------------------------
+
+def _float_paths(obj, prefix=()) -> List[tuple]:
+    """Field paths of the floating-point tensors of a (nested) dataclass,
+    in field-declaration order."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out += _float_paths(v, prefix + (f.name,))
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            out.append(prefix + (f.name,))
+    return out
+
+
+def _get(obj, path):
+    for name in path:
+        obj = getattr(obj, name)
+    return obj
+
+
+def _replace(obj, path, value):
+    if len(path) == 1:
+        return dataclasses.replace(obj, **{path[0]: value})
+    inner = getattr(obj, path[0])
+    return dataclasses.replace(
+        obj, **{path[0]: _replace(inner, path[1:], value)})
+
+
+def float_leaf_names(scene: Scene) -> List[str]:
+    """Dotted field names of :func:`float_partition`'s params, in order."""
+    return [".".join(p) for p in _float_paths(scene)]
+
+
+def records_grad(scene: Scene, *tensors: Tensor) -> bool:
+    """Whether autograd would record a computation on ``scene`` and
+    ``tensors``: grad is enabled and one of ``tensors`` or a float tensor
+    of the scene (:func:`float_partition`'s params) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return (any(t.requires_grad for t in tensors)
+            or any(_get(scene, p).requires_grad for p in _float_paths(scene)))
+
+
+def float_partition(scene: Scene) -> Tuple[List[Tensor],
+                                            Callable[[list], Scene]]:
+    """Split a scene into ``(params, rebuild)``.
+
+    ``params`` lists the float tensors — the differentiable degrees of
+    freedom — in the reference package's pytree order: ``sphere_center,
+    sphere_radius, box_center, box_half, tri_v0, tri_v1, tri_v2,
+    materials.roughness, textures.solid_rgb, textures.atlas, sub_refr,
+    default_refr``. ``rebuild(new_params)`` returns the scene with those
+    tensors replaced; integer id columns and static fields stay.
+    """
+    paths = _float_paths(scene)
+    params = [_get(scene, p) for p in paths]
+
+    def rebuild(new_params) -> Scene:
+        new_params = list(new_params)
+        if len(new_params) != len(paths):
+            raise ValueError(f"expected {len(paths)} params, got "
+                             f"{len(new_params)}")
+        out = scene
+        for p, v in zip(paths, new_params):
+            out = _replace(out, p, v)
+        return out
+
+    return params, rebuild
+
 
 
 def scene_from_numpy(arrays: dict, *, sky_tex: int, has_transmission: bool,

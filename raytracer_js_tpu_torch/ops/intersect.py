@@ -30,6 +30,15 @@ MT_EPS = 1e-9
 SLAB_DIR_EPS = 1e-12
 
 
+def safe_inv(d: Tensor) -> Tensor:
+    """``1 / d`` with ``|d|`` raised to ``SLAB_DIR_EPS``, its sign kept: the
+    slab test's inverse direction, here and in every kernel's plain
+    version."""
+    tiny = d.abs() < SLAB_DIR_EPS
+    return 1.0 / torch.where(
+        tiny, torch.where(d < 0, -SLAB_DIR_EPS, SLAB_DIR_EPS), d)
+
+
 def _first_forward(t_near: Tensor, t_far: Tensor, valid: Tensor) -> Tensor:
     """First parameter >= 0 of an ordered (near, far) pair, else +inf."""
     t = torch.where(t_near >= 0.0, t_near,
@@ -96,10 +105,7 @@ def sphere_surface(org: Tensor, dir: Tensor, center: Tensor, radius: Tensor):
 def _slab(org: Tensor, dir: Tensor, lo: Tensor, hi: Tensor):
     """Slab intervals -> (t_enter, t_exit, enter_axis, exit_axis). A ray
     parallel to a slab divides by the clamped ``SLAB_DIR_EPS``."""
-    d_safe = torch.where(dir.abs() < SLAB_DIR_EPS,
-                         torch.where(dir < 0, -SLAB_DIR_EPS, SLAB_DIR_EPS),
-                         dir)
-    inv = 1.0 / d_safe
+    inv = safe_inv(dir)
     ta = (lo - org) * inv
     tb = (hi - org) * inv
     t0 = torch.minimum(ta, tb)

@@ -58,6 +58,13 @@ def lowbias32(x) -> Tensor:
     return x
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The counter-RNG seed of fit step (or exposure frame) ``step``:
+    ``lowbias32(seed ^ lowbias32(step))``. The port's counterpart of
+    ``jax.random.fold_in(key, step)``; the two give different streams."""
+    return int(lowbias32(seed ^ int(lowbias32(step))))
+
+
 def hash_u32(seed, rid, bounce, salt: int) -> Tensor:
     """Chained hash of the draw coordinates -> uint32 bits (int64 holder)."""
     h = lowbias32(_u32(rid) ^ _u32(seed))

@@ -25,6 +25,10 @@ Behavioral contract (reference source in parentheses):
 * miss -> color times sky (equirect or cube map), MISS; alive after
   ``refmax`` bounces -> black.
 
+The frontends above this loop take two helpers from here: the substance
+at the camera (:func:`start_substance`) and the refusal of inputs that
+require grad by the backends without a backward (:func:`refuse_grad`).
+
 On CUDA tensors a scene of the shade kernel's class (``kernels/shade``:
 solid textures and sky, no transmission) shades each bounce in one launch
 of that kernel, the last bounce with the epilogue, when autograd would
@@ -49,12 +53,13 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..accel import octree
 from ..config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
                       RenderConfig, ResponseType)
 from ..kernels import nearest_hit as nh
 from ..kernels import shade as shade_kernel
 from ..models import textures as tex_mod
-from ..models.scene import Scene, prim_volumes
+from ..models.scene import Scene, prim_volumes, records_grad
 from ..utils.profiling import span
 from . import intersect, sampling
 from .vecmath import reflect, refract, uv_map_sphere
@@ -109,12 +114,10 @@ def nearest_hit(scene: Scene, cfg: RenderConfig, org: Tensor,
     the rays whose answer the caller reads: the OCTREE search walks only
     those (the others get a miss); the other searches answer every ray."""
     if cfg.backend == HitBackend.OCTREE and accel is not None:
-        from ..accel.octree import nearest_hit_octree
-
         # discrete, as PALLAS: detached inputs, no graph
         with torch.no_grad():
-            return nearest_hit_octree(scene, accel, org.detach(),
-                                      dir.detach(), live=live)
+            return octree.nearest_hit_octree(scene, accel, org.detach(),
+                                             dir.detach(), live=live)
     if cfg.backend == HitBackend.PALLAS:
         # the search is discrete: detached inputs, no graph. Kernel B3
         # streams prims one at a time (1..384 prims); B4 tiles them
@@ -236,10 +239,8 @@ def substance_refr_at(scene: Scene, point: Tensor, cur_refr: Tensor,
         return default, torch.ones((n,), dtype=torch.bool,
                                    device=point.device)
     if accel is not None:
-        from ..accel.octree import point_query_candidates, prim_contains
-
-        pid = point_query_candidates(accel, point)                 # [N, C]
-        inside = prim_contains(scene, point[:, None, :], pid)
+        pid = octree.point_query_candidates(accel, point)          # [N, C]
+        inside = octree.prim_contains(scene, point[:, None, :], pid)
         pid_c = torch.clamp(pid.long(), 0, scene.n_prims - 1)
         score = torch.where(inside, prim_volumes(scene)[pid_c],
                             float("inf"))
@@ -273,6 +274,27 @@ def _substance_of(scene: Scene, ent: Tensor, any_inside: Tensor,
                          default)
     do_refract = torch.where(any_inside, defined, True)
     return target, do_refract
+
+
+def start_substance(scene: Scene, pos: Tensor) -> Tensor:
+    """Substance index at the camera position (raytracer.ts:312-313):
+    innermost containing entity's substance, or the scene default."""
+    refr, _ = substance_refr_at(scene, pos[None, :], scene.default_refr[None])
+    return refr[0]
+
+
+def refuse_grad(scene: Scene, *tensors: Tensor, backend: str = "FUSED"
+                ) -> None:
+    """Raise if autograd would record through a backend without a backward
+    (FUSED, TILED): its kernels (and their plain versions) return detached
+    values, so a loss through them would get zero or partial gradients
+    without a word."""
+    with span("rt.render.refuse_grad"):
+        if records_grad(scene, *tensors):
+            raise RuntimeError(
+                f"the {backend} backend has no backward: an input requires "
+                f"grad; render with HitBackend.PALLAS or HitBackend.BRUTE to "
+                f"differentiate")
 
 
 def sky_color(scene: Scene, dir: Tensor) -> Tensor:

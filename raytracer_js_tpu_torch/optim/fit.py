@@ -23,16 +23,17 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..config import HitBackend, RenderConfig
+from ..accel import octree
+from ..config import HitBackend, OctreeConfig, RenderConfig
 from ..kernels import replay_grad as rg_kernel
 from ..models.camera import Camera, pixel_rays, renormalized
-from ..models.scene import Scene
+from ..models.scene import Scene, float_partition
 from ..ops import sampling
-from ..ops.trace import record_paths, trace_rays
+from ..ops.sampling import step_seed
+from ..ops.trace import record_paths, start_substance, trace_rays
 from ..ops.vecmath import cross
 from ..parallel import sharding
-from ..parallel.sharding import float_partition
-from ..render import render_rays, start_substance
+from ..render import render_rays
 from ..utils import checkpoint as ckpt
 from ..utils.profiling import span
 
@@ -85,7 +86,7 @@ class FitStep:
     #: the step's loss (0-d, detached; the sum over the ranks with a mesh)
     loss: Tensor
     #: the parameters as the step used them, in ``trainable``'s order
-    #: (``parallel/sharding.float_leaf_names``, then each camera's pos,
+    #: (``models/scene.float_leaf_names``, then each camera's pos,
     #: front, left, up with ``fit_cameras``), and their gradients
     params: List[Tensor]
     grads: List[Tensor]
@@ -96,14 +97,6 @@ class FitStep:
     #: the fit's ``torch.optim`` optimizer, before its step (its ``state``
     #: holds Adam's moments and step count)
     optimizer: torch.optim.Optimizer
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The counter-RNG seed of fit step ``step``:
-    ``lowbias32(seed ^ lowbias32(step))`` (ops/sampling). The port's
-    counterpart of ``jax.random.fold_in(key, step)``; the two give
-    different streams."""
-    return int(sampling.lowbias32(seed ^ int(sampling.lowbias32(step))))
 
 
 def _project_triad_grads(params, grads, n_scene: int, n_cams: int):
@@ -294,11 +287,8 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
             if (accel is not None and fit_cfg.accel_every
                     and step > start_step
                     and (step - start_step) % fit_cfg.accel_every == 0):
-                from ..accel.octree import build_octree
-                from ..config import OctreeConfig
-
                 with span("rt.fit.rebuild"):
-                    accel = build_octree(
+                    accel = octree.build_octree(
                         rebuild_scene([p.detach() for p in params[:n_scene]]),
                         OctreeConfig(max_depth=accel.max_depth),
                         l_cut=accel.l_cut)

@@ -11,9 +11,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..accel import octree
 from ..config import HitBackend, OctreeConfig, RenderConfig, ResponseType
 from ..models.camera import make_camera
 from ..models.scene import Scene, SceneBuilder
+from ..optim.fit import FitConfig, fit
 from .sharding import Mesh, sharded_fit_step
 
 
@@ -50,9 +52,6 @@ def dryrun_multichip(mesh: Mesh, seed: int = 0) -> Tuple[float, float,
 
     The camera is 8 * world_size by 8 pixels: 64 rays a rank.
     """
-    from ..accel.octree import build_octree
-    from ..optim.fit import FitConfig, fit
-
     dev = mesh.device
     scene = demo_scene(n_spheres=4, device=dev)
     cfg = RenderConfig(refmax=2)
@@ -61,7 +60,7 @@ def dryrun_multichip(mesh: Mesh, seed: int = 0) -> Tuple[float, float,
     target = torch.zeros((cam.h * cam.w, 3), dtype=torch.float32,
                          device=dev)
     loss, _ = sharded_fit_step(mesh, scene, cfg, cam, target, seed)
-    accel = build_octree(scene, OctreeConfig(max_depth=3))
+    accel = octree.build_octree(scene, OctreeConfig(max_depth=3))
     res = fit(scene, RenderConfig(refmax=2, backend=HitBackend.OCTREE),
               [cam], target[None], FitConfig(steps=1, lr=1e-2,
                                              replay_every=1),

@@ -10,20 +10,23 @@ once. Each ray's RNG stream is keyed by its *global* ray id
 (``ops/sampling``), so an image is bitwise equal to one process at any world
 size.
 
-Also the differentiable-parameter partition of a scene (``float_partition``).
+The differentiable-parameter partition of a scene (``float_partition``)
+is the scene's own (``models/scene``); this module re-exports it under the
+reference's name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig, resolve_device
 from ..models.camera import Camera, pixel_rays
-from ..models.scene import Scene
+from ..models.scene import Scene, float_leaf_names, float_partition
 from ..ops.sampling import DEFAULT_SEED
+from ..render import render_rays
 
 Tensor = torch.Tensor
 
@@ -103,8 +106,6 @@ def render_rays_sharded(mesh: Mesh, scene: Scene, cfg: RenderConfig,
     (``render.render_rays``, so FUSED runs the wavefront kernel per rank);
     an all-gather then gives every rank the whole array, as the reference's
     global array does. The forward pass needs no other collective."""
-    from ..render import render_rays
-
     rows = mesh.rows(org.shape[0])
     local = render_rays(scene, cfg, org[rows], dir[rows], seed, ray_id[rows])
     return all_gather_rows(mesh, local)
@@ -119,79 +120,6 @@ def render_hdr_sharded(mesh: Mesh, scene: Scene, camera: Camera,
     ray_id = torch.arange(org.shape[0], dtype=torch.int32, device=org.device)
     colors = render_rays_sharded(mesh, scene, cfg, org, dirs, seed, ray_id)
     return colors.reshape(camera.h, camera.w, 3)
-
-
-# ---------------------------------------------------------------------------
-# Differentiable-parameter partition
-# ---------------------------------------------------------------------------
-
-def _float_paths(obj, prefix=()) -> List[tuple]:
-    """Field paths of the floating-point tensors of a (nested) dataclass,
-    in field-declaration order."""
-    out = []
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if dataclasses.is_dataclass(v):
-            out += _float_paths(v, prefix + (f.name,))
-        elif isinstance(v, torch.Tensor) and v.is_floating_point():
-            out.append(prefix + (f.name,))
-    return out
-
-
-def _get(obj, path):
-    for name in path:
-        obj = getattr(obj, name)
-    return obj
-
-
-def _replace(obj, path, value):
-    if len(path) == 1:
-        return dataclasses.replace(obj, **{path[0]: value})
-    inner = getattr(obj, path[0])
-    return dataclasses.replace(
-        obj, **{path[0]: _replace(inner, path[1:], value)})
-
-
-def float_leaf_names(scene: Scene) -> List[str]:
-    """Dotted field names of :func:`float_partition`'s params, in order."""
-    return [".".join(p) for p in _float_paths(scene)]
-
-
-def records_grad(scene: Scene, *tensors: Tensor) -> bool:
-    """Whether autograd would record a computation on ``scene`` and
-    ``tensors``: grad is enabled and one of ``tensors`` or a float tensor
-    of the scene (:func:`float_partition`'s params) requires grad."""
-    if not torch.is_grad_enabled():
-        return False
-    return (any(t.requires_grad for t in tensors)
-            or any(_get(scene, p).requires_grad for p in _float_paths(scene)))
-
-
-def float_partition(scene: Scene) -> Tuple[List[Tensor],
-                                            Callable[[list], Scene]]:
-    """Split a scene into ``(params, rebuild)``.
-
-    ``params`` lists the float tensors — the differentiable degrees of
-    freedom — in the reference package's pytree order: ``sphere_center,
-    sphere_radius, box_center, box_half, tri_v0, tri_v1, tri_v2,
-    materials.roughness, textures.solid_rgb, textures.atlas, sub_refr,
-    default_refr``. ``rebuild(new_params)`` returns the scene with those
-    tensors replaced; integer id columns and static fields stay.
-    """
-    paths = _float_paths(scene)
-    params = [_get(scene, p) for p in paths]
-
-    def rebuild(new_params) -> Scene:
-        new_params = list(new_params)
-        if len(new_params) != len(paths):
-            raise ValueError(f"expected {len(paths)} params, got "
-                             f"{len(new_params)}")
-        out = scene
-        for p, v in zip(paths, new_params):
-            out = _replace(out, p, v)
-        return out
-
-    return params, rebuild
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +140,6 @@ def sharded_fit_step(mesh: Mesh, scene: Scene, cfg: RenderConfig,
     psum). ``grads`` is in :func:`float_partition` order; a parameter the
     loss never reaches gets zeros.
     """
-    from ..render import render_rays
-
     org, dirs = pixel_rays(camera)
     n = org.shape[0]
     rows = mesh.rows(n)

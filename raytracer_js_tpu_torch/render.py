@@ -9,9 +9,14 @@ wavefronts go through the wavefront kernel; scenes outside the fused class
 PALLAS backend runs the wavefront loop with kernels B3/B4 as its search.
 TILED renders through ``render_tiled`` (kernels B7 and B6); TILED requests
 on scenes of at most ``TILED_MIN_PRIMS`` prims without cached tables, and
-on BOTH scenes, go to PALLAS. OCTREE searches with the octree's grid DDA
-when given an ``accel`` (``accel/octree.build_octree``), else densely, as
-BRUTE does. This is the reference's dispatch.
+on BOTH scenes, go to PALLAS. OCTREE searches the octree's grid with the
+octree kernel (``kernels/octree_dda``) when given an ``accel``
+(``accel/octree.build_octree``), else densely, as BRUTE does. On the card
+the wavefront loop (``ops/trace``) shades each bounce of a scene in the
+shade kernel's class in one launch (``kernels/shade``). This is the
+reference's dispatch. FUSED and TILED have no backward: a call refuses
+inputs that require grad once (``ops/trace.refuse_grad``), before any
+sample.
 """
 from __future__ import annotations
 
@@ -20,11 +25,14 @@ from typing import Optional
 
 import torch
 
+from . import render_tiled as rtl
 from .config import HitBackend, RenderConfig
+from .kernels import trace_fused
 from .models.camera import Camera, pixel_rays
 from .models.scene import Scene
 from .ops import sampling
 from .ops import trace as trace_mod
+from .ops.trace import refuse_grad, start_substance
 from .utils.profiling import span
 
 Tensor = torch.Tensor
@@ -34,34 +42,11 @@ Tensor = torch.Tensor
 #: the reference
 TILED_MIN_PRIMS = 2048
 
+
 def _stochastic(scene: Scene, cfg: RenderConfig) -> bool:
     """spp averaging only helps when some draw varies per sample: rough
     scatter, or the Fresnel-BOTH split."""
     return scene.has_rough or (scene.has_both and cfg.fresnel_both)
-
-
-def start_substance(scene: Scene, pos: Tensor) -> Tensor:
-    """Substance index at the camera position (raytracer.ts:312-313):
-    innermost containing entity's substance, or the scene default."""
-    refr, _ = trace_mod.substance_refr_at(scene, pos[None, :],
-                                          scene.default_refr[None])
-    return refr[0]
-
-
-def refuse_grad(scene: Scene, *tensors: Tensor, backend: str = "FUSED"
-                ) -> None:
-    """Raise if autograd would record through a backend without a backward
-    (FUSED, TILED): its kernels (and their plain versions) return detached
-    values, so a loss through them would get zero or partial gradients
-    without a word."""
-    from .parallel.sharding import records_grad
-
-    with span("rt.render.refuse_grad"):
-        if records_grad(scene, *tensors):
-            raise RuntimeError(
-                f"the {backend} backend has no backward: an input requires "
-                f"grad; render with HitBackend.PALLAS or HitBackend.BRUTE to "
-                f"differentiate")
 
 
 def _average(one, spp: int, stochastic: bool) -> Tensor:
@@ -82,8 +67,6 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Tensor, dir: Tensor,
     ``accel`` (the octree) serves the OCTREE search and the transmission
     substance query of the wavefront loop.
     """
-    from .kernels import trace_fused
-
     if ray_id is None:
         ray_id = torch.arange(org.shape[0], dtype=torch.int32,
                               device=org.device)
@@ -133,8 +116,6 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
     transmission substance query of the wavefront loop and of TILED uses
     its grid. FUSED and TILED raise on inputs that require grad.
     """
-    from .kernels import trace_fused
-
     with span("rt.render"):
         if cfg.backend == HitBackend.TILED and (
                 (scene.n_prims <= TILED_MIN_PRIMS and tables is None)
@@ -145,18 +126,17 @@ def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
         if seed is None:
             seed = sampling.DEFAULT_SEED
         if cfg.backend == HitBackend.TILED:
-            from . import render_tiled as rtl
-
-            # before the host builds tables for a frame that would raise
+            # before the host builds tables for a frame that would raise;
+            # the frames below are the unchecked bodies of the public ones
             refuse_grad(scene, camera.pos, camera.front, camera.left,
                         camera.up, backend="TILED")
             if tables is None:
                 tables = rtl.frame_tables(scene, camera)
             # image scenes: a solid-search record pass + one flat replay
             # shading
-            frame = (rtl.render_frame_tiled_replay_shaded
+            frame = (rtl._replay_shaded_frame
                      if scene.textures.has_images or scene.sky_box is not None
-                     else rtl.render_frame_tiled)
+                     else rtl._tiled_frame)
 
             def one_tiled(s):
                 return frame(scene, cfg, camera, tables=tables, seed=seed,

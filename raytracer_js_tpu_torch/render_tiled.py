@@ -44,11 +44,17 @@ from typing import Optional
 import torch
 
 from .accel import candidates as cand
-from .config import JS_EPSILON, HitBackend, RayStatus, RenderConfig
+from .config import (EPS_ADVANCE, JS_EPSILON, HitBackend, RayStatus,
+                     RenderConfig, ResponseType)
+from .kernels import nearest_hit as nh
 from .kernels import trace_tiled as tt
+from .kernels.nearest_hit import BLOCK_K, BLOCK_R
 from .models import textures as tex_mod
+from .models.camera import pixel_rays
 from .models.scene import Scene
 from .ops import sampling
+from .ops import trace as trace_mod
+from .ops.vecmath import refract
 from .utils.profiling import span
 
 Tensor = torch.Tensor
@@ -179,8 +185,6 @@ def _apply_images(scene: Scene, colors, dirs, status, prev_alive, pid, u, v):
     when the scene has images or a sky box; this samples the atlas for
     image-kind winners and applies the sky to rays that MISSed this
     bounce. ``colors`` [n, 3]; the masks [n]."""
-    from .ops.trace import sky_color
-
     hit = pid >= 0
     pid_c = torch.clamp(pid.long(), 0, max(scene.n_prims - 1, 0))
     tex_id = scene.prim_texture[pid_c]
@@ -190,8 +194,8 @@ def _apply_images(scene: Scene, colors, dirs, status, prev_alive, pid, u, v):
     smp = tex_mod.sample(scene.textures, tex_id, u, v)
     colors = torch.where(is_img[:, None], colors * smp, colors)
     newly_miss = prev_alive & (status == _MISS)
-    return torch.where(newly_miss[:, None], colors * sky_color(scene, dirs),
-                       colors)
+    return torch.where(newly_miss[:, None],
+                       colors * trace_mod.sky_color(scene, dirs), colors)
 
 
 def _respawn_glue(scene: Scene, seed, rid, bounce, refr, org, dirs, status,
@@ -204,10 +208,6 @@ def _respawn_glue(scene: Scene, seed, rid, bounce, refr, org, dirs, status,
     the old direction, query the innermost containing substance and refract
     (Snell + TIR); ``accel`` (the octree) serves the substance query.
     ``nrm`` is the flipped winner normal. Returns ``(org, dirs, refr)``."""
-    from .config import EPS_ADVANCE, ResponseType
-    from .ops.trace import substance_refr_at
-    from .ops.vecmath import refract
-
     alive = status == _ALIVE
     cont = alive & (pid >= 0)
     pid_c = torch.clamp(pid.long(), 0, max(scene.n_prims - 1, 0))
@@ -227,8 +227,8 @@ def _respawn_glue(scene: Scene, seed, rid, bounce, refr, org, dirs, status,
         is_t = cont & (resp == int(ResponseType.TRANSMISSION))
         hit = org + t[:, None] * dirs
         adv = hit + EPS_ADVANCE * dirs
-        target, do_refract = substance_refr_at(scene, adv, refr,
-                                               accel=accel)
+        target, do_refract = trace_mod.substance_refr_at(scene, adv, refr,
+                                                         accel=accel)
         eta = refr / torch.clamp(target, min=1e-6)
         refr_dir, _tir = refract(dirs, nrm, eta)
         new_dir = torch.where(do_refract[:, None], refr_dir, dirs)
@@ -252,8 +252,6 @@ def _block_tile_select(org: Tensor, dirs: Tensor, working: Tensor,
     exact. The sort is stable (the reference's ``argsort``), so equal t_lo
     keep tile order: a t tie across tiles goes to the first tile streamed.
     """
-    from .kernels.nearest_hit import BLOCK_R
-
     n = org.shape[0]
     assert n % BLOCK_R == 0, (n, BLOCK_R)
     nb = n // BLOCK_R
@@ -301,8 +299,6 @@ def _sweep_perm(scene: Scene):
     shading, so id-indexed tables stay as they are. A class takes part with
     at least 4 * BLOCK_K primitives.
     """
-    from .kernels.nearest_hit import BLOCK_K
-
     def class_fan(n):
         # coarsen the listed granularity until the id table fits
         # LISTED_MAX_TILES (super)tiles
@@ -393,9 +389,6 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
     serves the substance query. Returns the updated ``(flat, bounce, refr,
     rec)``.
     """
-    from .kernels.nearest_hit import nearest_hit_pallas
-    from .ops.trace import RayState
-
     with span("rt.tiled.round"):
         n = flat[0].shape[0]
         cap = min(cap, n)
@@ -434,7 +427,8 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
                     and sph_e[1].shape[0] <= LISTED_MAX_TILES):
                 # the in-kernel block-cone cull of sphere tiles (B8)
                 kw["tile_bounds"] = sph_e[1]
-            _t, pid = nearest_hit_pallas(scene_s, org, dirs, n_live=nl, **kw)
+            _t, pid = nh.nearest_hit_pallas(scene_s, org, dirs, n_live=nl,
+                                            **kw)
             # winners map back from permuted-class to global ids
             pid = pid.long()
             if sph_e is not None:
@@ -447,12 +441,12 @@ def _rescue_round(scene: Scene, cfg: RenderConfig, flat, bounce, refr, seed,
                 pid = torch.where(pid >= b_end, b_end + tri_e[0].long()[loc],
                                   pid)
         else:
-            _t, pid = nearest_hit_pallas(scene, org, dirs, n_live=nl)
+            _t, pid = nh.nearest_hit_pallas(scene, org, dirs, n_live=nl)
         pid = torch.where(work_sl, pid, -1).to(torch.int32)
-        st = RayState(org=org, dir=dirs, color=torch.stack(sl[6:9], -1),
-                      path=sl[9], refr=refr_s[:cap],
-                      status=torch.where(work_sl, _ALIVE, torch.where(
-                          sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
+        st = trace_mod.RayState(
+            org=org, dir=dirs, color=torch.stack(sl[6:9], -1), path=sl[9],
+            refr=refr_s[:cap], status=torch.where(work_sl, _ALIVE, torch.where(
+                sl[10] == _ALIVE, _CAP, sl[10])).to(torch.int32))
         rng = (seed, rid_s[:cap]) if scene.has_rough else None
         out, alive = shader(cfg, st, rng, bounce_s[:cap], pid_override=pid,
                             accel=accel)
@@ -615,10 +609,12 @@ def packet_bounce(scene: Scene, cols, c_max: int, t_done: Tensor,
 
 
 def _refuse(scene: Scene, cfg: RenderConfig, cam) -> None:
-    """What the TILED frame does not render raises (module docstring)."""
-    from .render import refuse_grad
-
-    refuse_grad(scene, cam.pos, cam.front, cam.left, cam.up, backend="TILED")
+    """What the TILED frame does not render raises (module docstring).
+    The public frames check; their bodies (:func:`_tiled_frame`,
+    :func:`_replay_shaded_frame`), which ``render.render_hdr`` calls once
+    per sample after its own check, do not."""
+    trace_mod.refuse_grad(scene, cam.pos, cam.front, cam.left, cam.up,
+                          backend="TILED")
     if scene.has_both and cfg.fresnel_both:
         raise ValueError("the TILED kernels have no Fresnel-BOTH split: "
                          "render BOTH scenes with fresnel_both through "
@@ -654,9 +650,16 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
     the transmission substance query searches its grid instead of every
     prim (the same answers).
     """
-    from .render import start_substance
-
     _refuse(scene, cfg, cam)
+    return _tiled_frame(scene, cfg, cam, tables, seed, sample, accel,
+                        with_diag, with_record, packet_c_max)
+
+
+def _tiled_frame(scene: Scene, cfg: RenderConfig, cam, tables=None,
+                 seed: Optional[int] = None, sample: int = 0, accel=None,
+                 with_diag: bool = False, with_record: bool = False,
+                 packet_c_max: int = 4096):
+    """:func:`render_frame_tiled` without the :func:`_refuse` check."""
     if seed is None:
         seed = sampling.DEFAULT_SEED
     if tables is None:
@@ -675,7 +678,7 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
     if need_glue:
         rid = torch.where(valid, (yi * cam.w + xi) * cfg.spp + sample,
                           0).to(torch.int32)
-        refr = start_substance(scene, cam.pos).expand(n).contiguous()
+        refr = trace_mod.start_substance(scene, cam.pos).expand(n).contiguous()
     else:
         rid = None
         refr = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -710,12 +713,10 @@ def render_frame_tiled(scene: Scene, cfg: RenderConfig, cam, tables=None,
         return (cols[10] == _ALIVE) & (bounce < cfg.refmax)
 
     if cfg.refmax > 1:
-        from .ops.trace import _shader
-
         # rays continuing out of bounce 0 have spent one bounce
         bounce = (cols[10] == _ALIVE).to(torch.int32)
         # the shade is chosen once a frame
-        shader = _shader(scene, cols[0])
+        shader = trace_mod._shader(scene, cols[0])
         if scene.n_prims <= SWEEP_MAX_PRIMS:
             cap = min(n, SWEEP_SLICE)
             sweep_tab = (_sweep_perm(scene) if SWEEP_LISTED or SWEEP_CULL
@@ -777,29 +778,34 @@ def render_frame_tiled_replay_shaded(scene: Scene, cfg: RenderConfig, cam,
     winners, RNG streams (seed, rid, bounce), substance chains and paths.
     ``accel`` serves the substance query of both passes.
     """
-    from .models.camera import pixel_rays
-    from .ops.trace import trace_rays
-    from .render import start_substance
-
     _refuse(scene, cfg, cam)
+    return _replay_shaded_frame(scene, cfg, cam, tables, seed, sample, accel,
+                                with_diag)
+
+
+def _replay_shaded_frame(scene: Scene, cfg: RenderConfig, cam, tables=None,
+                         seed: Optional[int] = None, sample: int = 0,
+                         accel=None, with_diag: bool = False):
+    """:func:`render_frame_tiled_replay_shaded` without the :func:`_refuse`
+    check."""
     tex = scene.textures
     twin = dataclasses.replace(
         scene, textures=dataclasses.replace(
             tex, kind=torch.zeros_like(tex.kind), has_images=False,
             has_bilinear=False), sky_box=None)
-    out = render_frame_tiled(twin, cfg, cam, tables=tables, seed=seed,
-                             sample=sample, accel=accel, with_diag=with_diag,
-                             with_record=True)
+    out = _tiled_frame(twin, cfg, cam, tables=tables, seed=seed,
+                       sample=sample, accel=accel, with_diag=with_diag,
+                       with_record=True)
     diag, rec = (out[1], out[2]) if with_diag else (None, out[1])
     org, dirs = pixel_rays(cam)
     n = org.shape[0]
     rid = torch.arange(n, dtype=torch.int32, device=org.device) * cfg.spp \
         + sample
-    refr0 = start_substance(scene, cam.pos).expand(n)
-    st = trace_rays(scene, dataclasses.replace(cfg, backend=HitBackend.BRUTE),
-                    org, dirs,
-                    sampling.DEFAULT_SEED if seed is None else seed, rid,
-                    start_refr=refr0, pid_seq=rec, accel=accel)
+    refr0 = trace_mod.start_substance(scene, cam.pos).expand(n)
+    st = trace_mod.trace_rays(
+        scene, dataclasses.replace(cfg, backend=HitBackend.BRUTE), org, dirs,
+        sampling.DEFAULT_SEED if seed is None else seed, rid,
+        start_refr=refr0, pid_seq=rec, accel=accel)
     img = st.color.reshape(cam.h, cam.w, 3)
     return (img, diag) if with_diag else img
 

@@ -12,7 +12,8 @@ from ..config import RenderConfig, ToneMapConfig
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..ops.color import overlay_color
-from ..ops.sampling import DEFAULT_SEED
+from ..ops.sampling import DEFAULT_SEED, step_seed
+from ..render import render_hdr
 from . import exposure as ex
 from .tonemap import tonemap
 
@@ -41,12 +42,9 @@ def progressive_render(scene: Scene, camera: Camera, cfg: RenderConfig,
                        seed: int = DEFAULT_SEED) -> torch.Tensor:
     """Render ``frames`` exposure frames, accumulate their running mean
     (exposure_buffer.ts:53-91), then tone-map. Frame f draws from the seed
-    ``optim.fit.step_seed(seed, f)``, the port's counterpart of the
+    ``ops/sampling.step_seed(seed, f)``, the port's counterpart of the
     reference's ``fold_in(key, f)``: the per-frame streams differ from the
     reference's, frame 0's included."""
-    from ..optim.fit import step_seed
-    from ..render import render_hdr
-
     buf = ex.new_exposure_buffer(camera.h, camera.w, device=camera.device)
     for f in range(frames):
         frame = render_hdr(scene, camera, cfg, seed=step_seed(seed, f))

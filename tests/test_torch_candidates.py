@@ -134,13 +134,14 @@ def test_render_hdr_tiled_image_scene(monkeypatch):
                                     tables=j_frame_tables(js, jc)))
     ps, pc = to_port_scene(js), to_port_camera(jc)
     calls = []
-    real = prtl.render_frame_tiled_replay_shaded
+    real = prtl._replay_shaded_frame
 
     def spy(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(prtl, "render_frame_tiled_replay_shaded", spy)
+    # render_hdr checks grad once, then runs the frame's unchecked body
+    monkeypatch.setattr(prtl, "_replay_shaded_frame", spy)
     out = prt.render_hdr(ps, pc, to_port_cfg(cfg),
                          tables=prtl.frame_tables(ps, pc))
     assert calls == [1]

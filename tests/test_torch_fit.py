@@ -25,9 +25,9 @@ from raytracer_js_tpu.optim import fit as j_fit
 from raytracer_js_tpu.parallel.sharding import float_partition as j_partition
 from raytracer_js_tpu.render import render_rays as j_render_rays
 from raytracer_js_tpu_torch.models.camera import pixel_rays
+from raytracer_js_tpu_torch.models.scene import (float_leaf_names,
+                                                 float_partition)
 from raytracer_js_tpu_torch.optim import FitConfig, fit
-from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
-                                                       float_partition)
 from raytracer_js_tpu_torch.render import render_rays
 from raytracer_js_tpu_torch.utils import checkpoint as ckpt
 

@@ -26,8 +26,8 @@ from raytracer_js_tpu_torch.config import (HitBackend, OctreeConfig,
                                            RenderConfig, ResponseType)
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
 from raytracer_js_tpu_torch.models.camera import make_camera
-from raytracer_js_tpu_torch.models.scene import SceneBuilder
-from raytracer_js_tpu_torch.parallel.sharding import float_partition
+from raytracer_js_tpu_torch.models.scene import (SceneBuilder,
+                                                 float_partition)
 from raytracer_js_tpu_torch.utils import profiling
 
 W, H = 64, 48

@@ -24,8 +24,8 @@ import raytracer_js_tpu_torch as rt
 from raytracer_js_tpu_torch import HitBackend
 from raytracer_js_tpu_torch.kernels import trace_fused
 from raytracer_js_tpu_torch.models import camera as pcam
-from raytracer_js_tpu_torch.parallel.sharding import (float_leaf_names,
-                                                       float_partition)
+from raytracer_js_tpu_torch.models.scene import (float_leaf_names,
+                                                 float_partition)
 from raytracer_js_tpu_torch.render import render_rays
 
 from scenes import config1_camera, config1_cfg, config1_scene

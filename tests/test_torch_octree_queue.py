@@ -31,9 +31,9 @@ from raytracer_js_tpu_torch.accel import octree as po
 from raytracer_js_tpu_torch.config import OctreeConfig
 from raytracer_js_tpu_torch.kernels import octree_dda
 from raytracer_js_tpu_torch.models.camera import pixel_rays
+from raytracer_js_tpu_torch.models.scene import float_partition
 from raytracer_js_tpu_torch.ops.trace import record_paths
 from raytracer_js_tpu_torch.optim import FitConfig, fit
-from raytracer_js_tpu_torch.parallel.sharding import float_partition
 from raytracer_js_tpu_torch.utils import parity
 
 from scenes import config1_scene

@@ -23,8 +23,8 @@ from raytracer_js_tpu.ops import sampling as jsampling
 from raytracer_js_tpu.ops.trace import record_paths as j_record
 from raytracer_js_tpu.ops.trace import trace_rays as j_trace
 from raytracer_js_tpu.parallel.sharding import float_partition as j_partition
+from raytracer_js_tpu_torch.models.scene import float_partition
 from raytracer_js_tpu_torch.ops import trace as ptrace
-from raytracer_js_tpu_torch.parallel.sharding import float_partition
 from raytracer_js_tpu_torch.utils import parity
 
 from test_replay import _scene

@@ -21,8 +21,8 @@ from raytracer_js_tpu.models.camera import pixel_rays
 from raytracer_js_tpu.ops.trace import record_paths
 from raytracer_js_tpu.parallel.sharding import float_partition as j_partition
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
+from raytracer_js_tpu_torch.models.scene import float_partition
 from raytracer_js_tpu_torch.ops import trace as ptrace
-from raytracer_js_tpu_torch.parallel.sharding import float_partition
 
 from test_replay import _scene as replay_scene
 from test_replay_grad import _scene

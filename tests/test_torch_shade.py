@@ -39,10 +39,9 @@ from raytracer_js_tpu_torch.config import (HitBackend, OctreeConfig,
 from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import shade as shade_kernel
 from raytracer_js_tpu_torch.models.camera import pixel_rays
+from raytracer_js_tpu_torch.models.scene import float_partition, records_grad
 from raytracer_js_tpu_torch.ops import trace
-from raytracer_js_tpu_torch.parallel.sharding import (float_partition,
-                                                      records_grad)
-from raytracer_js_tpu_torch.render import refuse_grad
+from raytracer_js_tpu_torch.ops.trace import refuse_grad
 
 from test_torch_parity import ROOT, load_by_path
 
@@ -688,7 +687,7 @@ def test_a_tiled_frame_chooses_the_shade_once(card, monkeypatch):
 
 @pytest.mark.parametrize("where", ["none", "tensor", "scene", "no_grad"])
 def test_records_grad_is_the_refusal_and_the_dispatch(scenes, card, where):
-    """``records_grad`` decides both ``render.refuse_grad`` and the shade
+    """``records_grad`` decides both ``ops/trace.refuse_grad`` and the shade
     kernel's dispatch: each refuses exactly where the other declines."""
     scene = scenes["field"]
     org = torch.zeros(4, 3)

@@ -22,13 +22,20 @@ torch.set_num_threads(1)
 REFMAX = 3
 
 
-def _scene():
+def _scene(image_sky=False):
     """A ground box, mirrors, diffuse spheres and an emitter (solid
-    textures: FUSED's class)."""
-    b = prt.SceneBuilder()
-    b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
+    textures: FUSED's class); with ``image_sky`` an image sky and rough
+    mirrors (TILED's record and replay frame, several samples apart)."""
+    if image_sky:
+        b = prt.SceneBuilder(atlas_hw=(8, 8))
+        sky = np.random.default_rng(4).uniform(0.2, 1.0, (8, 8, 3))
+        b.set_sky(b.add_image_texture(sky.astype(np.float32)))
+    else:
+        b = prt.SceneBuilder()
+        b.set_sky(b.add_solid_texture((0.35, 0.45, 0.65)))
     diffuse = b.add_material(prt.ResponseType.REFLECTION)
-    mirror = b.add_material(prt.ResponseType.REFLECTION, mirror=True)
+    mirror = b.add_material(prt.ResponseType.REFLECTION, mirror=True,
+                            roughness=0.05 if image_sky else 0.0)
     light = b.add_material(prt.ResponseType.REFLECTION, light=True)
     rng = np.random.default_rng(3)
     pal = [b.add_solid_texture(rng.uniform(0.2, 1.0, 3)) for _ in range(4)]
@@ -44,6 +51,11 @@ def _scene():
 @pytest.fixture(scope="module")
 def scene():
     return _scene()
+
+
+@pytest.fixture(scope="module")
+def image_scene():
+    return _scene(image_sky=True)
 
 
 def _camera(w, h):
@@ -121,7 +133,10 @@ def test_span_totals_count_and_time_profiled_spans():
 
 
 #: backend -> the spans one frame records (FUSED: one frame launch and the
-#: grad check; the wavefront loop: a search and a shading a bounce)
+#: grad check; the wavefront loop: a search and a shading a bounce; TILED
+#: with cached tables: one grad check a call, its rounds, each shading
+#: through ``_bounce``, and its reads; on the image scene two samples, each
+#: a record frame and a replay of ``REFMAX`` shadings)
 _FRAME_SPANS = {
     "brute": {"rt.render": 1, "rt.trace.search": REFMAX,
               "rt.trace.shade": REFMAX},
@@ -131,20 +146,31 @@ _FRAME_SPANS = {
                "rt.trace.shade": REFMAX},
     "fused": {"rt.render": 1, "rt.render.refuse_grad": 1,
               "rt.fused.frame": 1},
+    "tiled": {"rt.render": 1, "rt.render.refuse_grad": 1,
+              "rt.tiled.round": 2, "rt.trace.shade": 2, "rt.sync": 5},
+    "tiled_image": {"rt.render": 1, "rt.render.refuse_grad": 1,
+                    "rt.tiled.round": 4, "rt.trace.shade": 4 + 2 * REFMAX,
+                    "rt.sync": 10},
 }
 
 
 @pytest.mark.parametrize("backend", sorted(_FRAME_SPANS))
-def test_frame_spans(scene, backend):
-    """A ``render_hdr`` frame records each span the expected number of
+def test_frame_spans(scene, image_scene, backend):
+    """A ``render_hdr`` call records each span the expected number of
     times, and is bit-identical with the profiler on and off."""
-    cfg = RenderConfig(refmax=REFMAX, backend=HitBackend[backend.upper()])
-    accel = (build_octree(scene, OctreeConfig(max_depth=3))
+    image = backend == "tiled_image"
+    cfg = RenderConfig(refmax=REFMAX, spp=2 if image else 1,
+                       backend=HitBackend[backend.split("_")[0].upper()])
+    sc = image_scene if image else scene
+    accel = (build_octree(sc, OctreeConfig(max_depth=3))
              if backend == "octree" else None)
     cam = _camera(24, 16)
+    tables = (prtl.frame_tables(sc, cam)
+              if cfg.backend == HitBackend.TILED else None)
 
     def frame():
-        return prt.render_hdr(scene, cam, cfg, seed=7, accel=accel)
+        return prt.render_hdr(sc, cam, cfg, seed=7, accel=accel,
+                              tables=tables)
 
     plain = frame()
     traced, n = _spans(frame)
