@@ -224,6 +224,24 @@ Phases, one JSON line each:
                 and the plain ``_shade``, and ``engages``'s host time
                 (config 4, grad on). ``python3 chip_smoke.py --shade``
                 runs the build and this phase alone.
+ 9k. main-octree-build — the octree's fine grid on the card
+                (``kernels/octree_build``: the count, fill, sort and skip
+                passes; no TPU kernel, the reference builds on the host):
+                (a) config 4's field (100k prims) and config 5's (1M),
+                depth 8, built on the card and on the host (a CPU copy of
+                the scene), every array of the accel equal, and again with
+                ``like=`` an accel of more room and the prims moved; the
+                passes' launches (1, 1, 1, 3); each pass alone (profiler
+                median), the whole build on the card and on the host (host
+                clock), the AABB read and ``grid_inputs`` alone; (b) a
+                depth-9 grid with one occupied corner (distances to 511):
+                the CSR and the skip field against ``native.grid_csr`` and
+                scipy's, most cells capped at 255; (c) a 16-step OCTREE fit
+                of the headline (2 views at 480x272, ``accel_every`` =
+                ``replay_every`` = 8) with the card build and with the host
+                build: losses and leaves equal bit for bit (deterministic
+                algorithms on). ``python3 chip_smoke.py --octree-build``
+                runs the build and this phase alone.
      times (sharded) — the sharded headline frame at one rank against
                 ``render_rays`` FUSED, the all-reduce of a config-5 fit
                 step's gradients at one rank (NCCL) and at two (gloo), and
@@ -284,6 +302,7 @@ from raytracer_js_tpu_torch.accel import candidates as cand
 from raytracer_js_tpu_torch.accel import octree
 from raytracer_js_tpu_torch.kernels import _build
 from raytracer_js_tpu_torch.kernels import nearest_hit as nh
+from raytracer_js_tpu_torch.kernels import octree_build as ob
 from raytracer_js_tpu_torch.kernels import octree_dda as od
 from raytracer_js_tpu_torch.kernels import replay_grad as rg
 from raytracer_js_tpu_torch.kernels import shade
@@ -341,6 +360,7 @@ REPLAY_SOURCE = "raytracer_js_tpu_torch/csrc/replay_grad.cu"
 TILED_SOURCE = "raytracer_js_tpu_torch/csrc/trace_tiled.cu"
 OCTREE_SOURCE = "raytracer_js_tpu_torch/csrc/octree_dda.cu"
 SHADE_SOURCE = "raytracer_js_tpu_torch/csrc/shade.cu"
+BUILD_SOURCE = "raytracer_js_tpu_torch/csrc/octree_build.cu"
 FIT_VIEWS = 8
 #: phase 9f: BASELINE config 2's frame, the octree depths of configs 2 and
 #: 4 (``BASELINE.md``; ``bench.py --c4-backend octree``), the substance
@@ -2704,6 +2724,231 @@ def shade_phase(dev, c4=None, c4_cam=None, build=None) -> dict:
                 max_abs_err=err)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9k: the octree's fine grid on the card
+# ---------------------------------------------------------------------------
+
+#: the build kernels' names on a profiler trace, by pass
+BUILD_PASSES = ("count_kernel", "fill_kernel", "sort_kernel", "skip_kernel")
+
+
+def same_accel(a, b) -> dict:
+    """Each array of two accels equal (dtype, shape, values), and the ints."""
+    out = {k: bool(getattr(a, k).dtype == getattr(b, k).dtype and torch.equal(
+        getattr(a, k).cpu(), getattr(b, k).cpu())) for k in octree._TENSORS}
+    out["ints"] = (a.max_depth, a.l_cut, a.max_per_cell) == (
+        b.max_depth, b.l_cut, b.max_per_cell)
+    return out
+
+
+def host_build(scene, *args, like=None, build=octree.build_octree, **kw):
+    """``build_octree``'s host path for a scene on the card: the build of a
+    CPU copy, moved to the card."""
+    acc = build(scene.to("cpu"), *args, like=(
+        None if like is None else like.to("cpu")), **kw)
+    return acc.to(scene.device)
+
+
+def build_times(scene, cfg, reps) -> dict:
+    """A build on the card: the whole ``build_octree`` (host clock to a
+    synchronize, median of ``reps``), its host stages alone (the AABB read,
+    ``grid_inputs``), and each pass alone on a profiler trace (median of
+    its launches; a build's time is their mean times the launches a build
+    that ``LAUNCHES`` counts, since a trace can miss its first
+    operations)."""
+    octree.build_octree(scene, cfg)
+    torch.cuda.synchronize()
+    whole = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        octree.build_octree(scene, cfg)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    lo, hi = octree._aabbs_f64(scene)[2:]
+    read_ms = host_median_ms(lambda: octree._aabbs_f64(scene), warmup=1,
+                             timed=3)
+    inputs_ms = host_median_ms(lambda: octree.grid_inputs(
+        lo, hi, cfg.max_depth), warmup=0, timed=3)
+    before = dict(ob.LAUNCHES)
+    evs = device_events([lambda: octree.build_octree(scene, cfg)], reps)
+    passes = {}
+    for p in BUILD_PASSES:
+        ms = [t for name, t in evs if p in name]
+        per_build = (ob.LAUNCHES[p[:-7]] - before[p[:-7]]) / reps
+        passes[p] = dict(median_ms=statistics.median(ms) if ms else None,
+                         launches=len(ms), per_build_ms=(
+                             statistics.fmean(ms) * per_build if ms
+                             else None))
+    other = [(n, t) for n, t in evs
+             if not any(p in n for p in BUILD_PASSES)]
+    return dict(whole_ms=spread(whole), aabb_read_ms=read_ms,
+                grid_inputs_ms=inputs_ms, passes=passes,
+                other_device_ms_per_build=sum(t for _, t in other) / reps,
+                other_device_ops_per_build=len(other) / reps)
+
+
+def octree_build_phase(dev) -> dict:
+    """Phase 9k, main-octree-build (module docstring): (a) config 4 (100k
+    prims) and config 5's field (1M), depth 8, built on the card and on the
+    host, every array equal, and with ``like=``; times; (b) a depth-9 grid
+    with one occupied corner, the skip field against the host's, capped at
+    255; (c) a 16-step OCTREE fit rebuilding every 8 steps, its losses and
+    leaves with the card build equal to those with the host build."""
+    out = {}
+    cfg = rt.OctreeConfig(max_depth=C4_DEPTH)
+    # (a) the two fields
+    for case, n, reps, host_reps in (("config4_100k", 100_000, 5, 3),
+                                     ("config5_1m", 1_000_000, 5, 2)):
+        scene = config4_scene(n, device=dev)
+        before = dict(ob.LAUNCHES)
+        acc = octree.build_octree(scene, cfg)
+        torch.cuda.synchronize()
+        launched = {k: ob.LAUNCHES[k] - before[k] for k in before}
+        want = host_build(scene, cfg)
+        equal = same_accel(acc, want)
+        # like=: an accel of more room than the build needs, the prims moved
+        n_ids, n_coarse = acc.cell_ids.numel(), acc.coarse_ids.numel()
+        roomy = dataclasses.replace(
+            acc, cell_ids=torch.zeros(n_ids + n_ids // 20 + 64,
+                                      dtype=torch.int32, device=dev),
+            coarse_ids=torch.full((n_coarse + 8,), -1, dtype=torch.int32,
+                                  device=dev),
+            max_per_cell=acc.max_per_cell + 4)
+        moved = dataclasses.replace(
+            scene, sphere_center=scene.sphere_center + 0.013)
+        equal_like = same_accel(octree.build_octree(moved, cfg, like=roomy),
+                                host_build(moved, cfg, like=roomy))
+        times = build_times(scene, cfg, reps)
+        host_ms = [host_median_ms(lambda: host_build(scene, cfg), warmup=0,
+                                  timed=1) for _ in range(host_reps)]
+        pairs, cells = int(acc.cell_offsets[-1]), (1 << C4_DEPTH) ** 3
+        # each input byte read once (AABBs, mask), each output byte written
+        # once (offsets, ids, skip field)
+        bnd = bound(0.0, 25 * scene.n_prims + 4 * (cells + 1) + 4 * pairs
+                    + cells)
+        rep = dict(prims=scene.n_prims, depth=C4_DEPTH, pairs=pairs,
+                   occupied=int((acc.skip_dist == 0).sum()),
+                   max_skip=int(acc.skip_dist.max()),
+                   max_per_cell=acc.max_per_cell,
+                   coarse=int((acc.coarse_ids >= 0).sum()),
+                   launches=launched, equal=equal, equal_like=equal_like,
+                   host_build_ms=spread(host_ms),
+                   passes_ms=sum(p["per_build_ms"] or 0.0
+                                 for p in times["passes"].values()),
+                   bound_ms=bnd[0], bound_by=bnd[1], **times)
+        emit(phase="main-octree-build", case=f"a_{case}", **rep)
+        check(all(equal.values()) and all(equal_like.values()),
+              f"the card build differs from the host build on {case}: "
+              f"{equal}, like= {equal_like}")
+        check(launched == {"count": 1, "fill": 1, "sort": 1, "skip": 3},
+              f"the build of a scene on the card did not take the card "
+              f"path: {launched}")
+        out[case] = rep
+
+    # (b) one occupied corner at depth 9: distances to 511, capped at 255
+    depth, R = 9, 512
+    lo = torch.full((1, 3), 0.25, device=dev)
+    hi = torch.full((1, 3), 0.5, device=dev)
+    fine = torch.ones((1,), dtype=torch.uint8, device=dev)
+    rl = np.zeros(3, np.float32)
+    offsets, total, most = ob.count(lo, hi, fine, rl, float(R), depth)
+    ids = ob.fill(lo, hi, fine, rl, float(R), depth, offsets, total)
+    skip = ob.skip_field(offsets, depth)
+    off_h, ids_h, most_h = native.grid_csr(
+        lo.cpu().numpy(), hi.cpu().numpy(), np.ones(1, bool), rl, float(R),
+        depth)
+    skip_h = octree._skip_field_host(off_h, R)
+    corner = dict(total=total, max_per_cell=most,
+                  offsets_equal=bool(np.array_equal(offsets.cpu().numpy(),
+                                                    off_h)),
+                  ids_equal=bool(np.array_equal(ids.cpu().numpy(), ids_h)),
+                  skip_equal=bool(np.array_equal(skip.cpu().numpy(),
+                                                 skip_h)),
+                  capped_cells=int((skip == 255).sum()),
+                  skip_ms=cuda_median_ms(lambda: ob.skip_field(offsets,
+                                                               depth),
+                                         warmup=1, timed=5))
+    del skip_h
+    emit(phase="main-octree-build", case="b_depth9_corner", **corner)
+    check(corner["offsets_equal"] and corner["ids_equal"]
+          and corner["skip_equal"] and total == most_h == most == 1
+          and corner["capped_cells"] > R ** 3 // 2,
+          f"the depth-9 corner grid differs from the host's: {corner}")
+
+    # (c) a fit that rebuilds its octree, with the card build and the host
+    # build: the same accel, so the same losses and leaves bit for bit (52
+    # prims keep B5's sums in their fixed order; deterministic algorithms
+    # fix the gathers' backward)
+    head = headline_scene(device=dev)
+    cams = fit_cameras(480, 272, n=2, device=dev)
+    cfg_o = RenderConfig(refmax=2, backend=HitBackend.OCTREE)
+    targets = torch.stack([rt.render_hdr(
+        head, c, RenderConfig(refmax=2, backend=HitBackend.FUSED)).reshape(
+        -1, 3) for c in cams])
+    start = perturbed(head)
+    fc = FitConfig(steps=16, lr=1e-2, replay_every=8, accel_every=8)
+    real_build = octree.build_octree
+    fits, rebuilds = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for path, build in (("card", real_build), ("host", host_build)):
+            before = dict(ob.LAUNCHES)
+            octree.build_octree = build
+            try:
+                fits[path] = fit(start, cfg_o, cams, targets, fc,
+                                 accel=build(start, cfg))
+            finally:
+                octree.build_octree = real_build
+            rebuilds[path] = {k: ob.LAUNCHES[k] - before[k] for k in before}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = fits["card"], fits["host"]
+    leaves_equal = all(torch.equal(x, y) for x, y in zip(
+        float_partition(a.scene)[0], float_partition(b.scene)[0]))
+    fit_rep = dict(steps=fc.steps, accel_every=fc.accel_every,
+                   views=len(cams), losses_card=a.losses,
+                   losses_host=b.losses, leaves_equal=leaves_equal,
+                   launches=rebuilds)
+    emit(phase="main-octree-build", case="c_fit_card_vs_host_build",
+         **fit_rep)
+    check(a.losses == b.losses and leaves_equal,
+          f"the fit with the card build differs from the host build's: "
+          f"{fit_rep}")
+    check(rebuilds["card"]["count"] == 2 and rebuilds["host"]["count"] == 0,
+          f"the fits' builds took the wrong path: {rebuilds}")
+    out["fit"] = fit_rep
+    big = out["config5_1m"]
+    out["row"] = dict(launches=big["launches"], ms=big["passes_ms"],
+                      plain_ms=big["host_build_ms"]["median"],
+                      bound=(big["bound_ms"], big["bound_by"]),
+                      whole_build_ms=big["whole_ms"]["median"],
+                      passes={k: v["median_ms"]
+                              for k, v in big["passes"].items()})
+    return out
+
+
+def octree_build_only() -> int:
+    """``python3 chip_smoke.py --octree-build``: the build (with ptxas's
+    report of the build kernels) and phase 9k alone."""
+    dev = card()
+    if dev is None:
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    build = _build.build()
+    _build.load()
+    emit(phase="build", seconds=time.perf_counter() - t0, card=smi,
+         ptxas=ptxas_of(build.log, list(BUILD_PASSES)))
+    octree_build_phase(dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": smi.split(",")[0],
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def card():
     """The card, current and with TF32 refused; None (and why, on standard
     error) without one."""
@@ -3806,6 +4051,9 @@ def main() -> int:
     # ---- 9j. main-shade: the wavefront shade kernel -------------------------
     shade_row = shade_phase(dev, c4, c4_cam, build)
 
+    # ---- 9k. main-octree-build: the octree's fine grid on the card ----------
+    build_row = octree_build_phase(dev)["row"]
+
     # ---- 10. times at the main paths' shapes -------------------------------
     # B1 and B2 by events around their wrappers (the tables kept on the
     # scene) and alone by the profiler, at refmax 2 and 1
@@ -4355,6 +4603,20 @@ def main() -> int:
             bounce1_as_the_frame_launches_it=shade_row["times"]["bounce1"],
             engages_us=shade_row["engages_us"],
             ptxas=ptxas_of(build.log, ["shade_bounce_kernel"])),
+        # no kernel: the reference builds its octree on the host; the four
+        # passes' device time a build against the host build of the grid
+        row("octree_build (count, fill, sort, skip)", BUILD_SOURCE,
+            "raytracer_js_tpu/accel/octree.py build_octree (host, no kernel)",
+            build_row["launches"], 0, build_row["ms"],
+            build_row["plain_ms"], build_row["bound"],
+            timing="the passes' kernel times summed a build: each pass's "
+                   "mean in a torch.profiler trace of the card times its "
+                   "launches a build",
+            case="config 5's field, 1M prims, depth 8: the passes' device "
+                 "time a build; plain_ms the host build (host clock)",
+            passes_ms=build_row["passes"],
+            whole_build_ms=build_row["whole_build_ms"],
+            ptxas=ptxas_of(build.log, list(BUILD_PASSES))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -4527,4 +4789,6 @@ if __name__ == "__main__":
         sys.exit(shade_only())
     if sys.argv[1:2] == ["--replay-1m"]:
         sys.exit(replay_1m_only())
+    if sys.argv[1:2] == ["--octree-build"]:
+        sys.exit(octree_build_only())
     sys.exit(main())

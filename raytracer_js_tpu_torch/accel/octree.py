@@ -11,9 +11,19 @@ primitives at ``l_cut``:
   ids`` table over the ``2^max_depth``-per-axis finest grid, covering every
   finest cell its AABB overlaps, with a chessboard-distance skip field.
 
-The build is host NumPy (with the native scene kit's CSR scatter,
-``native.grid_csr``) and reproduces the reference package's arrays bit for
-bit; its tensors are then put on the scene's device once. The queries run
+Where each array is made: the prims' float32 AABBs are read to the host
+(one ``rt.sync``), and host NumPy makes every float64 decision, the same
+for every scene: ``root_lo`` and ``root_size`` (the median-based cube of
+:func:`_small_inside`), the fine mask (:func:`grid_inputs`), the
+``coarse_ids`` list, ``max_depth`` and ``l_cut``. The fine grid follows the
+scene's device. A CPU scene takes the native scene kit's CSR scatter
+(``native.grid_csr``) for ``cell_offsets``, ``cell_ids`` and
+``max_per_cell``, and scipy's distance transform for ``skip_dist``. A scene
+on the card makes those on the card (``kernels/octree_build``: the count,
+a scan, one read of the pair total and the largest count, the fill and
+sort, the three skip passes), from the AABBs already there, the uploaded
+fine mask and the float32 root; the host path is its plain version. Either
+way the arrays equal the reference package's bit for bit. The queries run
 on that device: :func:`nearest_hit_octree` (a coarse brute pass, then a
 grid DDA with the empty-space skip; on the card one kernel launch,
 ``kernels/octree_dda``, on the CPU its plain version
@@ -33,7 +43,7 @@ import torch
 
 from .. import native
 from ..config import OctreeConfig
-from ..kernels import _build, octree_dda
+from ..kernels import _build, octree_build, octree_dda
 from ..models.scene import Scene, prim_aabbs
 from ..ops import intersect as I
 from ..ops.vecmath import cross, dot
@@ -75,7 +85,7 @@ class OctreeAccel:
 
 
 # ---------------------------------------------------------------------------
-# Build (host NumPy)
+# Build (host NumPy; the fine grid on the scene's device)
 # ---------------------------------------------------------------------------
 
 def _morton3(ix: np.ndarray, iy: np.ndarray, iz: np.ndarray,
@@ -113,13 +123,14 @@ def covering_levels(lo: np.ndarray, hi: np.ndarray, root_lo: np.ndarray,
     return level.astype(np.int64), chosen
 
 
-def _aabbs_f64(scene: Scene) -> Tuple[np.ndarray, np.ndarray]:
-    """The float32 prim AABBs, read as float64 on the host (an ``rt.sync``
-    span: the build's one read from the device)."""
-    lo, hi = prim_aabbs(scene)
+def _aabbs_f64(scene: Scene):
+    """The float32 prim AABBs -> (lo, hi [P, 3] f32 on the scene's device,
+    the same read as float64 on the host: an ``rt.sync`` span)."""
+    lo, hi = (a.detach() for a in prim_aabbs(scene))
     with span("rt.sync"):
-        lo, hi = lo.detach().cpu(), hi.detach().cpu()
-    return lo.numpy().astype(np.float64), hi.numpy().astype(np.float64)
+        lo_h, hi_h = lo.cpu(), hi.cpu()
+    return (lo, hi, lo_h.numpy().astype(np.float64),
+            hi_h.numpy().astype(np.float64))
 
 
 def _small_inside(lo: np.ndarray, hi: np.ndarray):
@@ -165,7 +176,9 @@ def build_octree(scene: Scene, cfg: Optional[OctreeConfig] = None,
                  l_cut: Optional[int] = None,
                  like: Optional[OctreeAccel] = None) -> OctreeAccel:
     """Build the flat octree over a scene's primitive AABBs, on the scene's
-    device.
+    device: the fine grid on the card for a scene there, on the host for a
+    CPU scene (the module docstring says which array is made where; the
+    two give the same arrays).
 
     ``like`` pins the output to a previous accel's shapes (CSR id capacity,
     coarse capacity, per-cell bound), so a fit can rebuild it as geometry
@@ -175,7 +188,7 @@ def build_octree(scene: Scene, cfg: Optional[OctreeConfig] = None,
     """
     cfg = cfg or OctreeConfig()
     dev = scene.device
-    lo, hi = _aabbs_f64(scene)
+    lo_d, hi_d, lo, hi = _aabbs_f64(scene)
     P = lo.shape[0]
     L = int(cfg.max_depth)
     R = 1 << L
@@ -199,55 +212,71 @@ def build_octree(scene: Scene, cfg: Optional[OctreeConfig] = None,
     coarse = np.where(~fine_mask)[0].astype(np.int32)
     if coarse.size == 0:
         coarse = np.full((1,), -1, np.int32)
+    rl32 = np.asarray(root_lo, np.float32)
 
-    offsets, cell_ids, max_per_cell = native.grid_csr(
-        lo32, hi32, fine_mask, np.asarray(root_lo, np.float32), size, L)
+    host = _build.on_cpu(dev)
+    if host:
+        offsets, cell_ids, max_per_cell = native.grid_csr(
+            lo32, hi32, fine_mask, rl32, size, L)
+        n_ids = cell_ids.size
+    else:
+        grid = (lo_d, hi_d, put(fine_mask, torch.uint8), rl32, size, L)
+        offsets, n_ids, max_per_cell = octree_build.count(*grid)
     max_per_cell = max(1, max_per_cell)
     if max_per_cell > scene.n_prims:
         raise ValueError("octree cell overflow")
 
+    capacity = n_ids
     if like is not None:
-        if (cell_ids.size > like.cell_ids.shape[0]
+        if (n_ids > like.cell_ids.shape[0]
                 or coarse.size > like.coarse_ids.shape[0]
                 or max_per_cell > like.max_per_cell
                 or L != like.max_depth):
             raise ValueError(
                 "octree rebuild exceeds pinned capacity "
-                f"(ids {cell_ids.size}>{like.cell_ids.shape[0]} or coarse "
+                f"(ids {n_ids}>{like.cell_ids.shape[0]} or coarse "
                 f"{coarse.size}>{like.coarse_ids.shape[0]} or per-cell "
                 f"{max_per_cell}>{like.max_per_cell}); rebuild without "
                 "like=")
-        cell_ids = np.concatenate(
-            [cell_ids, np.zeros(like.cell_ids.shape[0] - cell_ids.size,
-                                cell_ids.dtype)])     # never indexed
+        capacity = like.cell_ids.shape[0]      # the padding is never indexed
         coarse = np.concatenate(
             [coarse, np.full(like.coarse_ids.shape[0] - coarse.size, -1,
                              coarse.dtype)])
         max_per_cell = like.max_per_cell
 
-    # empty-space skip field: chessboard distance to the nearest occupied
-    # cell, capped at u8; the NumPy fallback's lower cap only weakens the
-    # skip (a smaller distance promises less), never correctness
-    occ = (np.diff(offsets) > 0).reshape(R, R, R)
-    if not occ.any():
-        dist = np.full((R, R, R), 255, np.int64)
+    if host:
+        cell_ids = put(np.concatenate(
+            [cell_ids, np.zeros(capacity - n_ids, cell_ids.dtype)]),
+            torch.int32)
+        skip = put(_skip_field_host(offsets, R), torch.uint8)
+        offsets = put(offsets, torch.int32)
     else:
-        try:
-            from scipy import ndimage
-
-            dist = ndimage.distance_transform_cdt(~occ, metric="chessboard")
-        except ImportError:
-            dist = _chebyshev_dist_np(occ, cap=15)
-    skip = np.minimum(dist, 255).astype(np.uint8).reshape(-1)
+        cell_ids = octree_build.fill(*grid, offsets, capacity)
+        skip = octree_build.skip_field(offsets, L)
 
     return OctreeAccel(
-        root_lo=put(np.asarray(root_lo, np.float32), torch.float32),
+        root_lo=put(rl32, torch.float32),
         root_size=put(np.float32(size), torch.float32),
         coarse_ids=put(coarse, torch.int32),
-        cell_offsets=put(offsets, torch.int32),
-        cell_ids=put(cell_ids, torch.int32),
-        skip_dist=put(skip, torch.uint8),
-        max_depth=L, l_cut=l_cut, max_per_cell=max(1, max_per_cell))
+        cell_offsets=offsets, cell_ids=cell_ids, skip_dist=skip,
+        max_depth=L, l_cut=l_cut, max_per_cell=max_per_cell)
+
+
+def _skip_field_host(offsets: np.ndarray, R: int) -> np.ndarray:
+    """The empty-space skip field of a host CSR -> [R^3] u8: the chessboard
+    distance to the nearest occupied cell, capped at u8; the NumPy
+    fallback's lower cap only weakens the skip (a smaller distance promises
+    less), never correctness."""
+    occ = (np.diff(offsets) > 0).reshape(R, R, R)
+    if not occ.any():
+        return np.full((R ** 3,), 255, np.uint8)
+    try:
+        from scipy import ndimage
+
+        dist = ndimage.distance_transform_cdt(~occ, metric="chessboard")
+    except ImportError:
+        dist = _chebyshev_dist_np(occ, cap=15)
+    return np.minimum(dist, 255).astype(np.uint8).reshape(-1)
 
 
 def _chebyshev_dist_np(occ: np.ndarray, cap: int = 15) -> np.ndarray:
@@ -280,7 +309,7 @@ def build_node_directory(scene: Scene, cfg: Optional[OctreeConfig] = None
     host-side, for inspection and :func:`walk_nodes`; traversal never
     reads it."""
     cfg = cfg or OctreeConfig()
-    lo, hi = _aabbs_f64(scene)
+    lo, hi = _aabbs_f64(scene)[2:]
     if lo.shape[0] == 0:
         return np.zeros((0,), np.int32), np.zeros((0,), np.int32)
     L = int(cfg.max_depth)

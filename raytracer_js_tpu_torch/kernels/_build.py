@@ -167,6 +167,15 @@ SIGNATURES = {
                          _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                          _P, _I, _U, _I, _F, _LL, _P, _P, _P, _P, _P, _P, _I,
                          _P], _I),
+    # lo, hi, fine mask, n, root_lo (three floats), root_size, depth, counts,
+    # device, stream
+    "rt_octree_count": ([_P, _P, _P, _LL, _F, _F, _F, _F, _I, _P, _I, _P],
+                        _I),
+    # count's arguments, then offsets, cursor, ids, device, stream
+    "rt_octree_fill": ([_P, _P, _P, _LL, _F, _F, _F, _F, _I, _P, _P, _P, _I,
+                        _P], _I),
+    # offsets, out, u8 scratch, deque scratch, res, device, stream
+    "rt_octree_skip": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "rt_replay_fwd": (_REPLAY_ARGS + [_P, _I, _P], _I),
     # atten2, g_color, n_glob, g_org, g_dir, out, partial, blocks, device,
     # stream

@@ -35,6 +35,7 @@ def _ctype(param: str):
 
 def test_sources_are_every_cu_file():
     assert sorted(p.name for p in _build.SOURCES) == ["nearest_hit.cu",
+                                                      "octree_build.cu",
                                                       "octree_dda.cu",
                                                       "replay_grad.cu",
                                                       "shade.cu",

@@ -8,11 +8,7 @@ itself runs only on the card (``chip_smoke.py`` phase 9f); its source is
 also compiled here by g++ against a header that runs each thread of a
 launch in turn, and held to the plain loop bit for bit, the live mask
 included."""
-import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -36,6 +32,7 @@ from raytracer_js_tpu_torch.ops.trace import record_paths
 from raytracer_js_tpu_torch.optim import FitConfig, fit
 from raytracer_js_tpu_torch.utils import parity
 
+import cuda_emu
 from scenes import config1_scene
 from test_octree import _random_scene
 from test_torch_octree_dda import _model, _rays
@@ -326,73 +323,22 @@ def test_masked_fit_equals_the_unmasked_fit(unmasked):
 # The CUDA source on the CPU: one thread a ray, run in turn
 # ---------------------------------------------------------------------------
 
-#: the CUDA built-ins the search kernel uses, for g++: a launch runs every
-#: thread of the grid in turn
-_STUB = r"""
-#pragma once
-#include <climits>
-#include <cmath>
-#include <functional>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline Dim3 threadIdx, blockIdx;
-template <class T> inline T __ldg(const T* p) { return *p; }
+#: what the search kernel uses beyond ``cuda_emu.STUB``: cvt.rzi's
+#: truncation, saturating and NaN to 0
+_EXTRA = r"""
 inline int __float2int_rz(float x) {
   if (x != x) return 0;
   const double d = std::trunc((double)x);
   return d < (double)INT_MIN ? INT_MIN : (d > (double)INT_MAX ? INT_MAX
                                                              : (int)d);
 }
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline void emu_launch(unsigned grid, unsigned block,
-                       const std::function<void()>& body) {
-  for (unsigned b = 0; b < grid; ++b)
-    for (unsigned t = 0; t < block; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      body();
-    }
-}
 """
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """``csrc/octree_dda.cu`` built by g++ against :data:`_STUB` and loaded
-    with the entry's ctypes signature."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernel's source for the CPU")
-    d = tmp_path_factory.mktemp("octree_dda_cpu")
-    (d / "cuda_runtime.h").write_text(_STUB)
-    src = (ROOT / "raytracer_js_tpu_torch" / "csrc" /
-           "octree_dda.cu").read_text()
-    # kernel<<<grid, block, smem, stream>>>(args); -> emu_launch(...)
-    src, n = re.subn(
-        r"(\w+)<<<\s*([^,]+),\s*([^,]+),[^>]*>>>\s*\(([^;]*)\);",
-        lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, [&] "
-                   f"{{ {m.group(1)}({m.group(4)}); }});"), src, flags=re.S)
-    assert n == 1
-    (d / "octree_dda.cpp").write_text(src)
-    lib = d / "liboctree_dda_cpu.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", f"-I{d}", str(d / "octree_dda.cpp"), "-o",
-                    str(lib)], check=True, capture_output=True)
-    from raytracer_js_tpu_torch.kernels import _build
-
-    cdll = ctypes.CDLL(str(lib))
-    argtypes, restype = _build.SIGNATURES["rt_octree_dda"]
-    cdll.rt_octree_dda.argtypes = argtypes
-    cdll.rt_octree_dda.restype = restype
-    return cdll
+    """``csrc/octree_dda.cu`` built by g++ for the CPU."""
+    return cuda_emu.build(tmp_path_factory, "octree_dda", 1, _EXTRA)
 
 
 def _emulated_search(cdll, scene, accel, org, dir, live=None):

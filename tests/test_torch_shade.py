@@ -19,10 +19,6 @@ The kernel runs on the card only in ``chip_smoke.py`` (phase 9j), which
 holds it to the plain ``_shade`` there."""
 import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
@@ -43,6 +39,7 @@ from raytracer_js_tpu_torch.models.scene import float_partition, records_grad
 from raytracer_js_tpu_torch.ops import trace
 from raytracer_js_tpu_torch.ops.trace import refuse_grad
 
+import cuda_emu
 from test_torch_parity import ROOT, load_by_path
 
 f32 = np.float32
@@ -446,28 +443,9 @@ def test_the_field_reaches_every_branch(scenes):
 # The CUDA source on the CPU
 # ---------------------------------------------------------------------------
 
-#: the CUDA built-ins the shade kernel uses, for g++: a launch runs every
-#: thread of the grid in turn; the elementary functions are pointers the
-#: test sets to torch's
-_STUB = r"""
-#pragma once
-#include <algorithm>
-#include <cmath>
-#include <functional>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline Dim3 threadIdx, blockIdx;
-using std::min;
-template <class T> inline T __ldg(const T* p) { return *p; }
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+#: what the shade kernel uses beyond ``cuda_emu.STUB``: the elementary
+#: functions are pointers the test sets to torch's
+_EXTRA = r"""
 extern "C" {
 float (*emu_sqrt)(float), (*emu_rsqrt)(float), (*emu_exp)(float),
     (*emu_log)(float), (*emu_cos)(float), (*emu_sin)(float);
@@ -479,15 +457,6 @@ inline float rsqrtf(float x) { return emu_rsqrt(x); }
 #define logf(x) emu_log(x)
 #define cosf(x) emu_cos(x)
 #define sinf(x) emu_sin(x)
-inline void emu_launch(unsigned grid, unsigned block,
-                       const std::function<void()>& body) {
-  for (unsigned b = 0; b < grid; ++b)
-    for (unsigned t = 0; t < block; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      body();
-    }
-}
 """
 
 _FN = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
@@ -495,28 +464,9 @@ _FN = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """``csrc/shade.cu`` built by g++ against :data:`_STUB`, its entry
-    typed as ``_build.SIGNATURES`` types it."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernel's source for the CPU")
-    d = tmp_path_factory.mktemp("shade_cpu")
-    (d / "cuda_runtime.h").write_text(_STUB)
-    src = (ROOT / "raytracer_js_tpu_torch" / "csrc" / "shade.cu").read_text()
-    src, n = re.subn(
-        r"(\w+)<<<\s*([^,]+),\s*([^,]+),[^>]*>>>\s*\(([^;]*)\);",
-        lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, [&] "
-                   f"{{ {m.group(1)}({m.group(4)}); }});"), src, flags=re.S)
-    assert n == 1
-    (d / "shade.cpp").write_text(src)
-    lib = d / "libshade_cpu.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", f"-I{d}", str(d / "shade.cpp"), "-o",
-                    str(lib)], check=True, capture_output=True)
-    cdll = ctypes.CDLL(str(lib))
-    argtypes, restype = _build.SIGNATURES["rt_shade_bounce"]
-    cdll.rt_shade_bounce.argtypes = argtypes
-    cdll.rt_shade_bounce.restype = restype
+    """``csrc/shade.cu`` built by g++ for the CPU, its elementary functions
+    torch's."""
+    cdll = cuda_emu.build(tmp_path_factory, "shade", 1, _EXTRA)
     keep = []
     for name in ("sqrt", "rsqrt", "exp", "log", "cos", "sin"):
         cb = _FN(lambda x, fn=name: float(_torch1(fn, f32(x))))
@@ -527,29 +477,13 @@ def emulated(tmp_path_factory):
     return cdll
 
 
-class _EmulatedBuild(types.SimpleNamespace):
-    """``kernels/_build`` for ``kernels/shade`` with the CPU as the card:
-    the launch wrapper runs as on the card, into the g++ build."""
-
-    def __getattr__(self, name):
-        return getattr(_build, name)
-
-    @staticmethod
-    def on_cpu(device):
-        return False if device.type == "cpu" else _build.on_cpu(device)
-
-    @staticmethod
-    def stream(device):
-        return None
-
-
 @pytest.fixture
 def card(emulated, monkeypatch):
     """The CPU as the card for the shade kernel: ``engages`` admits CPU
     tensors and ``launch`` runs the CUDA source built by g++. Counts each
     launch's rays."""
     monkeypatch.setattr(shade_kernel, "_build",
-                        _EmulatedBuild(load=lambda: emulated))
+                        cuda_emu.EmulatedBuild(load=lambda: emulated))
     monkeypatch.setattr(shade_kernel, "LAUNCHES", {"shade": 0, "plain": 0})
     return shade_kernel.LAUNCHES
 
