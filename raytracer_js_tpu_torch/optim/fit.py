@@ -80,7 +80,13 @@ class FitResult:
 class FitStep:
     """What :func:`fit`'s ``hook`` sees of a step, after the gradients are
     final (all-reduced, masked, projected) and before the optimizer step.
-    The tensors are the fit's own: copy what outlives the call."""
+    The tensors are the fit's own: copy what outlives the call.
+
+    With a ``mesh`` each rank's hook sees its own step: ``loss`` and
+    ``grads`` are already summed over the ranks (the same on every rank),
+    ``params`` and the optimizer's state are the rank's replica (the same
+    bits on every rank), and ``recs`` holds the winners of the rank's own
+    rows of each view only (``mesh.rows``)."""
 
     step: int
     #: the step's loss (0-d, detached; the sum over the ranks with a mesh)
@@ -90,8 +96,9 @@ class FitStep:
     #: front, left, up with ``fit_cameras``), and their gradients
     params: List[Tensor]
     grads: List[Tensor]
-    #: the winners the step replayed (per view, [rays, refmax] of its
-    #: rows; None without ``replay_every``), and whether it recorded them
+    #: the winners the step replayed (per view, [rays, refmax] of this
+    #: rank's rows; None without ``replay_every``), and whether it recorded
+    #: them
     recs: Optional[List[Tensor]]
     recorded: bool
     #: the fit's ``torch.optim`` optimizer, before its step (its ``state``
@@ -227,8 +234,9 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
     contiguous slices (rays per view must divide over them), each rank
     traces, records and replays its slice (a TILED ``cfg`` as BRUTE) and
     differentiates its part of the loss, then the loss and gradients are
-    all-reduced once, before the mask, the triad projection and the
-    optimizer step. Every rank thus takes the same step and the params stay
+    all-reduced once (the span ``rt.fit.allreduce``; the collective is
+    counted in ``sharding.ALLREDUCE``), before the mask, the triad
+    projection and the optimizer step. Every rank thus takes the same step and the params stay
     replicated bit for bit. Each rank rebuilds the same accel. Only rank 0
     writes checkpoints; every rank restores.
 
@@ -314,8 +322,9 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                 grads = [torch.zeros_like(p) if p.grad is None else p.grad
                          for p in params]
                 if mesh is not None:
-                    loss, *grads = sharding.all_reduce_sum(
-                        mesh, [loss.detach(), *grads])
+                    with span("rt.fit.allreduce"):
+                        loss, *grads = sharding.all_reduce_sum(
+                            mesh, [loss.detach(), *grads])
                 if trainable is not None:
                     grads = [g if trainable(i, p) else torch.zeros_like(g)
                              for i, (g, p) in enumerate(zip(grads, params))]

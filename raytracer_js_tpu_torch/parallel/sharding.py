@@ -33,6 +33,9 @@ Tensor = torch.Tensor
 #: name of the one axis rays are sharded over (every rank of every host;
 #: rays never communicate)
 RAY_AXIS = "rays"
+#: collectives :func:`all_reduce_sum` ran (``calls``) and the bytes it
+#: handed them (``bytes``); a one-rank mesh runs none and counts nothing
+ALLREDUCE = {"calls": 0, "bytes": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,11 +80,14 @@ def make_mesh(group=None, device=None) -> Mesh:
 
 def all_reduce_sum(mesh: Mesh, tensors: Sequence[Tensor]) -> List[Tensor]:
     """Sum each tensor over the mesh's ranks, in one collective over their
-    flattened concatenation -> new tensors of the same shapes. The one-rank
-    mesh of a single process returns them unchanged."""
+    flattened concatenation -> new tensors of the same shapes, counted in
+    :data:`ALLREDUCE`. The one-rank mesh of a single process returns them
+    unchanged."""
     if mesh.group is None:
         return list(tensors)
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    ALLREDUCE["calls"] += 1
+    ALLREDUCE["bytes"] += flat.numel() * flat.element_size()
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
     sizes = [t.numel() for t in tensors]
     return [part.reshape(t.shape)
